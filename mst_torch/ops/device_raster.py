@@ -1,0 +1,131 @@
+"""On-device rasterization: quantized note records -> dense piano-roll.
+
+Counterpart of mst_tpu/ops/device_raster.py. The host parses and quantizes
+MIDI (exact float64 grid math, mst_torch.ops.quantize) and ships only the
+note records — (cell row, note index, accidental, duration, velocity,
+valid), a few hundred KB — while the dense (channel, bar, beat, fraction,
+note*feature) raster is materialized on the device by ``segment_rasterize``:
+K1 (``csrc/raster.cu``, through mst_torch.ops.raster_kernel) for CUDA
+tensors, its plain torch version for CPU tensors.
+
+The host preparation (``encode_notes``, ``concat_and_pad`` with the sentinel
+row 2**30 and the ``_pad_to`` note buckets) is a copy of the JAX package's,
+so both frameworks see the same records.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from mst_torch.ops import raster_kernel
+from mst_torch.ops.rasterize import QNotes, Rasterizer
+
+SENTINEL_ROW = raster_kernel.SENTINEL_ROW
+
+
+@dataclasses.dataclass
+class DeviceNotes:
+    """Host-prepared note records for device rasterization (all (N,) arrays,
+    padded to a static length with ``valid``)."""
+
+    row: np.ndarray       # int32, flattened (channel, bar, beat, frac) cell
+    note_idx: np.ndarray  # int32, raster note row (0..n_notes)
+    acc: np.ndarray       # int32, accidental code (pitched) or 0
+    duration: np.ndarray  # float32, beats
+    velocity: np.ndarray  # float32
+    valid: np.ndarray     # bool
+
+    def __len__(self):
+        return self.row.shape[0]
+
+    def to(self, device) -> Tuple[torch.Tensor, ...]:
+        """The six record arrays as tensors on ``device``, in
+        ``segment_rasterize`` argument order."""
+        return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device)
+                     for a in (self.row, self.note_idx, self.acc,
+                               self.duration, self.velocity, self.valid))
+
+
+def _pad_to(n: int, buckets=(512, 2048, 8192, 32768, 131072)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+def encode_notes(rasterizer: Rasterizer, q: QNotes, channel_index: int,
+                 pitched: bool, n_channels: int, n_bars: int,
+                 valid_bars: Optional[int] = None,
+                 sort: bool = True) -> DeviceNotes:
+    """QNotes (one channel) -> flattened device records.
+
+    Cell row = ((c * n_bars + bar) * n_beats + beat) * n_fractions + frac.
+    ``n_bars`` is the (possibly padded) raster layout; ``valid_bars`` caps the
+    bars actually written (the reference's prepare_input truncation,
+    style/data.py:136-143). Out-of-range notes (the reference's ValueError
+    skip, midi_conversion.py:495-498) are marked invalid.
+    """
+    T = rasterizer.info.n_beats
+    F10 = rasterizer.grid.n_fractions
+    n_notes = rasterizer.n_notes(pitched)
+    valid = (q.note_idx >= 0) & (q.note_idx < n_notes)
+    valid &= (q.bar >= 0) & (q.bar < min(n_bars, valid_bars if valid_bars
+                                         is not None else n_bars))
+    row = ((channel_index * n_bars + q.bar) * T + q.beat) * F10 + q.frac_idx
+    # invalid notes get a sentinel row: they sort to the end and lie outside
+    # every raster
+    row = np.where(valid, row, SENTINEL_ROW)
+    duration = (q.duration / rasterizer.info.ticks_per_beat).astype(np.float32)
+    out = DeviceNotes(
+        row=row.astype(np.int32), note_idx=q.note_idx.astype(np.int32),
+        acc=q.acc.astype(np.int32), duration=duration,
+        velocity=q.velocity.astype(np.float32), valid=np.asarray(valid))
+    if sort:
+        order = np.argsort(out.row, kind="stable")
+        out = DeviceNotes(*(a[order] for a in
+                            (out.row, out.note_idx, out.acc, out.duration,
+                             out.velocity, out.valid)))
+    return out
+
+
+def concat_and_pad(parts, pad_len: Optional[int] = None) -> DeviceNotes:
+    """Concatenate per-channel DeviceNotes and pad to a bucketed static length."""
+    row = np.concatenate([p.row for p in parts]) if parts else np.zeros(0, np.int32)
+    note = np.concatenate([p.note_idx for p in parts]) if parts else row
+    acc = np.concatenate([p.acc for p in parts]) if parts else row
+    dur = np.concatenate([p.duration for p in parts]) if parts else \
+        np.zeros(0, np.float32)
+    vel = np.concatenate([p.velocity for p in parts]) if parts else dur
+    valid = np.concatenate([p.valid for p in parts]) if parts else \
+        np.zeros(0, bool)
+    order = np.argsort(row, kind="stable")
+    row, note, acc, dur, vel, valid = (a[order] for a in
+                                       (row, note, acc, dur, vel, valid))
+    n = _pad_to(len(row)) if pad_len is None else pad_len
+    pad = n - len(row)
+    if pad < 0:
+        raise ValueError("pad_len smaller than note count")
+    return DeviceNotes(
+        row=np.pad(row, (0, pad), constant_values=SENTINEL_ROW).astype(np.int32),
+        note_idx=np.pad(note, (0, pad)).astype(np.int32),
+        acc=np.pad(acc, (0, pad)).astype(np.int32),
+        duration=np.pad(dur, (0, pad)).astype(np.float32),
+        velocity=np.pad(vel, (0, pad)).astype(np.float32),
+        valid=np.pad(valid, (0, pad)),
+    )
+
+
+def segment_rasterize(row, note_idx, acc, duration, velocity, valid,
+                      n_rows: int, n_notes: int, n_feat: int):
+    """Scatter-max rasterization -> (n_rows, n_notes * n_feat) fp32.
+
+    Semantics of the host Rasterizer.rasterize scatter
+    (midi_conversion.py:490-516) and of mst_tpu's segment_rasterize: zero
+    base, elementwise max on collision, accidental one-hot for pitched
+    (n_feat == 5). CUDA tensors run K1; CPU tensors its plain version."""
+    return raster_kernel.rasterize(row, note_idx, acc, duration, velocity,
+                                   valid, n_rows, n_notes, n_feat)

@@ -1,0 +1,105 @@
+"""Batch-first LSTMs: one input projection for all steps + a lean recurrence.
+
+Counterpart of mst_tpu/ops/lstm.py (which replaces the reference's nn.LSTM /
+TimeDistributed stacks, style/utils/pytorch.py:19-51). Parameters carry
+nn.LSTM's names and layouts — ``weight_ih_l0`` (4H, D), ``weight_hh_l0``
+(4H, H), ``bias_ih_l0`` and ``bias_hh_l0`` (4H), with ``_reverse`` for the
+backward direction — and gate order (i, f, g, o). The arithmetic follows the
+JAX scan step for step: ``x @ W_ih^T + (b_ih + b_hh)`` for every step at
+once, then per step ``gates = gx + h @ W_hh^T``. The JAX package has no
+Pallas kernel here; the recurrence is a Python loop of plain tensor ops.
+
+Padded sequences: final states are read at ``lengths-1``; the bidirectional
+layer runs its backward direction over a per-row flipped valid prefix
+(masked_flip), so padding never enters the backward carry
+(mst_tpu/ops/lstm.py:255-258).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mst_torch.ops.shapes import masked_flip, masked_last
+
+
+def _direction_params(module: nn.Module, suffix: str, input_size: int,
+                      features: int) -> None:
+    h = features
+    module.register_parameter(f"weight_ih_l0{suffix}", nn.Parameter(
+        torch.zeros(4 * h, input_size)))
+    module.register_parameter(f"weight_hh_l0{suffix}", nn.Parameter(
+        torch.zeros(4 * h, h)))
+    module.register_parameter(f"bias_ih_l0{suffix}", nn.Parameter(
+        torch.zeros(4 * h)))
+    module.register_parameter(f"bias_hh_l0{suffix}", nn.Parameter(
+        torch.zeros(4 * h)))
+
+
+def _projected(module: nn.Module, suffix: str, x):
+    """(N, T, D) -> the input half of the gates for every step, (N, T, 4H)."""
+    w_ih = getattr(module, f"weight_ih_l0{suffix}")
+    b = (getattr(module, f"bias_ih_l0{suffix}")
+         + getattr(module, f"bias_hh_l0{suffix}"))
+    return torch.matmul(x, w_ih.t()) + b
+
+
+def _recur(gates_x, w_hh_t):
+    """Run the recurrence. ``gates_x``: (K, N, T, 4H) for K independent
+    directions, ``w_hh_t``: (K, H, 4H). Returns outputs (K, N, T, H)."""
+    k, n, t, _ = gates_x.shape
+    h_dim = w_hh_t.shape[1]
+    h = gates_x.new_zeros(k, n, h_dim)
+    c = gates_x.new_zeros(k, n, h_dim)
+    outs = []
+    for step in range(t):
+        gates = gates_x[:, :, step] + torch.bmm(h, w_hh_t)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    return torch.stack(outs, dim=2)
+
+
+class LSTM(nn.Module):
+    """Unidirectional batch-first LSTM returning (outputs, last valid step)."""
+
+    def __init__(self, input_size: int, features: int):
+        super().__init__()
+        self.features = features
+        _direction_params(self, "", input_size, features)
+
+    def forward(self, x, lengths: Optional[torch.Tensor] = None):
+        gates_x = _projected(self, "", x)
+        out = _recur(gates_x[None], self.weight_hh_l0.t()[None])[0]
+        last = out[:, -1] if lengths is None else masked_last(out, lengths)
+        return out, last
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional batch-first LSTM; output feature dim = 2*features. Both
+    directions run in one loop as a batch of two (mst_tpu's merged scan)."""
+
+    def __init__(self, input_size: int, features: int):
+        super().__init__()
+        self.features = features
+        _direction_params(self, "", input_size, features)
+        _direction_params(self, "_reverse", input_size, features)
+
+    def forward(self, x, lengths: Optional[torch.Tensor] = None):
+        if lengths is None:
+            flipped = torch.flip(x, dims=(1,))
+        else:
+            flipped = masked_flip(x, lengths)
+        gates = torch.stack([_projected(self, "", x),
+                             _projected(self, "_reverse", flipped)])
+        w_hh_t = torch.stack([self.weight_hh_l0.t(),
+                              self.weight_hh_l0_reverse.t()])
+        fwd, bwd_raw = _recur(gates, w_hh_t)
+        if lengths is None:
+            bwd = torch.flip(bwd_raw, dims=(1,))
+        else:
+            bwd = masked_flip(bwd_raw, lengths)
+        return torch.cat([fwd, bwd], dim=-1)

@@ -1,0 +1,225 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+A CUDA kernel cannot run here; its wrapper takes the plain torch version for
+CPU tensors, and chip_smoke.py holds each kernel to that plain version on
+the card. These tests hold the plain versions to the JAX functions the
+kernels replace:
+
+- K1 (mst_torch.ops.raster_kernel): ``segment_rasterize_plain`` must be
+  BIT-EQUAL to mst_tpu's ``segment_rasterize`` and to the Pallas kernel
+  ``pallas_rasterize(..., interpret=True)`` — a max of the same fp32 values
+  is exact whatever the order.
+- K2 (mst_torch.ops.grid_kernel): ``grid_tail_plain`` must match
+  ``_tail_unrolled`` (the serving path's tail) and ``fused_grid_tail(...,
+  interpret=True)`` (the Pallas kernel) within atol = 1e-6: each output is a
+  30-term fp32 sum that XLA's reduction may associate differently from the
+  plain version's ascending-k loop, and the sigmoid's implementations differ
+  in the last ulp. The tolerance applies to the sigmoid itself, before the
+  per-feature output scale (6 for the duration feature, 1 for the others),
+  so on the duration it is 6e-6.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mst_tpu.ops import device_raster as jdr
+from mst_tpu.ops.pallas_grid import _tail_unrolled, fused_grid_tail
+from mst_tpu.ops.pallas_raster import pallas_rasterize
+from mst_torch.ops import device_raster, grid_kernel, raster_kernel
+
+SCALE = (6.0, 1.0, 1.0, 1.0, 1.0)
+K2_ATOL = 1e-6
+
+
+def _records(rng, n, n_rows, n_notes, n_feat, *, sentinel_share=0.1,
+             invalid_share=0.1, spill_rows=0):
+    """Row-sorted note records with collisions (few rows, many notes),
+    invalid notes, sentinel rows and rows past the raster."""
+    row = rng.integers(0, n_rows + spill_rows, n).astype(np.int32)
+    valid = rng.random(n) >= invalid_share
+    row = np.where(rng.random(n) < sentinel_share, 2 ** 30, row)
+    valid &= row < 2 ** 30
+    dn = jdr.DeviceNotes(
+        row=row, note_idx=rng.integers(0, n_notes, n).astype(np.int32),
+        acc=(rng.integers(0, 3, n) if n_feat == 5
+             else np.zeros(n)).astype(np.int32),
+        duration=(rng.random(n) * 6).astype(np.float32),
+        velocity=rng.random(n).astype(np.float32), valid=valid)
+    order = np.argsort(dn.row, kind="stable")
+    return jdr.DeviceNotes(*(a[order] for a in (
+        dn.row, dn.note_idx, dn.acc, dn.duration, dn.velocity, dn.valid)))
+
+
+def _torch_args(dn):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        dn.row, dn.note_idx, dn.acc, dn.duration, dn.velocity, dn.valid))
+
+
+@pytest.mark.parametrize("n_notes,n_feat", [(56, 5), (47, 2)])
+@pytest.mark.parametrize("n,n_rows", [(300, 40), (900, 1100), (0, 64)])
+def test_raster_plain_bit_equal_to_jax_and_pallas(n, n_rows, n_notes,
+                                                  n_feat):
+    """Collisions (300 notes on 40 rows), a raster spanning several Pallas
+    row chunks, and zero notes; sentinel rows, invalid notes and valid rows
+    past n_rows are skipped by all three."""
+    rng = np.random.default_rng(n + n_rows + n_feat)
+    dn = _records(rng, n, n_rows, n_notes, n_feat, spill_rows=n_rows // 8)
+    want_jnp = np.asarray(jdr.segment_rasterize(
+        *(jnp.asarray(a) for a in (dn.row, dn.note_idx, dn.acc, dn.duration,
+                                   dn.velocity, dn.valid)),
+        n_rows, n_notes, n_feat))
+    got = raster_kernel.segment_rasterize_plain(
+        *_torch_args(dn), n_rows, n_notes, n_feat).numpy()
+    assert got.shape == (n_rows, n_notes * n_feat)
+    np.testing.assert_array_equal(got, want_jnp)
+    if n:
+        # the Pallas kernel wants rows sorted AFTER invalid notes take the
+        # sentinel row, as encode_notes leaves them
+        row = np.where(dn.valid, dn.row, 2 ** 30).astype(np.int32)
+        order = np.argsort(row, kind="stable")
+        dn = jdr.DeviceNotes(row[order], *(a[order] for a in (
+            dn.note_idx, dn.acc, dn.duration, dn.velocity, dn.valid)))
+        want_pallas = np.asarray(pallas_rasterize(dn, n_rows, n_notes,
+                                                  n_feat, interpret=True))
+        np.testing.assert_array_equal(got, want_pallas)
+
+
+def test_raster_collisions_take_the_max():
+    """Two notes on one cell: every lane keeps its max, accidentals OR."""
+    dn = jdr.DeviceNotes(
+        row=np.array([3, 3], np.int32), note_idx=np.array([2, 2], np.int32),
+        acc=np.array([0, 2], np.int32),
+        duration=np.array([1.5, 0.25], np.float32),
+        velocity=np.array([0.2, 0.9], np.float32),
+        valid=np.array([True, True]))
+    out = raster_kernel.segment_rasterize_plain(
+        *_torch_args(dn), 8, 4, 5).reshape(8, 4, 5)
+    np.testing.assert_array_equal(out[3, 2].numpy(),
+                                  np.float32([1.5, 0.9, 1.0, 0.0, 1.0]))
+    assert float(out.sum()) == pytest.approx(1.5 + 0.9 + 2.0)
+
+
+def test_segment_rasterize_on_cpu_takes_the_plain_version(example_song):
+    """The port's segment_rasterize on CPU tensors equals mst_tpu's on the
+    records of a real ingested song, and launches no kernel."""
+    dn, n_rows = example_song
+    before = raster_kernel.rasterize.launches
+    got = device_raster.segment_rasterize(*_torch_args(dn), n_rows, 56, 5)
+    want = jdr.segment_rasterize(
+        *(jnp.asarray(a) for a in (dn.row, dn.note_idx, dn.acc, dn.duration,
+                                   dn.velocity, dn.valid)), n_rows, 56, 5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert raster_kernel.rasterize.launches == before
+
+
+@pytest.fixture(scope="module")
+def example_song():
+    """Both frameworks' host prep of one synthetic song gives the same
+    records; returns them with the raster's row count."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    from make_corpus import generate_song
+    from mst_tpu.io import create_midi
+    from mst_tpu.ops.events import read_midi as j_read
+    from mst_tpu.data.pipeline import get_input as j_get_input
+    from mst_tpu.ops.rasterize import Rasterizer as JR
+    from mst_torch.ops.rasterize import Rasterizer as TR
+    from mst_torch.data.pipeline import get_input as t_get_input
+    from mst_torch.ops.events import read_midi as t_read
+    from mst_torch.io import smf as t_smf
+    from mst_tpu.io import smf as j_smf
+
+    info, instruments = generate_song(np.random.default_rng(0))
+    data = j_smf.encode_midi(create_midi(info, *instruments))
+    j_song = j_get_input(*j_read(j_smf.parse_midi_bytes(data)))
+    t_song = t_get_input(*t_read(t_smf.parse_midi_bytes(data)))
+    C, R = j_song.pitched_shape[:2]
+    T = j_song.info.n_beats
+
+    def records(song, R_cls, encode, concat):
+        r = R_cls(song.info)
+        parts = [encode(r, r.quantize(n, True), c, True, C, R)
+                 for c, n in enumerate(song.pitched_notes)]
+        return concat(parts)
+
+    j_dn = records(j_song, JR, jdr.encode_notes, jdr.concat_and_pad)
+    t_dn = records(t_song, TR, device_raster.encode_notes,
+                   device_raster.concat_and_pad)
+    for field in ("row", "note_idx", "acc", "duration", "velocity", "valid"):
+        np.testing.assert_array_equal(getattr(t_dn, field),
+                                      getattr(j_dn, field))
+    return j_dn, C * R * T * 10
+
+
+def _sigmoid_err(got, want):
+    """max |got - want| in units of the sigmoid, before the output scale."""
+    return float((np.abs(got - want) / np.float32(SCALE)).max())
+
+
+def _tail_inputs(rng, lead, full_rest=False):
+    f = np.float32
+    xo = rng.normal(size=lead + (8, 30)).astype(f)
+    xd = rng.normal(size=lead + (7, 30)).astype(f)
+    w = (rng.normal(size=(30, 5)) * 0.3).astype(f)
+    rest_lead = lead if full_rest else (lead[0], 1) + lead[2:]
+    rest = rng.normal(size=rest_lead + (56, 5)).astype(f)
+    return xo, xd, w, rest
+
+
+@pytest.mark.parametrize("lead,full_rest", [
+    ((2, 3, 4, 2, 10), False),     # rest broadcast over the channel axis
+    ((1, 1, 3, 4, 10), False),
+    ((2, 3, 2, 1, 10), True),      # rest of the full lead shape
+])
+def test_grid_tail_plain_matches_unrolled_and_pallas(lead, full_rest):
+    rng = np.random.default_rng(sum(lead))
+    args = _tail_inputs(rng, lead, full_rest)
+    got = grid_kernel.grid_tail_plain(*(torch.from_numpy(a) for a in args),
+                                      SCALE).numpy()
+    j_args = tuple(jnp.asarray(a) for a in args)
+    unrolled = np.asarray(_tail_unrolled(*j_args, SCALE))
+    pallas = np.asarray(fused_grid_tail(*j_args, SCALE, interpret=True))
+    assert got.shape == lead + (56, 5)
+    for want in (unrolled, pallas):
+        assert _sigmoid_err(got, want) <= K2_ATOL
+
+
+def test_grid_tail_on_cpu_takes_the_plain_version():
+    rng = np.random.default_rng(7)
+    args = tuple(torch.from_numpy(a)
+                 for a in _tail_inputs(rng, (2, 3, 2, 2, 10)))
+    before = grid_kernel.grid_tail.launches
+    got = grid_kernel.grid_tail(*args, SCALE)
+    assert torch.equal(got, grid_kernel.grid_tail_plain(*args, SCALE))
+    assert grid_kernel.grid_tail.launches == before
+
+
+def test_grid_tail_rest_layout():
+    """Which rest row the kernel reads for each output row."""
+    lead = (2, 3, 4, 2, 10)
+    assert grid_kernel._rest_layout(lead, lead + (56, 5)) == (1, 1)
+    assert grid_kernel._rest_layout(
+        lead, (2, 1, 4, 2, 10, 56, 5)) == (3, 4 * 2 * 10)
+    with pytest.raises(ValueError):
+        grid_kernel._rest_layout(lead, (1, 1, 4, 2, 10, 56, 5))
+    # the kernel's row mapping, replayed on the host: out row n reads
+    # rest row (n // (rep * inner)) * inner + n % inner
+    rep, inner = 3, 80
+    n = np.arange(2 * rep * inner)
+    b, c, m = np.unravel_index(n, (2, rep, inner))
+    np.testing.assert_array_equal((n // (rep * inner)) * inner + n % inner,
+                                  b * inner + m)
+
+
+def test_grid_tail_rejects_wrong_widths():
+    rng = np.random.default_rng(1)
+    xo, xd, w, rest = (torch.from_numpy(a)
+                       for a in _tail_inputs(rng, (1, 1, 1, 1, 10)))
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail(xo[..., :29], xd[..., :29], w[:29], rest, SCALE)
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail(xo, xd, w, rest, SCALE[:4])

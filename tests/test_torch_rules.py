@@ -1,0 +1,137 @@
+"""Ground rules of the port, checked on the CPU.
+
+- ``mst_torch`` (and ``chip_smoke.py``) import neither JAX, flax, orbax nor
+  anything of ``mst_tpu``: the machine with the GPU has none of them.
+- Entry points run on the GPU unless the caller asks for the CPU, and
+  raise rather than run quietly on the CPU.
+- A CUDA kernel's wrapper takes its plain version only for CPU tensors;
+  for any other tensor it launches the kernel or raises.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from mst_torch import transfer
+from mst_torch.models import StyleTransferModel
+from mst_torch.ops import cuda_build, grid_kernel, raster_kernel
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "mst_tpu")
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys; import mst_torch, mst_torch.transfer, "
+            "mst_torch.weights, mst_torch.parity; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "mst_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_imports_jax_or_mst_tpu():
+    checked = 0
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+        checked += 1
+    assert checked > 20
+
+
+def test_bundle_defaults_to_cuda_and_raises_without_it(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transfer.ModelBundle(model=StyleTransferModel())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transfer.ModelBundle.from_npz()
+    bundle = transfer.ModelBundle(model=StyleTransferModel(), device="cpu")
+    assert bundle.device.type == "cpu"
+    # the transfer entry pins full fp32 on the card
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert transfer.transfer_styles(bundle, [], [], str(tmp_path)) == []
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def _meta(*tensors):
+    """Tensors off the CPU, as a CUDA tensor would be: the wrapper must not
+    take its plain version for them."""
+    return tuple(t.to("meta") for t in tensors)
+
+
+def _raster_args():
+    n = 4
+    return _meta(torch.zeros(n, dtype=torch.int32),
+                 torch.zeros(n, dtype=torch.int32),
+                 torch.zeros(n, dtype=torch.int32),
+                 torch.zeros(n), torch.zeros(n),
+                 torch.ones(n, dtype=torch.bool))
+
+
+def _tail_args():
+    lead = (1, 2, 1, 1, 10)
+    return _meta(torch.zeros(*lead, 8, 30), torch.zeros(*lead, 7, 30),
+                 torch.zeros(30, 5), torch.zeros(1, 1, 1, 1, 10, 56, 5))
+
+
+def test_wrappers_raise_without_the_kernel_library(monkeypatch):
+    """With the library absent (the loader raises), a non-CPU tensor gets an
+    error, never the plain version, and no launch is counted."""
+    def absent(name):
+        raise OSError(f"lib{name}.so: cannot open shared object file")
+
+    monkeypatch.setattr(cuda_build, "load", absent)
+    r0, g0 = raster_kernel.rasterize.launches, grid_kernel.grid_tail.launches
+    with pytest.raises(OSError):
+        raster_kernel.rasterize(*_raster_args(), 8, 56, 5)
+    with pytest.raises(OSError):
+        grid_kernel.grid_tail(*_tail_args(), (6.0, 1.0, 1.0, 1.0, 1.0))
+    assert raster_kernel.rasterize.launches == r0
+    assert grid_kernel.grid_tail.launches == g0
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No compiler: building a kernel raises; nothing falls back."""
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists",
+                        lambda p: False if p.endswith("nvcc") else
+                        os.path.isfile(p))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.load("raster")
+
+
+def test_library_name_follows_source_and_flags():
+    """A rebuilt source or changed flags never load a stale library."""
+    raster = cuda_build.library_path("raster")
+    tail = cuda_build.library_path("grid_tail")
+    assert raster != tail
+    assert os.path.dirname(raster) == cuda_build.BUILD_DIR
+    assert cuda_build.BUILD_DIR.startswith(ROOT)
+    assert "--fmad=false" in cuda_build._flags("grid_tail")
+    assert "arch=compute_90a,code=sm_90a" in cuda_build._flags("raster")
