@@ -21,14 +21,31 @@ Phases (any failure exits non-zero):
    there is one, and the bound: the larger of the bytes the function must
    move over 3.35 TB/s and its operations over 67 TFLOP/s (fp32), the
    H100 SXM's published peaks.
-5. The main path: ``transfer_styles`` with the ``snapshots/4900`` weights
-   on 3 compositions x 3 styles (12 jobs) on ``cuda``, once to warm up and
-   once with every launch counter at 0, which must see each kernel launch.
-   Every output parses and every styled output has notes. One more request
-   runs under torch.profiler: its device-busy time beside its wall time,
-   and the device time by kernel. Then 1
-   composition x 1 style runs on the card and on the CPU, and the two sets
-   of files must agree under the fp32-boundary rule (mst_torch.parity).
+5. The serving path: ``transfer_styles`` with the ``snapshots/4900``
+   weights on 3 compositions x 3 styles (12 jobs) on ``cuda``, once to warm
+   up and once with every launch counter at 0, which must see K1 and K2
+   launch. Every output parses and every styled output has notes. One more
+   request runs under torch.profiler: its device-busy time beside its wall
+   time, and the device time by kernel. Then 1 composition x 1 style runs
+   on the card and on the CPU, and the two sets of files must agree under
+   the fp32-boundary rule (mst_torch.parity).
+6. K3 (``csrc/grid_tail_bwd.cu``) against its plain version at the
+   327,680-row budget shape (8 x 8 x 128 x 4 x 10, ``batch_cell_budget``)
+   with a random cotangent, within ``K3_RTOL`` and ``K3_W_RTOL``; two runs
+   must be bit-equal. Then ``GridTail``'s K2+K3 gradients against torch
+   autograd of ``grid_tail_plain`` on the card, on a small case. K3's time,
+   its plain version's and its bound.
+7. The training path at full width (``ModelConfig()``) from a seed-108
+   fresh init on the six smoke songs: 8 batch-1 micro-steps and 2 batch-6
+   steps through ``create_train_state``, ``device_batch_from_songs`` and
+   ``make_train_step`` (Adam + StepLR, iter_size 2), with every launch
+   counter at 0 first; each of K1, K2 and K3 must launch and every loss
+   must be finite. It prints the ms per step after warm-up, the
+   device-busy share of one profiled step and the peak memory. The first
+   step's losses and per-leaf gradients on the card must match the same
+   step on the CPU (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), and a save
+   after step 4 and a resume must reproduce step 5's losses
+   (``RESUME_RTOL``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -37,6 +54,7 @@ result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +64,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1_TOL = 0.0      # K1 is exact: a max of the same fp32 values
 K2_ATOL = 1e-6    # K2 is built without FMA contraction: expected bit-equal
+# K3's row cotangents (ct_y, ct_xo, ct_xd) round each operation in the same
+# order as the plain version (--fmad=false): expected bit-equal; the
+# tolerance is relative to the largest |value|. ct_w sums 18 million terms
+# in another order (per-block sums, then torch's sum, against one matrix
+# product): relative to its largest |value|.
+K3_RTOL = 1e-6
+K3_W_RTOL = 1e-4
+# the first training step on the card against the CPU: both run fp32 with
+# other summation orders (cuDNN, cuBLAS and torch's CPU kernels), through
+# 128-step LSTM recurrences and sums over every raster cell; the first card
+# run measured 1.9e-7 on the losses and 5.9e-6 on the gradients
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4     # per leaf, relative to the leaf's largest |grad|
+# step 5 after a resume runs the same forward on the same parameters
+# (measured bit-equal); the tolerance allows another cuDNN algorithm
+RESUME_RTOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -68,6 +102,32 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_busy_us(events):
+    """Device time of a profile's kernels (key_averages()): the events on
+    the device, without user annotations such as the optimizer's step
+    range, which would count its kernels twice."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in events
+               if e.device_type != DeviceType.CPU
+               and not getattr(e, "is_user_annotation", False))
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from mst_torch.ops import grid_kernel, raster_kernel
+    raster_kernel.rasterize.launches = 0
+    grid_kernel.grid_tail.launches = 0
+    grid_kernel.grid_tail_bwd.launches = 0
+
+
+def read_launches():
+    """Every kernel's launch count, by the name in the kernels line."""
+    from mst_torch.ops import grid_kernel, raster_kernel
+    return {"raster": raster_kernel.rasterize.launches,
+            "grid_tail": grid_kernel.grid_tail.launches,
+            "grid_tail_bwd": grid_kernel.grid_tail_bwd.launches}
 
 
 def bound_ms(n_bytes, n_ops):
@@ -206,6 +266,77 @@ def phase_k2(torch):
                 library_ms=None)
 
 
+def phase_k3(torch, L=(8, 8, 128, 4, 10)):
+    """K3 vs plain at the 327,680-row budget shape ``L``, determinism, and
+    GridTail's gradients against autograd of the plain forward."""
+    from mst_torch.ops import grid_kernel as gk
+
+    scale = (6.0, 1.0, 1.0, 1.0, 1.0)
+    g = torch.Generator().manual_seed(3)
+    xo = torch.randn(*L, 8, 30, generator=g).cuda()
+    xd = torch.randn(*L, 7, 30, generator=g).cuda()
+    w = (torch.randn(30, 5, generator=g) * 0.3).cuda()
+    rest = torch.randn(L[0], 1, *L[2:], 56, 5, generator=g).cuda()
+    ct = torch.randn(*L, 56, 5, generator=g).cuda()
+    out = gk.grid_tail_fwd(xo, xd, w, rest, scale)
+    got = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
+    again = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
+    want = gk.grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
+    torch.cuda.synchronize()
+    n = xo.numel() // 240
+    errs = []
+    for name, a, b, c in zip(("ct_xo", "ct_xd", "ct_y", "ct_w"), got, again,
+                             want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K3 {name}: two runs differ")
+        err = (a - c).abs().max().item()
+        scale_ = c.abs().max().item()
+        tol = (K3_W_RTOL if name == "ct_w" else K3_RTOL) * scale_
+        if not err <= tol:
+            raise AssertionError(f"K3 {name}: max |err| {err} > {tol}")
+        errs.append(err)
+        log(f"K3 {name}: max |err| {err} (largest |value| {scale_:.6g}, "
+            f"tolerance {tol:.3g}), {int((a != c).sum())} of {a.numel()} "
+            f"values differ; two runs bit-equal")
+    del again, want
+
+    # GridTail (K2 forward, K3 backward) against autograd of the plain
+    # forward, on the card, at tests/test_fused_tails.py's tolerance
+    small = (2, 3, 4, 4, 10)
+    args = [t.cuda().requires_grad_(True) for t in (
+        torch.randn(*small, 8, 30, generator=g),
+        torch.randn(*small, 7, 30, generator=g),
+        torch.randn(30, 5, generator=g) * 0.3,
+        torch.randn(small[0], 1, *small[2:], 56, 5, generator=g))]
+    ct_s = torch.randn(*small, 56, 5, generator=g).cuda()
+    grads = torch.autograd.grad(gk.grid_tail(*args, scale), args, ct_s)
+    plain = torch.autograd.grad(gk.grid_tail_plain(*args, scale), args, ct_s)
+    for name, a, b in zip(("xo", "xd", "w", "rest"), grads, plain):
+        atol = 1e-5 + 2e-6 * b.abs().max().item()
+        if not ((a - b).abs() <= atol + 1e-5 * b.abs()).all():
+            raise AssertionError(f"GridTail d{name}: max |err| "
+                                 f"{(a - b).abs().max().item()}")
+    log("GridTail on the card: K2+K3 gradients match autograd of "
+        "grid_tail_plain (rtol 1e-5, atol 1e-5 + 2e-6 max|grad|)")
+
+    ms = cuda_ms(lambda: gk.grid_tail_bwd(xo, xd, out, ct, w, scale), 20)
+    plain_ms = cuda_ms(lambda: gk.grid_tail_bwd_plain(xo, xd, out, ct, w,
+                                                      scale), 3, warmup=1)
+    # bytes: xo, xd, out and ct read once, ct_xo, ct_xd and ct_y written
+    # once (w, the scales and the ct_w partials are small)
+    n_bytes = 4 * n * (240 + 210 + 280 + 280 + 240 + 210 + 280)
+    # per (row, o, d): ct_y (5 x: multiply, subtract, 3 multiplies) and per
+    # k: gp (1), ct_G (5 multiplies, 4 adds), dLR (1), the two sums (2),
+    # LR(gp) (1), ct_w (5 multiplies, 5 adds) = 24
+    n_ops = n * 56 * (5 * 5 + 30 * 24)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return dict(name="grid_tail_bwd", route="cuda",
+                source="mst_torch/csrc/grid_tail_bwd.cu",
+                replaces="mst_tpu/ops/pallas_grid.py:234",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def check_outputs(written, label):
     from mst_torch.io import smf
     for path in written:
@@ -220,7 +351,6 @@ def check_outputs(written, label):
 
 
 def phase_main(torch, bundle, comps, styles, tmp):
-    from mst_torch.ops import grid_kernel, raster_kernel
     from mst_torch.parity import midi_differences
     from mst_torch.transfer import ModelBundle, transfer_styles
 
@@ -231,26 +361,23 @@ def phase_main(torch, bundle, comps, styles, tmp):
     log(f"main path warm-up: {time.perf_counter() - t0:.3f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    raster_kernel.rasterize.launches = 0
-    grid_kernel.grid_tail.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     written = transfer_styles(bundle, comps, styles,
                               os.path.join(tmp, "gpu"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"raster": raster_kernel.rasterize.launches,
-                "grid_tail": grid_kernel.grid_tail.launches}
+    launches = read_launches()
     n_jobs = len(comps) * (1 + len(styles))
     log(f"main path: {len(comps)} compositions x {len(styles)} styles "
         f"({n_jobs} jobs) in {wall:.3f} s per request, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {launches}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("raster", "grid_tail"):
+        if launches[name] == 0:
             raise AssertionError(f"main path launched no {name} kernel")
     check_outputs(written, "main path")
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -260,8 +387,7 @@ def phase_main(torch, bundle, comps, styles, tmp):
         prof_wall = time.perf_counter() - t0
     events = prof.key_averages()
     # kernel events carry the device time; their CPU-side ops repeat it
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type != DeviceType.CPU)
+    busy_us = device_busy_us(events)
     log(f"profiled request: device busy {busy_us / 1e3:.3f} ms of "
         f"{prof_wall * 1e3:.3f} ms wall")
     log(events.table(sort_by="self_cuda_time_total", row_limit=15,
@@ -283,6 +409,175 @@ def phase_main(torch, bundle, comps, styles, tmp):
         log(f"GPU vs CPU {os.path.basename(a)}: "
             + ("byte-equal" if equal else
                f"{len(borderline)} fp32-boundary note events"))
+    return launches
+
+
+def _loss_names(has_unpitched):
+    from mst_torch.ops.losses import LossDict
+    return [n for n in LossDict._fields
+            if has_unpitched or not n.startswith("unpitched")]
+
+
+def _check_losses(vec, has_unpitched, label):
+    """Every loss of the step finite (the unpitched ones only with
+    percussion, which is NaN by definition without it)."""
+    from mst_torch.ops.losses import LossDict
+    values = dict(zip(LossDict._fields, vec.tolist()))
+    bad = {k: values[k] for k in _loss_names(has_unpitched)
+           if not math.isfinite(values[k])}
+    if bad:
+        raise AssertionError(f"{label}: non-finite losses {bad}")
+
+
+def phase_train(torch, paths, tmp):
+    """The training path at full width: 8 batch-1 micro-steps, then 2
+    batch-6 steps, with the launch counters at 0 first. Returns the
+    launches of the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mst_torch.config import Config
+    from mst_torch.runtime import train as tr
+    from mst_torch.runtime.checkpoint import CheckpointManager
+    from mst_torch.transfer import get_model_input
+
+    tr.reproducible_backends()        # as train-model-torch.py runs
+    config = Config()
+    t = config.train
+    songs = [get_model_input(p)[1] for p in paths]
+
+    def single(song, device):
+        """A batch-1 step's batch, bucketed as train-model-torch.py does."""
+        cap = t.max_total_bars // song.n_channels
+        Cb = tr.bucket_shape(song.n_channels, t.channel_buckets)
+        Rb = tr.bucket_shape(min(song.n_bars, cap), t.bar_buckets)
+        return tr.device_batch_from_songs([song], Cb, Rb,
+                                          bar_cap=[min(cap, Rb)],
+                                          device=device)
+
+    def group(device):
+        caps = [t.max_total_bars // s.n_channels for s in songs]
+        Cb = tr.bucket_shape(max(s.n_channels for s in songs),
+                             t.channel_buckets)
+        Rb = tr.bucket_shape(max(min(s.n_bars, c)
+                                 for s, c in zip(songs, caps)), t.bar_buckets)
+        Rb = tr.clamp_bar_bucket(Rb, len(songs), Cb, songs[0].beats_per_bar,
+                                 t.batch_cell_budget, t.bar_buckets)
+        return tr.device_batch_from_songs(songs, Cb, Rb,
+                                          bar_cap=[min(c, Rb) for c in caps],
+                                          device=device)
+
+    plan = [("batch-1", lambda d, i=i: single(songs[i % len(songs)], d))
+            for i in range(8)] + [("batch-6", group)] * 2
+    steps = {}
+
+    def run_step(state, build, device):
+        batch = build(device)
+        has_u = batch.unpitched is not None
+        if has_u not in steps:
+            steps[has_u] = tr.make_train_step(config, has_u)
+        state, vec = steps[has_u](state, batch)
+        return vec, has_u
+
+    state = tr.create_train_state(config, device="cuda", seed=108)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    ckpt = CheckpointManager(os.path.join(tmp, "train_ckpt"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses, first_grads = [], [], None
+    busy_us = prof_wall = None
+    t_run = time.perf_counter()
+    for i, (kind, build) in enumerate(plan):
+        if i == 7:       # the last batch-1 micro-step runs under the profiler
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                vec, has_u = run_step(state, build, "cuda")
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            busy_us = device_busy_us(prof.key_averages())
+        else:
+            t0 = time.perf_counter()
+            vec, has_u = run_step(state, build, "cuda")
+            torch.cuda.synchronize()
+            times.append((kind, time.perf_counter() - t0))
+        losses.append((vec, has_u))
+        if i == 0:      # iter_size 2: the first step's gradient is unapplied
+            first_grads = {n: p.grad.detach().cpu().clone()
+                           for n, p in state.model.named_parameters()
+                           if p.grad is not None}
+        if state.micro_step == 4:
+            ckpt.save(4, state, cursor=4)
+    run_wall = time.perf_counter() - t_run
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"training path launched no {name} kernel")
+    for i, (vec, has_u) in enumerate(losses):
+        _check_losses(vec.cpu(), has_u, f"training step {i + 1}")
+    if (state.micro_step, state.opt_step) != (10, 5):
+        raise AssertionError(f"counters {state.micro_step}, "
+                             f"{state.opt_step} after 10 micro-steps")
+    b1 = [dt for kind, dt in times[2:] if kind == "batch-1"]
+    b6 = [dt for kind, dt in times if kind == "batch-6"]
+    log(f"training path: {n_params} parameters, 10 micro-steps in "
+        f"{run_wall:.3f} s, launches {launches}, peak device memory "
+        f"{peak:.2f} GiB")
+    log(f"  ms per batch-1 step after 2 warm-up steps: "
+        f"{[round(dt * 1e3, 3) for dt in b1]}, mean "
+        f"{sum(b1) / len(b1) * 1e3:.3f}")
+    log(f"  ms per batch-6 step: first {b6[0] * 1e3:.3f}, second "
+        f"{b6[1] * 1e3:.3f}")
+    log(f"  losses per step (total): "
+        f"{[round(v[0].item(), 6) for v, _ in losses]}")
+    log(f"  profiled batch-1 step: device busy {busy_us / 1e3:.3f} ms of "
+        f"{prof_wall * 1e3:.3f} ms wall ({busy_us / 1e3 / (prof_wall * 1e3):.1%})")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=12, max_name_column_width=60))
+
+    # the first step on the CPU, from the same seed and the same song
+    t0 = time.perf_counter()
+    cpu_state = tr.create_train_state(config, device="cpu", seed=108)
+    cpu_vec, has_u = run_step(cpu_state, plan[0][1], "cpu")
+    log(f"first step on the CPU: {time.perf_counter() - t0:.3f} s")
+    gpu_vec = losses[0][0].cpu()
+    from mst_torch.ops.losses import LossDict
+    pick = [LossDict._fields.index(n) for n in _loss_names(has_u)]
+    rel = ((gpu_vec[pick] - cpu_vec[pick]).abs()
+           / cpu_vec[pick].abs().clamp(min=1e-12)).max().item()
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"first step GPU vs CPU losses: max relative "
+                             f"difference {rel} > {TRAIN_LOSS_RTOL}")
+    worst = (0.0, "")
+    for name, p in cpu_state.model.named_parameters():
+        want = p.grad if p.grad is not None else torch.zeros_like(p)
+        got = first_grads.get(name, torch.zeros_like(want))
+        err = (got - want).abs().max().item() / max(
+            want.abs().max().item(), 1e-30)
+        worst = max(worst, (err, name))
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"first step GPU vs CPU gradient {name}: "
+                                 f"max |err| / max |grad| {err} > "
+                                 f"{TRAIN_GRAD_TOL}")
+    log(f"first step GPU vs CPU: losses within {rel:.3g} relative "
+        f"(tolerance {TRAIN_LOSS_RTOL}); per-leaf gradients within "
+        f"{worst[0]:.3g} of each leaf's largest |grad| (worst "
+        f"{worst[1]}, tolerance {TRAIN_GRAD_TOL})")
+
+    # resume from the save after step 4: step 5's losses again
+    resumed = tr.create_train_state(config, device="cuda", seed=0)
+    ckpt.restore(resumed, 4)
+    vec5, _ = run_step(resumed, plan[4][1], "cuda")
+    want5 = losses[4][0]
+    rel5 = ((vec5 - want5).abs() / want5.abs().clamp(min=1e-12))
+    rel5 = rel5[torch.isfinite(want5)].max().item()
+    if not rel5 <= RESUME_RTOL:
+        raise AssertionError(f"resume: step 5 losses differ by {rel5} > "
+                             f"{RESUME_RTOL}")
+    log(f"resume from the save after step 4: step 5 losses within {rel5:.3g} "
+        f"relative ({'bit-equal' if torch.equal(vec5, want5) else 'not bit-equal'}"
+        f", tolerance {RESUME_RTOL})")
     return launches
 
 
@@ -312,16 +607,24 @@ def main():
     k1 = phase_k1(torch, bundle, songs)
     k2 = phase_k2(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main(torch, bundle, comps, styles, tmp)
-    k1["launches"] = launches["raster"]
-    k2["launches"] = launches["grid_tail"]
-    kernels = [k1, k2]
+        serve = phase_main(torch, bundle, comps, styles, tmp)
+        del bundle
+        torch.cuda.empty_cache()
+        k3 = phase_k3(torch)
+        torch.cuda.empty_cache()
+        train = phase_train(torch, comps + styles, tmp)
+    kernels = [k1, k2, k3]
     for k in kernels:
+        by_path = {"transfer request": serve[k["name"]],
+                   "10 training micro-steps": train[k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
-            f"{k['bound_by']}), {k['launches']} launches per request")
+            f"{k['bound_by']}), launches {by_path}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Typed configuration of the representation and the model (the port's
-subset of mst_tpu/config.py; training, mesh and precision settings are not
-ported yet, and the port computes in float32).
+"""Typed configuration of the representation, the model and training (the
+port's subset of mst_tpu/config.py; the mesh and precision settings are not
+ported yet, and the port computes and stores in float32).
 
 The reference scatters configuration over module-level constants
 (train-model.py:33-60, style/model.py:11-28, style/midi_conversion.py:349-369,
@@ -71,3 +71,44 @@ class ModelConfig:
     @property
     def bpm_range(self) -> float:
         return self.max_bpm - self.min_bpm
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop configuration (parity: train-model.py:33-41,89-90,97-160;
+    a copy of mst_tpu/config.py:89-119)."""
+
+    n_iterations: int = 5000
+    iter_size: int = 2             # gradient-accumulation span (summed, not averaged)
+    remat: bool = False            # recompute the forward in backward
+    #   (torch.utils.checkpoint). The JAX package measured on the v5e that
+    #   this does not lower the peak for this model — the per-note broadcast
+    #   chains make the forward transient working set the peak, which
+    #   recompute cannot shrink; batch_cell_budget is the memory lever.
+    learning_rate: float = 1e-2
+    lr_decay_every: int = 200      # optimizer steps between decays (StepLR step_size)
+    lr_decay_gamma: float = 0.9
+    seed: int = 108
+    max_total_bars: int = 800      # max_n_bars = max_total_bars // n_channels
+    save_interval: int = 100
+    min_n_messages: int = 100      # channel filter (style/data.py:51)
+
+    # additions of the batched trainer (absent in the single-song-per-step
+    # reference)
+    batch_size: int = 1            # songs per step
+    prefetch_depth: int = 2        # host batch-building queue depth
+    bar_buckets: Tuple[int, ...] = (64, 128, 256, 512, 800)
+    channel_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16)
+    # batched training only: cap B*C_bucket*R_bucket*T so one padded batch's
+    # activations fit device memory (8 songs x 8 channels x 128 bars x 4
+    # beats); songs beyond the cap truncate, consistent with the
+    # reference's max_total_bars rule.
+    batch_cell_budget: int = 8 * 8 * 128 * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    rep: RepresentationConfig = dataclasses.field(
+        default_factory=RepresentationConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

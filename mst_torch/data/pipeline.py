@@ -223,7 +223,7 @@ def iter_inputs(files: Sequence, instruments: Sequence[int] = INCLUDED_INSTRUMEN
     (parity: style/data.py:51-63).
 
     ``cache``: optional song cache (``get``/``put``/``put_bad`` and a
-    ``BAD`` marker; the port has no cache module yet). The reference
+    ``BAD`` marker: mst_torch.data.cache.SongCache). The reference
     re-parses and re-rasterizes every file on every epoch
     (style/data.py:34-48 — iter_all_midis re-opens each path each loop); with
     a cache, a path seen before replays its slim Song (or its known-bad

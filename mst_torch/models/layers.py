@@ -4,8 +4,11 @@ Counterpart of mst_tpu/models/layers.py. Parameters use the reference's torch
 layouts and names (style/model.py): ``weight`` (out, in) and ``bias`` for the
 linears, ``weight`` (out, in, k) for the conv — so a state_dict maps onto the
 flax tree by the rules of mst_tpu/runtime/ref_checkpoint.py:12-24. Layers are
-created with explicit input widths and zero-initialized; real weights come
-from a state_dict (mst_torch.weights).
+created with explicit input widths and zero-initialized. Trained weights come
+from a state_dict (mst_torch.weights); a fresh model for training comes from
+``reset_parameters(generator)``, which draws the JAX package's torch-default
+init, U(+-1/sqrt(fan_in)) for weight and bias (mst_tpu/models/layers.py:
+26-122).
 """
 
 from __future__ import annotations
@@ -18,10 +21,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mst_torch.ops.init import uniform_
+
 
 def mean_size(*values, factor: float = 1.0) -> int:
     """Parity: style/model.py:31-33."""
     return math.ceil(float(np.mean(values)) * factor)
+
+
+def _reset_uniform(module: nn.Module, fan_in: int,
+                   generator: torch.Generator) -> None:
+    """weight then bias, each U(+-1/sqrt(fan_in)) (torch's default init)."""
+    bound = 1.0 / math.sqrt(fan_in)
+    uniform_(module.weight, bound, generator)
+    uniform_(module.bias, bound, generator)
 
 
 class Dense(nn.Module):
@@ -31,6 +44,9 @@ class Dense(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_uniform(self, self.weight.shape[1], generator)
 
     def forward(self, x):
         return torch.matmul(x, self.weight.t()) + self.bias
@@ -49,6 +65,10 @@ class ConcatDense(nn.Module):
         self.weight = nn.Parameter(torch.zeros(features,
                                                sum(self.part_features)))
         self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # fan_in = the width of the implicit concat
+        _reset_uniform(self, sum(self.part_features), generator)
 
     def forward(self, parts):
         total = None
@@ -69,6 +89,9 @@ class DenseParams(nn.Module):
         self.weight = nn.Parameter(torch.zeros(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_uniform(self, self.weight.shape[1], generator)
+
     def forward(self):
         return self.weight, self.bias
 
@@ -85,6 +108,11 @@ class Conv1d(nn.Module):
         self.weight = nn.Parameter(
             torch.zeros(features, in_channels, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # fan_in = in_channels * kernel_size
+        _reset_uniform(self, self.weight.shape[1] * self.weight.shape[2],
+                       generator)
 
     def forward(self, x):
         out = F.conv1d(x, self.weight, stride=self.stride,

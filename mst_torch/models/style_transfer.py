@@ -10,6 +10,7 @@ batches exact, as in the JAX model.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from mst_torch.config import ModelConfig
@@ -48,6 +49,17 @@ class StyleTransferModel(nn.Module):
             c.style_size, c.melody_size, c.rhythm_size, nif)
         self.unpitched_style_applier = UnpitchedStyleApplier(
             c.style_size, c.rhythm_size)
+
+    def init_parameters(self, seed: int) -> "StyleTransferModel":
+        """A fresh init from ``seed``: every layer's ``reset_parameters``
+        with one CPU ``torch.Generator``, in module order. The draws follow
+        the JAX package's init distributions (mst_tpu/models/layers.py,
+        ops/lstm.py), not its values. Returns the model."""
+        generator = torch.Generator().manual_seed(seed)
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        return self
 
     def extract_style(self, mode, bpm, pitched_channels, instruments_features,
                       unpitched_channels=None, bar_lengths=None,

@@ -28,12 +28,14 @@ BUILD_DIR = os.path.join(ROOT, "build", "mst_torch_kernels")
 
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Per-kernel flags. The grid tail is built without multiply-add contraction
-# so that its ascending-k sums round exactly like the plain torch version
-# (a separate multiply and add per term) and the two agree bit for bit.
+# Per-kernel flags. The grid tail's forward and backward are built without
+# multiply-add contraction so that their ordered sums round exactly like the
+# plain torch versions (a separate multiply and add per term) and the two
+# agree bit for bit.
 KERNEL_FLAGS = {
     "raster": (),
     "grid_tail": ("--fmad=false",),
+    "grid_tail_bwd": ("--fmad=false",),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -10,7 +10,10 @@ tensors, its plain torch version for CPU tensors.
 
 The host preparation (``encode_notes``, ``concat_and_pad`` with the sentinel
 row 2**30 and the ``_pad_to`` note buckets) is a copy of the JAX package's,
-so both frameworks see the same records.
+so both frameworks see the same records. ``device_rasterize_song`` and
+``device_rasterize_batch`` are the trainer's entry points: one K1 launch per
+note family for a whole batch, in float32 (the JAX package's bf16 raster
+and its born-sharded batch are not ported yet).
 """
 
 from __future__ import annotations
@@ -129,3 +132,67 @@ def segment_rasterize(row, note_idx, acc, duration, velocity, valid,
     (n_feat == 5). CUDA tensors run K1; CPU tensors its plain version."""
     return raster_kernel.rasterize(row, note_idx, acc, duration, velocity,
                                    valid, n_rows, n_notes, n_feat)
+
+
+def _rasterize_records(dn: DeviceNotes, device, n_rows: int, n_notes: int,
+                       n_feat: int, out_shape: tuple) -> torch.Tensor:
+    return segment_rasterize(*dn.to(device), n_rows, n_notes,
+                             n_feat).reshape(out_shape)
+
+
+def device_rasterize_song(rasterizer: Rasterizer, note_arrays, pitched: bool,
+                          n_channels: int, n_bars: Optional[int] = None,
+                          valid_bars: Optional[int] = None,
+                          fuse_nf: bool = False,
+                          device="cuda") -> torch.Tensor:
+    """Device rasterization of one song's channels (mst_tpu's
+    device_rasterize_song). ``note_arrays``: one NoteArray per channel.
+    Returns (C, n_bars, T, F10, n_notes, F) on ``device``, or with
+    ``fuse_nf`` the (note, feature) axes fused as one minor axis.
+    ``n_bars`` defaults to the rasterizer's n_bars+1 (the quantization spill
+    bar, parity midi_conversion.py:492-493)."""
+    T = rasterizer.info.n_beats
+    F10 = rasterizer.grid.n_fractions
+    n_notes = rasterizer.n_notes(pitched)
+    n_feat = rasterizer.n_features(pitched)
+    if n_bars is None:
+        n_bars = rasterizer.n_bars + 1
+    parts = [encode_notes(rasterizer, rasterizer.quantize(notes, pitched), c,
+                          pitched, n_channels, n_bars, valid_bars)
+             for c, notes in enumerate(note_arrays)]
+    tail = (n_notes * n_feat,) if fuse_nf else (n_notes, n_feat)
+    return _rasterize_records(concat_and_pad(parts), device,
+                              n_channels * n_bars * T * F10, n_notes, n_feat,
+                              (n_channels, n_bars, T, F10) + tail)
+
+
+def device_rasterize_batch(rasterizers, note_arrays_per_song, pitched: bool,
+                           n_channels: int, n_bars: int, valid_bars,
+                           fuse_nf: bool = False,
+                           device="cuda") -> torch.Tensor:
+    """B songs' channels in one K1 launch (mst_tpu's device_rasterize_batch).
+
+    Each song keeps its own Rasterizer (its own tick grid and scale); batch
+    index b folds into the flattened cell row as ``b * n_channels + c``
+    leading channel blocks, so one (B*C*R*T*F10)-row scatter materializes
+    the whole (B, C, R, T, F10, N, F) batch. All songs must share the
+    beats-per-bar count (the caller groups by time signature).
+    ``valid_bars``: per-song bar caps."""
+    B = len(rasterizers)
+    T = rasterizers[0].info.n_beats
+    if any(r.info.n_beats != T for r in rasterizers):
+        raise ValueError("batched songs must share beats-per-bar")
+    F10 = rasterizers[0].grid.n_fractions
+    n_notes = rasterizers[0].n_notes(pitched)
+    n_feat = rasterizers[0].n_features(pitched)
+    parts = []
+    for b, (rast, note_arrays) in enumerate(zip(rasterizers,
+                                                note_arrays_per_song)):
+        for c, notes in enumerate(note_arrays[:n_channels]):
+            parts.append(encode_notes(rast, rast.quantize(notes, pitched),
+                                      b * n_channels + c, pitched,
+                                      B * n_channels, n_bars, valid_bars[b]))
+    tail = (n_notes * n_feat,) if fuse_nf else (n_notes, n_feat)
+    return _rasterize_records(concat_and_pad(parts), device,
+                              B * n_channels * n_bars * T * F10, n_notes,
+                              n_feat, (B, n_channels, n_bars, T, F10) + tail)

@@ -1,21 +1,32 @@
-"""K2: the pitched applier's note-grid tail as a hand-written CUDA kernel.
+"""K2 and K3: the pitched applier's note-grid tail, forward and backward, as
+hand-written CUDA kernels.
 
-Replaces the Pallas TPU kernel ``mst_tpu/ops/pallas_grid.py:_fwd_kernel``
+K2 replaces the Pallas TPU kernel ``mst_tpu/ops/pallas_grid.py:_fwd_kernel``
 (via ``_tail_t_fwd``, :217-231, and ``fused_grid_tail``, :434) and holds the
 numerics of the serving path's ``_tail_unrolled`` (:284-310):
 
     out = sigmoid(sum_k LR(LR(xo)[o,k] + LR(xd)[d,k]) * w[k,f] + rest) * scale
 
-The kernel source is ``csrc/grid_tail.cu``; its header says what bounds it
-on the H100 (HBM bytes: the embeddings in, the (…, 56, 5) output out) and
-what the design does about it (the (…, 8, 7, 30) grid lives only in
-registers; ``rest`` is read per song, never expanded over channels).
+K3 replaces ``_bwd_kernel`` (via ``_tail_t_bwd``, :234-258): from the saved
+output and the output's cotangent it recomputes the grid and forms the
+cotangents of xo, xd, w and rest.
 
-``grid_tail`` is the wrapper: CPU tensors take the plain version
-``grid_tail_plain``; tensors anywhere else launch the kernel or raise.
-``grid_tail.launches`` counts kernel launches. The kernel is built without
-FMA contraction, so on the card it agrees with the plain version bit for
-bit (``chip_smoke.py`` holds it to that within a stated tolerance).
+The kernel sources are ``csrc/grid_tail.cu`` and ``csrc/grid_tail_bwd.cu``;
+their headers say what bounds each on the H100 (HBM bytes) and what the
+design does about it (the (…, 8, 7, 30) grid is never stored; ``rest`` is
+read per song, never expanded over channels).
+
+``grid_tail`` is the entry point. With autograd recording it runs
+``GridTail``, whose forward is K2 and whose backward is K3; otherwise (under
+``torch.inference_mode``, the serving path) it runs K2 alone and saves
+nothing. ``grid_tail_fwd`` and ``grid_tail_bwd`` are the kernel wrappers:
+CPU tensors take the plain versions ``grid_tail_plain`` and
+``grid_tail_bwd_plain``; tensors anywhere else launch the kernel or raise.
+``grid_tail.launches`` and ``grid_tail_bwd.launches`` count kernel
+launches. Both kernels are built without FMA contraction, so on the card
+they agree with their plain versions bit for bit, apart from ct_w, a sum
+over every row taken in another order (``chip_smoke.py`` states each
+tolerance).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ N_OCTAVES = 8
 N_SCALE_DEGREES = 7
 GRID_DEPTH = 30
 N_FEATURES = 5
+_SLOPE = 0.01
 
 
 def _entry():
@@ -44,8 +56,23 @@ def _entry():
     return fn
 
 
+def _bwd_entry():
+    """(C entry point, rows per block) of csrc/grid_tail_bwd.cu."""
+    lib = cuda_build.load("grid_tail_bwd")
+    fn = lib.mst_grid_tail_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.mst_grid_tail_bwd_rows.restype = ctypes.c_int
+    return fn, lib.mst_grid_tail_bwd_rows()
+
+
 def _leaky(x):
-    return F.leaky_relu(x, 0.01)
+    return F.leaky_relu(x, _SLOPE)
+
+
+def _dleaky_mul(x, ct):
+    """dLR(x) * ct without forming the derivative (pallas_grid._dleaky_mul)."""
+    return torch.where(x >= 0, ct, _SLOPE * ct)
 
 
 def grid_tail_plain(xo, xd, w, rest, scale: Sequence[float]):
@@ -68,6 +95,41 @@ def grid_tail_plain(xo, xd, w, rest, scale: Sequence[float]):
     return torch.sigmoid(y + rest) * sc
 
 
+def grid_tail_bwd_plain(xo, xd, out, ct, w, scale: Sequence[float]):
+    """Plain torch version of K3, from the formulas of ``_bwd_kernel``
+    (pallas_grid.py:167-194). ``xo`` (*L, O, K), ``xd`` (*L, D, K), ``out``
+    and ``ct`` (*L, O*D, F), ``w`` (K, F). Returns (ct_xo, ct_xd, ct_y,
+    ct_w): ct_y (*L, O*D, F) is the cotangent of ``rest`` at full shape.
+    ct_G sums its F terms in ascending f, ct_xo its D terms in ascending d
+    and ct_xd its O terms in ascending o, one rounded operation at a time,
+    as the kernel does; ct_w, a sum over every row, is one matrix product."""
+    *lead, O, K = xo.shape
+    D = xd.shape[-2]
+    n_feat = w.shape[-1]
+    n = math.prod(lead)
+    sc = torch.tensor(list(scale), dtype=out.dtype, device=out.device)
+    s = out * (1.0 / sc)
+    ct_y = ct * (sc * s * (1.0 - s))                  # d sigmoid
+    ct_y4 = ct_y.reshape(n, O, D, n_feat)
+    xo3 = xo.reshape(n, O, K)
+    xd3 = xd.reshape(n, D, K)
+    gp = _leaky(xo3)[:, :, None, :] + _leaky(xd3)[:, None, :, :]
+    ct_g = ct_y4[..., 0:1] * w[:, 0]                  # (n, O, D, K)
+    for f in range(1, n_feat):
+        ct_g = ct_g + ct_y4[..., f:f + 1] * w[:, f]
+    ct_gp = _dleaky_mul(gp, ct_g)
+    sum_d = ct_gp[:, :, 0]
+    for d in range(1, D):
+        sum_d = sum_d + ct_gp[:, :, d]
+    sum_o = ct_gp[:, 0]
+    for o in range(1, O):
+        sum_o = sum_o + ct_gp[:, o]
+    ct_xo = _dleaky_mul(xo3, sum_d)
+    ct_xd = _dleaky_mul(xd3, sum_o)
+    ct_w = _leaky(gp).reshape(-1, K).t() @ ct_y4.reshape(-1, n_feat)
+    return (ct_xo.reshape(xo.shape), ct_xd.reshape(xd.shape), ct_y, ct_w)
+
+
 def _rest_layout(lead, rest_shape):
     """(rest_rep, rest_inner) telling the kernel which rest row each output
     row reads: rest of the full lead shape maps row to row; rest with a
@@ -82,10 +144,8 @@ def _rest_layout(lead, rest_shape):
                      f"{lead + tail} or broadcast over dim 1 of it")
 
 
-def grid_tail(xo, xd, w, rest, scale: Sequence[float]):
-    """The note-grid tail: (*L, 8, 30), (*L, 7, 30), (30, 5) and rest of
-    shape (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) fp32.
-    CPU tensors run ``grid_tail_plain``; CUDA tensors run K2."""
+def _check_widths(xo, xd, w, scale):
+    """The lead dims, after checking (O, D, K, F) and the scales."""
     *lead, O, K = xo.shape
     want = (N_OCTAVES, N_SCALE_DEGREES, GRID_DEPTH, N_FEATURES)
     got = (O, xd.shape[-2], K, w.shape[-1])
@@ -97,6 +157,14 @@ def grid_tail(xo, xd, w, rest, scale: Sequence[float]):
     if len(scale) != N_FEATURES:
         raise ValueError(f"grid_tail: {len(scale)} scales for "
                          f"{N_FEATURES} features")
+    return tuple(lead)
+
+
+def grid_tail_fwd(xo, xd, w, rest, scale: Sequence[float]):
+    """The K2 wrapper: (*L, 8, 30), (*L, 7, 30), (30, 5) and rest of shape
+    (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) fp32. CPU tensors
+    run ``grid_tail_plain``; CUDA tensors run K2. Records no gradient."""
+    lead = _check_widths(xo, xd, w, scale)
     if xo.device.type == "cpu":
         return grid_tail_plain(xo, xd, w, rest, scale)
     launch = _entry()
@@ -119,4 +187,79 @@ def grid_tail(xo, xd, w, rest, scale: Sequence[float]):
     return out
 
 
+def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
+    """The K3 wrapper: the cotangents (ct_xo, ct_xd, ct_y, ct_w) of the tail
+    from its inputs ``xo``, ``xd``, ``w``, its output ``out`` and the
+    output's cotangent ``ct``. CPU tensors run ``grid_tail_bwd_plain``;
+    CUDA tensors run K3, whose per-block ct_w partials are summed here."""
+    lead = _check_widths(xo, xd, w, scale)
+    want = lead + (N_OCTAVES * N_SCALE_DEGREES, N_FEATURES)
+    for name, t in (("out", out), ("ct", ct)):
+        if tuple(t.shape) != want:
+            raise ValueError(f"grid_tail_bwd: {name} {tuple(t.shape)} must "
+                             f"be {want}")
+    if xo.device.type == "cpu":
+        return grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
+    launch, rows_per_block = _bwd_entry()
+    if not xo.is_cuda:
+        raise ValueError(f"grid_tail_bwd: unsupported device {xo.device}")
+    dev = xo.device
+    ins = [t.to(torch.float32).contiguous() for t in (xo, xd, out, ct, w)]
+    sc = torch.tensor(list(scale), dtype=torch.float32, device=dev)
+    n = math.prod(lead)
+    ct_xo, ct_xd, ct_y = (torch.empty_like(t) for t in ins[:3])
+    parts = torch.zeros(max(-(-n // rows_per_block), 1), GRID_DEPTH,
+                        N_FEATURES, dtype=torch.float32, device=dev)
+    if n:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(*(t.data_ptr() for t in ins), sc.data_ptr(),
+                    ct_xo.data_ptr(), ct_xd.data_ptr(), ct_y.data_ptr(),
+                    parts.data_ptr(), n, stream)
+        if rc != 0:
+            raise RuntimeError(f"grid tail backward kernel launch failed: "
+                               f"CUDA error {rc}")
+        grid_tail_bwd.launches += 1
+    return ct_xo, ct_xd, ct_y, parts.sum(dim=0)
+
+
+class GridTail(torch.autograd.Function):
+    """The tail with its gradient: K2 forward, K3 backward (their plain
+    versions on the CPU). It saves (xo, xd, out, w), the residuals of the
+    JAX custom VJP (pallas_grid.py:231). ``rest`` of shape (L0, 1, …) gets
+    ct_y summed over the channel axis, as autodiff of ``broadcast_to`` does
+    in the JAX package (:470)."""
+
+    @staticmethod
+    def forward(ctx, xo, xd, w, rest, scale):
+        _rest_layout(xo.shape[:-2], rest.shape)
+        out = grid_tail_fwd(xo, xd, w, rest, scale)
+        ctx.save_for_backward(xo, xd, out, w)
+        ctx.scale = scale
+        ctx.rest_shape = tuple(rest.shape)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        xo, xd, out, w = ctx.saved_tensors
+        ct_xo, ct_xd, ct_y, ct_w = grid_tail_bwd(xo, xd, out, ct, w,
+                                                 ctx.scale)
+        ct_rest = ct_y
+        if tuple(ct_y.shape) != ctx.rest_shape:
+            ct_rest = ct_y.sum(dim=1, keepdim=True)
+        return ct_xo, ct_xd, ct_w, ct_rest, None
+
+
+def grid_tail(xo, xd, w, rest, scale: Sequence[float]):
+    """The note-grid tail: (*L, 8, 30), (*L, 7, 30), (30, 5) and rest of
+    shape (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) fp32. When
+    autograd records, the output's gradient runs K3 (``GridTail``);
+    otherwise K2 runs alone on CUDA tensors, ``grid_tail_plain`` on CPU
+    tensors."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xo, xd, w, rest)):
+        return GridTail.apply(xo, xd, w, rest, tuple(scale))
+    return grid_tail_fwd(xo, xd, w, rest, scale)
+
+
 grid_tail.launches = 0
+grid_tail_bwd.launches = 0

@@ -9,6 +9,9 @@ JAX scan step for step: ``x @ W_ih^T + (b_ih + b_hh)`` for every step at
 once, then per step ``gates = gx + h @ W_hh^T``. The JAX package has no
 Pallas kernel here; the recurrence is a Python loop of plain tensor ops.
 
+A fresh module draws every leaf from U(+-1/sqrt(H)), torch.nn.LSTM's init
+and mst_tpu's (ops/lstm.py:53-75), through ``reset_parameters``.
+
 Padded sequences: final states are read at ``lengths-1``; the bidirectional
 layer runs its backward direction over a per-row flipped valid prefix
 (masked_flip), so padding never enters the backward carry
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mst_torch.ops.init import uniform_
 from mst_torch.ops.shapes import masked_flip, masked_last
 
 
@@ -36,6 +40,13 @@ def _direction_params(module: nn.Module, suffix: str, input_size: int,
         torch.zeros(4 * h)))
     module.register_parameter(f"bias_hh_l0{suffix}", nn.Parameter(
         torch.zeros(4 * h)))
+
+
+def _reset_lstm(module: nn.Module, generator: torch.Generator) -> None:
+    """Every leaf U(+-1/sqrt(H)), in registration order."""
+    bound = 1.0 / module.features ** 0.5
+    for param in module.parameters():
+        uniform_(param, bound, generator)
 
 
 def _projected(module: nn.Module, suffix: str, x):
@@ -71,6 +82,9 @@ class LSTM(nn.Module):
         self.features = features
         _direction_params(self, "", input_size, features)
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_lstm(self, generator)
+
     def forward(self, x, lengths: Optional[torch.Tensor] = None):
         gates_x = _projected(self, "", x)
         out = _recur(gates_x[None], self.weight_hh_l0.t()[None])[0]
@@ -87,6 +101,9 @@ class BiLSTM(nn.Module):
         self.features = features
         _direction_params(self, "", input_size, features)
         _direction_params(self, "_reverse", input_size, features)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_lstm(self, generator)
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None):
         if lengths is None:

@@ -1,0 +1,154 @@
+"""Training observability: EMA-smoothed progress display + append-only CSV.
+
+Counterpart of mst_tpu/runtime/metrics.py (parity target: style/utils/
+misc.py:17-82, the ProgressBar with momentum-.99 EMA, and style/utils/
+data.py:27-46 + train-model.py:143-149, the flattened loss dict to
+training.csv, one row per iteration, header on create). The progress line
+is written to stderr by hand (the machine with the GPU has no ``tqdm``);
+``save_to_csv`` is the append mode of mst_tpu/utils/data.py's. ``profiler_trace``
+records a ``torch.profiler`` trace of the steps it wraps.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import csv
+import math
+import os
+import sys
+import time
+from typing import Dict, Optional
+
+
+def save_to_csv(path, rows) -> None:
+    """Append dict rows to a CSV file, with the first row's keys as the
+    header, written only when the file is created (utils/data.py:27-46)."""
+    rows = list(rows)
+    if not rows:
+        return
+    fresh = not os.path.isfile(path)
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with open(path, "a", encoding="utf-8", newline="") as fh:
+        writer = csv.DictWriter(fh, list(rows[0]))
+        if fresh:
+            writer.writeheader()
+        writer.writerows(rows)
+
+
+class EmaMeter:
+    """Biased EMA metric tracker (parity: ProgressBar's update_values,
+    utils/misc.py:49-63: sum/seen pairs each decayed by momentum)."""
+
+    def __init__(self, momentum: float = 0.99):
+        self.momentum = momentum
+        self.sums: Dict[str, float] = {}
+        self.seen: Dict[str, float] = {}
+
+    def update(self, n: float = 1, **values):
+        for key, value in values.items():
+            if value is None or (isinstance(value, float) and math.isnan(value)):
+                continue
+            self.sums[key] = self.sums.get(key, 0.0) * self.momentum + value * n
+            self.seen[key] = self.seen.get(key, 0.0) * self.momentum + n
+
+    @property
+    def averages(self) -> Dict[str, float]:
+        return {k: self.sums[k] / self.seen[k] for k in self.sums}
+
+
+class ProgressBar:
+    """A progress line with the EMA averages as a postfix (parity:
+    utils/misc.py:17-82, the unbiased EMA, and auto-close when n_iterations
+    is reached). The line is redrawn on ``stream`` at most every
+    ``interval`` seconds and when it closes."""
+
+    def __init__(self, n_iterations: Optional[int] = None,
+                 momentum: float = 0.99, stream=None, interval: float = 0.5):
+        self.n_iterations = n_iterations
+        self.meter = EmaMeter(momentum)
+        self.avg_values: Dict[str, float] = {}
+        self.n = 0
+        self.postfix = ""
+        self.stream = sys.stderr if stream is None else stream
+        self.interval = interval
+        self._t0 = time.perf_counter()
+        self._drawn = -math.inf
+        self.closed = False
+
+    def add(self, n: int = 1, **values):
+        self.n += n
+        self.meter.update(n, **values)
+        self.avg_values = self.meter.averages
+        self.postfix = ", ".join(f"{k}: {v:.2f}"
+                                 for k, v in self.avg_values.items())
+        if self.n == self.n_iterations:
+            self.close()
+        elif time.perf_counter() - self._drawn >= self.interval:
+            self._draw()
+
+    def _draw(self):
+        total = "" if self.n_iterations is None else f"/{self.n_iterations}"
+        elapsed = time.perf_counter() - self._t0
+        self.stream.write(f"\r{self.n}{total} [{elapsed:.1f}s] {self.postfix}")
+        self.stream.flush()
+        self._drawn = time.perf_counter()
+
+    def close(self):
+        if not self.closed:
+            self._draw()
+            self.stream.write("\n")
+            self.stream.flush()
+            self.closed = True
+
+
+class CsvLogger:
+    """Append-mode dict-row CSV with header-on-create — a thin stateful
+    wrapper over save_to_csv (parity: train-model.py:143-144 feeding
+    utils/data.py:27-46)."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def append(self, **row):
+        save_to_csv(self.path, [row])
+
+
+def flatten_losses(losses) -> Dict[str, float]:
+    """LossDict -> the reference's flattened CSV column names
+    (flatten_dict(..., reducer='underscore'), train-model.py:148)."""
+    out: Dict[str, float] = {}
+
+    def walk(d, path):
+        for key, value in d.items():
+            name = f"{path}_{key}" if path else key
+            if isinstance(value, dict):
+                walk(value, name)
+            else:
+                out[name] = None if value is None else float(value)
+    walk(losses.as_nested_dict(), "")
+    return out
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str):
+    """torch.profiler trace of the wrapped steps, written to
+    ``log_dir/trace.json`` (a Chrome trace) with a per-kernel table in
+    ``log_dir/kernels.txt``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    sort = ("self_cuda_time_total" if torch.cuda.is_available()
+            else "self_cpu_time_total")
+    with open(os.path.join(log_dir, "kernels.txt"), "w") as fh:
+        fh.write(prof.key_averages().table(sort_by=sort, row_limit=30))

@@ -1,0 +1,460 @@
+"""The training step: forward + loss + summed-gradient accumulation + Adam
+with step decay.
+
+Counterpart of mst_tpu/runtime/train.py (parity target: train-model.py:
+89-160):
+
+- Adam(lr=.01) with StepLR(step_size=200, gamma=.9) stepped once per
+  optimizer step (train-model.py:89-90,151-154);
+- gradient accumulation over ``iter_size`` micro-steps by *summing*
+  gradients: each micro-step's ``backward()`` adds into ``.grad``, and every
+  ``iter_size``-th micro-step applies Adam and clears them;
+- the loss call uses normalize=True (train-model.py:118).
+
+optax updates every parameter at every apply; torch Adam skips a parameter
+whose ``.grad`` is None. After micro-steps with no percussion the unpitched
+branch has no gradient, so every parameter gets a zero ``.grad`` before the
+update: moments, bias correction and updates then match optax's.
+
+PyTorch runs eagerly, so ``make_train_step`` is a plain function and
+``make_multi_train_step`` runs K steps in a loop with one stacked loss
+tensor (the JAX package scans them in one program; tests/test_multi_step.py
+pins that the two are the same). The state is mutated in place and also
+returned, to keep the JAX package's call shape.
+
+On the card each batch's rasters are built by K1 (``device_batch_from_songs``)
+and the pitched applier's note-grid tail runs forward through K2 and
+backward through K3 (mst_torch.ops.grid_kernel.GridTail).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.utils.checkpoint
+from torch.optim.lr_scheduler import StepLR
+
+from mst_torch.config import Config
+from mst_torch.data.pipeline import Song, get_used_instruments, prepare_input
+from mst_torch.models import StyleTransferModel
+from mst_torch.ops.losses import LossDict, total_loss
+from mst_torch.ops.shapes import split_note_features
+from mst_torch.transfer import strict_fp32
+
+ADAM_BETAS = (0.9, 0.999)   # torch Adam defaults (train-model.py:89), optax's
+ADAM_EPS = 1e-8
+
+
+def reproducible_backends() -> None:
+    """The card's settings for training: full fp32 (``strict_fp32``) and
+    deterministic cuDNN algorithms. With cuDNN's default, a resumed run on
+    the card differed from the uninterrupted one in the last bits of some
+    losses in 3 of 4 tries, and in none of 2 with determinism on."""
+    strict_fp32()
+    torch.backends.cudnn.deterministic = True
+
+
+class Batch(NamedTuple):
+    """A padded, fixed-shape batch of songs."""
+
+    mode: torch.Tensor                 # (B, 2)
+    bpm: torch.Tensor                  # (B,)
+    pitched: torch.Tensor              # (B, C, R, T, 10, 56*5) NF-fused
+    instruments_features: torch.Tensor  # (B, C, 51)
+    unpitched: Optional[torch.Tensor]  # (B, Cu, R, T, 10, 47*2) or None
+    used_instruments: torch.Tensor     # (B, 41)
+    bar_lengths: torch.Tensor          # (B,)
+    channel_mask: torch.Tensor         # (B, C)
+    uchannel_mask: Optional[torch.Tensor]  # (B, Cu) or None
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Model, optimizer, schedule and counters. ``micro_step`` counts
+    iterations, ``opt_step`` optimizer applications (scheduler steps); the
+    accumulated gradient lives in the parameters' ``.grad``."""
+
+    model: StyleTransferModel
+    optimizer: torch.optim.Adam
+    scheduler: StepLR
+    micro_step: int = 0
+    opt_step: int = 0
+
+
+def make_optimizer(model: StyleTransferModel, config: Config):
+    """(Adam, StepLR): lr * gamma^(opt_step // step_size) (parity: StepLR,
+    train-model.py:89-90), stepped once per optimizer application as
+    optax's update count is."""
+    t = config.train
+    optimizer = torch.optim.Adam(model.parameters(), lr=t.learning_rate,
+                                 betas=ADAM_BETAS, eps=ADAM_EPS)
+    scheduler = StepLR(optimizer, step_size=t.lr_decay_every,
+                       gamma=t.lr_decay_gamma)
+    return optimizer, scheduler
+
+
+def create_train_state(config: Config, device="cuda",
+                       seed: Optional[int] = None,
+                       model: Optional[StyleTransferModel] = None
+                       ) -> TrainState:
+    """A fresh model (``init_parameters`` from ``seed``, default the
+    config's) on ``device`` with its optimizer; or ``model`` as given."""
+    if model is None:
+        model = StyleTransferModel(config.model).init_parameters(
+            config.train.seed if seed is None else seed)
+    model = model.to(device).train()
+    optimizer, scheduler = make_optimizer(model, config)
+    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
+
+
+def loss_fn(model: StyleTransferModel, batch: Batch, has_unpitched: bool,
+            mean_type: str = "quadratic") -> LossDict:
+    """The training objective of one batch (mst_tpu's loss_fn)."""
+    pitched = split_note_features(batch.pitched, 5)
+    unpitched = split_note_features(batch.unpitched, 2)
+    (inst_pred, mode_pred, bpm_pred), x_pitched, x_unpitched = model(
+        batch.mode, batch.bpm, pitched, batch.instruments_features,
+        unpitched if has_unpitched else None,
+        bar_lengths=batch.bar_lengths, channel_mask=batch.channel_mask,
+        uchannel_mask=batch.uchannel_mask if has_unpitched else None)
+
+    R = pitched.shape[2]
+    bar_mask = (torch.arange(R, device=pitched.device)[None, :]
+                < batch.bar_lengths[:, None]).to(pitched.dtype)
+    p_mask = batch.channel_mask[:, :, None] * bar_mask[:, None, :]
+    u_mask = None
+    if has_unpitched:
+        u_mask = batch.uchannel_mask[:, :, None] * bar_mask[:, None, :]
+
+    return total_loss(
+        inst_pred, batch.used_instruments, mode_pred, batch.mode,
+        bpm_pred, batch.bpm,
+        x_pitched, pitched,
+        x_unpitched, unpitched if has_unpitched else None,
+        normalize=True, mean_type=mean_type,
+        pitched_pad_mask=p_mask, unpitched_pad_mask=u_mask)
+
+
+def apply_updates(state: TrainState) -> None:
+    """One optimizer application with the summed gradients, then clear
+    them. A parameter without a gradient gets a zero one first, so that
+    Adam updates it as optax does."""
+    for p in state.model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.opt_step += 1
+
+
+def _make_step_fn(config: Config, has_unpitched: bool):
+    """The micro-step shared by make_train_step and make_multi_train_step."""
+    iter_size = config.train.iter_size
+
+    def step(state: TrainState, batch: Batch):
+        model = state.model
+        if config.train.remat:
+            # recompute the forward during backward instead of saving
+            # activations
+            losses = torch.utils.checkpoint.checkpoint(
+                loss_fn, model, batch, has_unpitched, use_reentrant=False)
+        else:
+            losses = loss_fn(model, batch, has_unpitched)
+        losses.total.backward()
+        state.micro_step += 1
+        if state.micro_step % iter_size == 0:
+            apply_updates(state)
+        # one stacked loss vector -> one host fetch for all metrics
+        return state, torch.stack([v.detach().float() for v in losses])
+
+    return step
+
+
+def make_train_step(config: Config, has_unpitched: bool):
+    """One micro-step: grad, accumulate (sum), apply Adam every
+    ``iter_size`` micro-steps with the decayed learning rate. Returns
+    ``(state, losses)`` with the losses as one device vector in
+    ``LossDict`` order (``LossDict(*vec.tolist())`` reads it), so the caller
+    decides when to wait for the device: the CLI fetches each step's vector
+    one iteration later, while the next step runs."""
+    return _make_step_fn(config, has_unpitched)
+
+
+def make_multi_train_step(config: Config, has_unpitched: bool, k: int):
+    """K micro-steps per call: the input is a :class:`Batch` whose leaves
+    carry a leading ``K*B`` axis laid out ``k*B + b`` (one rasterize launch
+    per note family for the whole stack, ``device_batch_from_songs`` over
+    K*B songs). Returns ``(state, (K, n_losses) loss matrix)``. Semantics
+    are K sequential :func:`make_train_step` calls."""
+    step = _make_step_fn(config, has_unpitched)
+
+    def split(x, i):
+        if x is None:
+            return None
+        return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
+
+    def multi(state: TrainState, kbatch: Batch):
+        rows = []
+        for i in range(k):
+            state, vec = step(state, Batch(*(split(f, i) for f in kbatch)))
+            rows.append(vec)
+        return state, torch.stack(rows)
+
+    return multi
+
+
+def window_sort(stream, window: int, signature):
+    """Reorder ``(cursor, item)`` pairs inside blocks of ``window`` items so
+    same-``signature`` items become consecutive (stable within a block) —
+    the shape-bucket analogue of NLP length-bucketing, so that
+    :func:`group_stacks` forms mostly full K-step stacks.
+
+    Each block is a permutation of ``window`` consecutive stream items, so
+    every epoch still visits every song. Resume is conservative: items
+    before a block's last carry the cursor that replays the block from its
+    first attempt (a mid-block resume re-trains at most ``window - 1`` songs,
+    never skips one); the block's final item carries the true end-of-block
+    cursor."""
+    stream = iter(stream)
+    while True:
+        block = list(itertools.islice(stream, window))
+        if not block:
+            return
+        # stable sort by signature: items keep stream order within a bucket
+        order = sorted(range(len(block)),
+                       key=lambda i: (repr(signature(block[i][1])), i))
+        replay_block = block[0][0] - 1  # cursor-1 = the attempt index that
+        end_cursor = block[-1][0]       # yielded the block's first item
+        for n, i in enumerate(order):
+            cursor = end_cursor if n == len(order) - 1 else replay_block
+            yield cursor, block[i][1]
+
+
+def group_stacks(stream, k: int, signature, limit: Optional[int] = None):
+    """Group consecutive same-signature items from ``(cursor, item)`` pairs
+    into stacks of exactly ``k`` for the multi-step path.
+
+    Yields ``(cursor, [items])`` with 1 <= len <= k: a full stack when k
+    consecutive items share ``signature(item)``, else the buffered items are
+    flushed as singletons. Consecutive-only grouping keeps the exact song
+    order, so resume cursors and loss curves stay comparable with the
+    per-step path. ``limit``: total item budget (the run's remaining
+    iterations) — once fewer than k remain, items flush as singletons so a
+    run of exactly ``n_iterations`` never overshoots."""
+    buf = []
+    buf_sig = None
+    emitted = 0
+
+    def room():
+        return limit is None or emitted + k <= limit
+
+    for cursor, item in stream:
+        sig = signature(item)
+        if buf and (sig != buf_sig or not room()):
+            for c, it in buf:
+                yield c, [it]
+                emitted += 1
+            buf = []
+        if room():
+            buf.append((cursor, item))
+            buf_sig = sig
+            if len(buf) == k:
+                yield buf[-1][0], [it for _, it in buf]
+                emitted += k
+                buf = []
+        else:
+            yield cursor, [item]
+            emitted += 1
+    for c, it in buf:
+        yield c, [it]
+        emitted += 1
+
+
+def _tensor(x, device, dtype=None):
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype).to(device)
+
+
+def batch_from_song(song: Song, max_n_bars: Optional[int] = None,
+                    drop_empty_unpitched: bool = True,
+                    device="cuda") -> Optional[Batch]:
+    """One song as a batch of one at its exact shape (the reference's
+    training unit, train-model.py:98-111), from the host raster. Returns
+    None for silent songs (parity :105-106)."""
+    mode, bpm, pitched, instf, unpitched = prepare_input(song, max_n_bars)
+    if pitched.sum() == 0:
+        return None
+    if unpitched is not None and drop_empty_unpitched and unpitched.sum() == 0:
+        unpitched = None
+    used = get_used_instruments(instf, unpitched is not None)
+    B, C, R = pitched.shape[:3]
+    return Batch(
+        mode=_tensor(mode, device), bpm=_tensor(bpm, device),
+        pitched=_tensor(pitched, device),
+        instruments_features=_tensor(instf, device),
+        unpitched=None if unpitched is None else _tensor(unpitched, device),
+        used_instruments=_tensor(used, device),
+        bar_lengths=torch.full((B,), R, dtype=torch.int64, device=device),
+        channel_mask=torch.ones((B, C), dtype=torch.float32, device=device),
+        uchannel_mask=(None if unpitched is None else torch.ones(
+            (B, unpitched.shape[1]), dtype=torch.float32, device=device)),
+    )
+
+
+def bucket_shape(n: int, buckets) -> int:
+    """Smallest bucket >= n (falls back to n itself beyond the largest)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+def clamp_bar_bucket(Rb: int, B: int, Cb: int, T: int, budget: int,
+                     bar_buckets) -> int:
+    """Largest bar bucket with B*Cb*Rb*T within the cell budget
+    (TrainConfig.batch_cell_budget); floors to a bucket so shapes stay
+    bucketed. Returns Rb unchanged when it already fits."""
+    allowed = budget // max(B * Cb * T, 1)
+    if Rb <= allowed:
+        return Rb
+    fitting = [b for b in bar_buckets if b <= allowed]
+    return fitting[-1] if fitting else max(allowed, 1)
+
+
+def _song_labels(songs, channel_counts, max_channels, max_uchannels, has_u):
+    """Host arrays of a batch: instrument features, masks, mode, bpm and
+    used instruments (shared by device_batch_from_songs and pad_batch)."""
+    B = len(songs)
+    instf = np.zeros((B, max_channels, 51), np.float32)
+    cmask = np.zeros((B, max_channels), np.float32)
+    umask = np.zeros((B, max_uchannels), np.float32)
+    mode = np.zeros((B, 2), np.float32)
+    bpm = np.zeros((B,), np.float32)
+    used = np.zeros((B, 41), np.float32)
+    for i, song in enumerate(songs):
+        C = channel_counts[i]
+        instf[i, :C] = song.instruments_features[:C]
+        cmask[i, :C] = 1.0
+        mode[i] = [0.0, 1.0] if song.info.scale.is_minor else [1.0, 0.0]
+        bpm[i] = song.info.bpm
+        used[i] = get_used_instruments(
+            song.instruments_features[None, :C], has_u[i])[0]
+    return instf, cmask, umask, mode, bpm, used
+
+
+def device_batch_from_song(song: Song, max_channels: int, max_bars: int,
+                           bar_cap: Optional[int] = None,
+                           device="cuda") -> Optional[Batch]:
+    """Bucket-padded batch of one whose rasters are built on the device by
+    K1 from the song's note records. None for a silent song."""
+    if song.pitched_empty:
+        return None
+    return device_batch_from_songs([song], max_channels, max_bars,
+                                   bar_cap=bar_cap, device=device)
+
+
+def device_batch_from_songs(songs, max_channels: int, max_bars: int,
+                            bar_cap=None, max_uchannels: int = 1,
+                            device="cuda") -> Batch:
+    """Collate N songs into one fixed-shape Batch whose rasters are built on
+    the device: one K1 launch per note family for the whole batch, so only
+    the note records cross to the device. Masks and labels equal
+    pad_batch's; the songs must share beats-per-bar. The rasters stay
+    NF-fused (…, N*F); ``loss_fn`` splits them."""
+    from mst_torch.ops.device_raster import device_rasterize_batch
+    from mst_torch.ops.rasterize import Rasterizer
+
+    B = len(songs)
+    bar_caps = ([bar_cap] * B if bar_cap is None or isinstance(bar_cap, int)
+                else list(bar_cap))
+    rasterizers = [Rasterizer(s.info) for s in songs]
+    valid_bars = []
+    channel_counts = []
+    for i, song in enumerate(songs):
+        R = min(song.n_bars, max_bars)
+        if bar_caps[i] is not None:
+            R = min(R, bar_caps[i])
+        valid_bars.append(R)
+        channel_counts.append(min(song.n_channels, max_channels))
+
+    pitched = device_rasterize_batch(
+        rasterizers, [s.pitched_notes[:c] for s, c in
+                      zip(songs, channel_counts)], True, max_channels,
+        max_bars, valid_bars, fuse_nf=True, device=device)
+    has_u = [s.has_unpitched for s in songs]
+    unpitched = None
+    if any(has_u):
+        unpitched = device_rasterize_batch(
+            rasterizers, [(s.unpitched_notes[:max_uchannels] if h else [])
+                          for s, h in zip(songs, has_u)], False,
+            max_uchannels, max_bars, valid_bars, fuse_nf=True, device=device)
+
+    instf, cmask, umask, mode, bpm, used = _song_labels(
+        songs, channel_counts, max_channels, max_uchannels, has_u)
+    for i, song in enumerate(songs):
+        if has_u[i]:
+            umask[i, :min(len(song.unpitched_notes), max_uchannels)] = 1.0
+    return Batch(
+        mode=_tensor(mode, device), bpm=_tensor(bpm, device),
+        pitched=pitched, instruments_features=_tensor(instf, device),
+        unpitched=unpitched, used_instruments=_tensor(used, device),
+        bar_lengths=_tensor(np.asarray(valid_bars), device, torch.int64),
+        channel_mask=_tensor(cmask, device),
+        uchannel_mask=_tensor(umask, device) if any(has_u) else None,
+    )
+
+
+def pad_batch(songs, max_channels: int, max_bars: int,
+              max_uchannels: int = 1, bar_cap=None, device="cuda") -> Batch:
+    """Collate songs into one fixed-shape Batch with masks, from the host
+    rasters (the ``--exact-shapes`` batched path).
+
+    ``bar_cap``: per-song bar truncation (the reference's
+    max_total_bars // n_channels rule) applied before padding to
+    ``max_bars``; an int applies to all songs, a sequence gives per-song
+    caps. The rasters are NF-fused, as device_batch_from_songs makes them.
+    """
+    B = len(songs)
+    T = songs[0].beats_per_bar  # metadata — must not force a lazy raster
+    bar_caps = ([bar_cap] * B if bar_cap is None or isinstance(bar_cap, int)
+                else list(bar_cap))
+    pitched = np.zeros((B, max_channels, max_bars, T, 10, 56, 5), np.float32)
+    unpitched = np.zeros((B, max_uchannels, max_bars, T, 10, 47, 2),
+                         np.float32)
+    lengths = np.zeros((B,), np.int64)
+    channel_counts = []
+    for i, song in enumerate(songs):
+        C = min(song.pitched.shape[0], max_channels)
+        R = min(song.pitched.shape[1], max_bars)
+        if bar_caps[i] is not None:
+            R = min(R, bar_caps[i])
+        pitched[i, :C, :R] = song.pitched[:C, :R]
+        lengths[i] = R
+        channel_counts.append(C)
+    # has_unpitched is the precomputed "raster exists and sums > 0" flag;
+    # testing song.unpitched would force a lazy rasterization per song
+    has_u = [s.has_unpitched for s in songs]
+    instf, cmask, umask, mode, bpm, used = _song_labels(
+        songs, channel_counts, max_channels, max_uchannels, has_u)
+    for i, song in enumerate(songs):
+        if has_u[i]:
+            Cu = min(song.unpitched.shape[0], max_uchannels)
+            R = lengths[i]
+            unpitched[i, :Cu, :R] = song.unpitched[:Cu, :R]
+            umask[i, :Cu] = 1.0
+    any_u = any(has_u)
+    return Batch(
+        mode=_tensor(mode, device), bpm=_tensor(bpm, device),
+        pitched=_tensor(pitched.reshape(pitched.shape[:-2] + (-1,)), device),
+        instruments_features=_tensor(instf, device),
+        unpitched=(_tensor(unpitched.reshape(unpitched.shape[:-2] + (-1,)),
+                           device) if any_u else None),
+        used_instruments=_tensor(used, device),
+        bar_lengths=_tensor(lengths, device),
+        channel_mask=_tensor(cmask, device),
+        uchannel_mask=_tensor(umask, device) if any_u else None,
+    )

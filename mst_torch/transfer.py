@@ -107,6 +107,22 @@ class ModelBundle:
             weights.load_npz(path)))
         return cls(model=model, device=device)
 
+    @classmethod
+    def from_checkpoint(cls, directory: str, device=None,
+                        config: ModelConfig = ModelConfig()) -> "ModelBundle":
+        """A bundle with the params of the latest checkpoint that the port's
+        trainer (``train-model-torch.py``) wrote under ``directory``
+        (mst_tpu's load_trained_params)."""
+        from mst_torch.runtime.checkpoint import load_trained_params
+
+        device = resolve_device(device)
+        state_dict, step = load_trained_params(directory)
+        if state_dict is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+        model = StyleTransferModel(config)
+        model.load_state_dict(state_dict)
+        return cls(model=model, device=device)
+
 
 def _pack_word(x, ticks_per_beat):
     """Hard output + lossless packing, ONE int64 word per cell holding the

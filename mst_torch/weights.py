@@ -16,11 +16,16 @@ mst_tpu/runtime/ref_checkpoint.py:12-24:
 The committed asset ``mst_torch/assets/snapshot_4900.npz`` holds the
 trained params of ``snapshots/4900`` as flat ``a/b/c`` keys (written by
 tools/export_torch_assets.py); ``load_npz`` reads it.
+
+``train_state_from_flax`` carries a whole mst_tpu train state over — params,
+optax Adam moments and count, accumulated gradients and counters — so the
+port can continue a run that mst_tpu started.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Dict, Mapping
 
 import numpy as np
@@ -78,6 +83,51 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     flat = flatten_tree(params) if any(
         hasattr(v, "items") for v in params.values()) else dict(params)
     return dict(_torch_leaf(k, np.asarray(v)) for k, v in flat.items())
+
+
+def _flat(tree: Mapping) -> Dict[str, np.ndarray]:
+    if "params" in tree and hasattr(tree["params"], "items"):
+        tree = tree["params"]
+    return flatten_tree(tree)
+
+
+def train_state_from_flax(params: Mapping, mu: Mapping, nu: Mapping,
+                          count: int, accum_grads: Mapping, micro_step: int,
+                          opt_step: int, config=None, device="cpu"):
+    """A port ``TrainState`` (mst_torch.runtime.train) holding an mst_tpu
+    ``TrainState`` given as numpy: ``params``, the ``mu``/``nu`` moments and
+    ``count`` of optax's ScaleByAdamState (``opt_state[0]``),
+    ``accum_grads``, ``micro_step`` and ``opt_step``. Each tree maps leaf
+    for leaf by the rules above; Adam's ``exp_avg``/``exp_avg_sq``/``step``
+    take mu/nu/count, and the StepLR schedule is stepped ``opt_step`` times,
+    as an uninterrupted port run would have stepped it."""
+    from mst_torch.config import Config
+    from mst_torch.models import StyleTransferModel
+    from mst_torch.runtime.train import create_train_state
+
+    config = Config() if config is None else config
+    model = StyleTransferModel(config.model)
+    model.load_state_dict(state_dict_from_flax(params))
+    state = create_train_state(config, device=device, model=model)
+    mu_t, nu_t, acc_t = (dict(_torch_leaf(k, v) for k, v in _flat(t).items())
+                         for t in (mu, nu, accum_grads))
+    names = [name for name, _ in state.model.named_parameters()]
+    saved = state.optimizer.state_dict()
+    step = torch.tensor(float(count), dtype=torch.float32)
+    saved["state"] = {i: {"step": step.clone(), "exp_avg": mu_t[name],
+                          "exp_avg_sq": nu_t[name]}
+                      for i, name in enumerate(names)}
+    state.optimizer.load_state_dict(saved)
+    for name, p in state.model.named_parameters():
+        p.grad = acc_t[name].to(p.device)
+    with warnings.catch_warnings():
+        # stepping the schedule alone: torch warns that no optimizer step ran
+        warnings.simplefilter("ignore")
+        for _ in range(int(opt_step)):
+            state.scheduler.step()
+    state.micro_step = int(micro_step)
+    state.opt_step = int(opt_step)
+    return state
 
 
 def load_npz(path: str = SNAPSHOT_NPZ) -> Dict[str, np.ndarray]:

@@ -17,8 +17,14 @@ kernels replace:
   in the last ulp. The tolerance applies to the sigmoid itself, before the
   per-feature output scale (6 for the duration feature, 1 for the others),
   so on the duration it is 6e-6.
+- K3 (mst_torch.ops.grid_kernel): ``grid_tail_bwd_plain`` must match the
+  Pallas backward kernel (``jax.vjp`` of ``fused_grid_tail(...,
+  interpret=True)``) and autodiff of ``_tail_jnp`` within
+  tests/test_fused_tails.py's tolerance, and autograd through ``GridTail``
+  must match autograd of ``grid_tail_plain``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -223,3 +229,96 @@ def test_grid_tail_rejects_wrong_widths():
         grid_kernel.grid_tail(xo[..., :29], xd[..., :29], w[:29], rest, SCALE)
     with pytest.raises(ValueError):
         grid_kernel.grid_tail(xo, xd, w, rest, SCALE[:4])
+
+
+# ------------------------------------------- K3: the tail's backward
+#
+# grid_tail_bwd_plain (the plain version of K3) against the JAX package's
+# two gradients of the tail: jax.vjp of fused_grid_tail(..., interpret=True)
+# (the Pallas backward kernel _bwd_kernel, interpreted) and jax.grad of
+# _tail_jnp (checkpointed autodiff), within tests/test_fused_tails.py's
+# fp32-reassociation tolerance (rtol 1e-5, atol 1e-5 + 2e-6 * max|want|):
+# ct_w and ct_rest sum over every row, in another order in each.
+
+def _assert_grad_close(got, want, label=""):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 + 2e-6 * np.abs(want).max(),
+                               err_msg=label)
+
+
+@pytest.mark.parametrize("lead,full_rest", [
+    ((2, 3, 4, 2, 5), False),      # rest broadcast over the channel axis
+    ((1, 3, 7, 3, 1), False),      # 63 rows: not a multiple of any tile
+    ((2, 2, 3, 1, 4), True),       # rest of the full lead shape
+], ids=["broadcast", "63-rows", "full"])
+def test_grid_tail_bwd_plain_matches_pallas_and_autodiff(lead, full_rest):
+    from mst_tpu.ops.pallas_grid import _tail_jnp
+
+    rng = np.random.default_rng(sum(lead) + full_rest)
+    args = _tail_inputs(rng, lead, full_rest)
+    ct = rng.normal(size=lead + (56, 5)).astype(np.float32)
+    j_args = tuple(jnp.asarray(a) for a in args)
+    out, vjp = jax.vjp(
+        lambda *a: fused_grid_tail(*a, SCALE, interpret=True), *j_args)
+    want_pallas = vjp(jnp.asarray(ct))
+    want_jnp = jax.grad(lambda a: (_tail_jnp(*a, SCALE)
+                                   * jnp.asarray(ct)).sum())(j_args)
+    xo, xd, w, rest = (torch.from_numpy(a) for a in args)
+    ct_xo, ct_xd, ct_y, ct_w = grid_kernel.grid_tail_bwd_plain(
+        xo, xd, torch.from_numpy(np.array(out)), torch.from_numpy(ct), w,
+        SCALE)
+    ct_rest = ct_y if full_rest else ct_y.sum(dim=1, keepdim=True)
+    got = (ct_xo, ct_xd, ct_w, ct_rest)
+    for want in (want_pallas, want_jnp):
+        for name, g, wv in zip(("xo", "xd", "w", "rest"), got, want):
+            assert tuple(g.shape) == tuple(wv.shape), name
+            _assert_grad_close(g.numpy(), wv, name)
+
+
+@pytest.mark.parametrize("full_rest", [False, True])
+def test_grid_tail_autograd_equals_plain_autograd(full_rest):
+    """Autograd through GridTail (K2 + K3's plain versions on the CPU)
+    equals torch autograd of grid_tail_plain, and counts no launch."""
+    rng = np.random.default_rng(11 + full_rest)
+    lead = (2, 3, 2, 2, 5)
+    args = [torch.from_numpy(a).requires_grad_(True)
+            for a in _tail_inputs(rng, lead, full_rest)]
+    ct = torch.from_numpy(rng.normal(size=lead + (56, 5)).astype(np.float32))
+    before = (grid_kernel.grid_tail.launches,
+              grid_kernel.grid_tail_bwd.launches)
+    out = grid_kernel.grid_tail(*args, SCALE)
+    got = torch.autograd.grad(out, args, ct)
+    out_plain = grid_kernel.grid_tail_plain(*args, SCALE)
+    want = torch.autograd.grad(out_plain, args, ct)
+    assert torch.equal(out, out_plain)
+    for name, g, wv in zip(("xo", "xd", "w", "rest"), got, want):
+        assert g.shape == wv.shape, name
+        _assert_grad_close(g.numpy(), wv.numpy(), name)
+    assert (grid_kernel.grid_tail.launches,
+            grid_kernel.grid_tail_bwd.launches) == before
+
+
+def test_grid_tail_without_grad_saves_nothing():
+    """Under inference_mode (the serving path) the tail runs the forward
+    alone: no autograd node, the same values."""
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(a).requires_grad_(True)
+            for a in _tail_inputs(rng, (1, 2, 2, 1, 10))]
+    with torch.inference_mode():
+        out = grid_kernel.grid_tail(*args, SCALE)
+    assert out.grad_fn is None
+    with_grad = grid_kernel.grid_tail(*args, SCALE)
+    assert type(with_grad.grad_fn).__name__ == "GridTailBackward"
+    assert torch.equal(out, with_grad.detach())
+
+
+def test_grid_tail_bwd_rejects_wrong_shapes():
+    rng = np.random.default_rng(4)
+    xo, xd, w, _ = (torch.from_numpy(a)
+                    for a in _tail_inputs(rng, (1, 1, 1, 1, 10)))
+    out = torch.zeros(1, 1, 1, 1, 10, 56, 5)
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail_bwd(xo, xd, out[..., :4], out, w, SCALE)
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail_bwd(xo, xd, out, out[:, :, :, :, :9], w, SCALE)

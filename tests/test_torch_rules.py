@@ -1,7 +1,8 @@
 """Ground rules of the port, checked on the CPU.
 
-- ``mst_torch`` (and ``chip_smoke.py``) import neither JAX, flax, orbax nor
-  anything of ``mst_tpu``: the machine with the GPU has none of them.
+- ``mst_torch``, ``chip_smoke.py`` and ``train-model-torch.py`` import
+  neither JAX, flax, optax, orbax, tqdm nor anything of ``mst_tpu``: the
+  machine with the GPU has none of them.
 - Entry points run on the GPU unless the caller asks for the CPU, and
   raise rather than run quietly on the CPU.
 - A CUDA kernel's wrapper takes its plain version only for CPU tensors;
@@ -21,13 +22,19 @@ from mst_torch.models import StyleTransferModel
 from mst_torch.ops import cuda_build, grid_kernel, raster_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "mst_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "tqdm", "mst_tpu")
+# torch itself imports tqdm where it is installed (torch.hub), so the
+# import check below leaves it out; the source check forbids it
+FORBIDDEN_MODULES = tuple(m for m in FORBIDDEN if m != "tqdm")
 
 
 def test_import_pulls_in_no_jax():
     code = ("import sys; import mst_torch, mst_torch.transfer, "
-            "mst_torch.weights, mst_torch.parity; "
-            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
+            "mst_torch.weights, mst_torch.parity, mst_torch.runtime.train, "
+            "mst_torch.runtime.checkpoint, mst_torch.runtime.metrics, "
+            "mst_torch.data.cache, mst_torch.data.prefetch; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN_MODULES!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -41,6 +48,7 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "train-model-torch.py")
 
 
 def test_no_source_imports_jax_or_mst_tpu():
@@ -58,7 +66,7 @@ def test_no_source_imports_jax_or_mst_tpu():
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
         checked += 1
-    assert checked > 20
+    assert checked > 30
 
 
 def test_bundle_defaults_to_cuda_and_raises_without_it(monkeypatch,
@@ -105,13 +113,19 @@ def test_wrappers_raise_without_the_kernel_library(monkeypatch):
         raise OSError(f"lib{name}.so: cannot open shared object file")
 
     monkeypatch.setattr(cuda_build, "load", absent)
-    r0, g0 = raster_kernel.rasterize.launches, grid_kernel.grid_tail.launches
+    counters = (raster_kernel.rasterize, grid_kernel.grid_tail,
+                grid_kernel.grid_tail_bwd)
+    before = [c.launches for c in counters]
+    scale = (6.0, 1.0, 1.0, 1.0, 1.0)
     with pytest.raises(OSError):
         raster_kernel.rasterize(*_raster_args(), 8, 56, 5)
     with pytest.raises(OSError):
-        grid_kernel.grid_tail(*_tail_args(), (6.0, 1.0, 1.0, 1.0, 1.0))
-    assert raster_kernel.rasterize.launches == r0
-    assert grid_kernel.grid_tail.launches == g0
+        grid_kernel.grid_tail(*_tail_args(), scale)
+    xo, xd, w, _ = _tail_args()
+    out = torch.zeros(1, 2, 1, 1, 10, 56, 5, device="meta")
+    with pytest.raises(OSError):
+        grid_kernel.grid_tail_bwd(xo, xd, out, out, w, scale)
+    assert [c.launches for c in counters] == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -128,10 +142,13 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_library_name_follows_source_and_flags():
     """A rebuilt source or changed flags never load a stale library."""
-    raster = cuda_build.library_path("raster")
-    tail = cuda_build.library_path("grid_tail")
-    assert raster != tail
-    assert os.path.dirname(raster) == cuda_build.BUILD_DIR
+    paths = {name: cuda_build.library_path(name)
+             for name in cuda_build.KERNEL_FLAGS}
+    assert sorted(paths) == ["grid_tail", "grid_tail_bwd", "raster"]
+    assert len(set(paths.values())) == 3
+    assert all(os.path.dirname(p) == cuda_build.BUILD_DIR
+               for p in paths.values())
     assert cuda_build.BUILD_DIR.startswith(ROOT)
     assert "--fmad=false" in cuda_build._flags("grid_tail")
+    assert "--fmad=false" in cuda_build._flags("grid_tail_bwd")
     assert "arch=compute_90a,code=sm_90a" in cuda_build._flags("raster")

@@ -1,0 +1,295 @@
+#!/usr/bin/env python
+"""Train the style-transfer model with the PyTorch port (mst_torch), on the
+GPU by default. The counterpart of train-model.py, with the same loop.
+
+Defaults reproduce the reference run: 5000 iterations of one song each,
+gradient accumulation 2, Adam(0.01) with StepLR(200, 0.9), EMA progress
+display, a CSV loss log, snapshots every 100 iterations
+(train-model.py:33-60,89-160). Each step's rasters are built on the device
+by the K1 kernel; the pitched applier's note-grid tail runs forward through
+K2 and backward through K3.
+
+    python train-model-torch.py --data corpus/ --iters 5000
+    python train-model-torch.py --data corpus/ --device cpu --iters 4
+
+Snapshots go to ``torch_snapshots/`` and the loss log to
+``torch_training.csv`` by default (``snapshots/`` and ``training.csv`` hold
+the JAX package's run); ``mst_torch.transfer.ModelBundle.from_checkpoint``
+loads a snapshot for style transfer. Not offered yet:
+sequence parallelism and device meshes, and the bf16 compute and storage
+dtypes.
+"""
+
+import argparse
+import glob
+import os
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--data", default="data/Lakh MIDI Dataset/clean_midi/",
+                        help="corpus directory (searched for **/*.mid)")
+    parser.add_argument("--iters", type=int, default=5000)
+    parser.add_argument("--csv", default="torch_training.csv")
+    parser.add_argument("--snapshots", default="torch_snapshots/")
+    parser.add_argument("--save-interval", type=int, default=100)
+    parser.add_argument("--seed", type=int, default=108)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; without a GPU "
+                             "this raises unless --device cpu is given)")
+    parser.add_argument("--exact-shapes", action="store_true",
+                        help="train on exact per-song shapes from the host "
+                             "raster (the reference's behavior) instead of "
+                             "padded shape buckets rasterized on the device")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest snapshot if present")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of iterations "
+                             "10-15")
+    parser.add_argument("--batch-size", type=int, default=1,
+                        help="songs per step on the one device (>1: padded "
+                             "fixed-shape batch; the reference trains one "
+                             "song per step)")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the forward in backward "
+                             "(torch.utils.checkpoint)")
+    parser.add_argument("--steps-per-dispatch", type=int, default=1,
+                        help="stack this many consecutive same-bucket steps "
+                             "into one raster build and one loss fetch")
+    parser.add_argument("--bucket-window", type=int, default=0,
+                        help="reorder this many consecutive songs so same-"
+                             "shape-bucket songs form full stacks (needs "
+                             "--steps-per-dispatch>1 and batch size 1). "
+                             "Every song is still visited once per epoch; "
+                             "a resume mid-window re-trains at most "
+                             "window-1 songs. 0 keeps the shuffled order")
+    parser.add_argument("--cache-mb", type=int, default=512,
+                        help="host-RAM budget (MB) for the cross-epoch "
+                             "ingestion cache; 0 re-parses every epoch")
+    args = parser.parse_args(argv)
+    if args.steps_per_dispatch > 1 and args.exact_shapes:
+        raise SystemExit("--steps-per-dispatch needs bucketed shapes "
+                         "(drop --exact-shapes)")
+    if args.bucket_window:
+        if args.steps_per_dispatch <= 1:
+            raise SystemExit("--bucket-window only helps stacked steps "
+                             "(set --steps-per-dispatch)")
+        if args.batch_size != 1:
+            raise SystemExit("--bucket-window needs --batch-size 1 (group "
+                             "resume cursors only track the last song)")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from mst_torch.config import Config, TrainConfig
+    from mst_torch.data.pipeline import iter_inputs
+    from mst_torch.data.prefetch import prefetch_iterator
+    from mst_torch.ops.losses import LossDict
+    from mst_torch.runtime import train as tr
+    from mst_torch.runtime.checkpoint import CheckpointManager
+    from mst_torch.runtime.metrics import (CsvLogger, ProgressBar,
+                                           flatten_losses, profiler_trace)
+    from mst_torch.transfer import resolve_device
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    tr.reproducible_backends()
+    config = Config(train=TrainConfig(n_iterations=args.iters, seed=args.seed,
+                                      save_interval=args.save_interval,
+                                      remat=args.remat))
+    t = config.train
+    print(f"Using {device}" + (f": {torch.cuda.get_device_name(device)}"
+                               if device.type == "cuda" else ""))
+    print("Listing data files")
+    files = sorted(glob.glob(os.path.join(args.data, "**/*.mid"),
+                             recursive=True))
+    if not files:
+        raise SystemExit(f"no .mid files under {args.data}")
+    print(f"{len(files)} files")
+
+    print("Creating model")
+    state = tr.create_train_state(config, device=device)
+    checkpoints = CheckpointManager(args.snapshots)
+    start_iteration = 0
+    resume_cursor = 0
+    if args.resume:
+        latest = checkpoints.latest_step()
+        if latest is not None:
+            start_iteration = latest + 1
+            resume_cursor = checkpoints.load_cursor(latest) or 0
+            checkpoints.restore(state, latest)
+            print(f"Resuming from snapshot {latest} "
+                  f"(data cursor {resume_cursor})")
+
+    print("Training")
+    logger = CsvLogger(args.csv)
+    pbar = ProgressBar(t.n_iterations - start_iteration)
+    cache = None
+    if args.cache_mb > 0:
+        from mst_torch.data.cache import SongCache
+        cache = SongCache(max_bytes=args.cache_mb << 20)
+    songs = iter_inputs(files, shuffle=True, looped=True,
+                        min_n_messages=t.min_n_messages,
+                        rng=np.random.default_rng(t.seed),
+                        start_at=resume_cursor, cache=cache)
+
+    def group_stream():
+        """Yield (data_cursor, (songs, Cb, Rb, caps)): one bucketed group of
+        ``batch_size`` songs per training step, shapes decided but device
+        tensors not yet built."""
+        while True:
+            if args.batch_size == 1:
+                _, song = next(songs)
+                if song.pitched_empty:
+                    continue
+                max_n_bars = t.max_total_bars // song.n_channels
+                Cb = tr.bucket_shape(song.n_channels, t.channel_buckets)
+                Rb = tr.bucket_shape(min(song.n_bars, max_n_bars),
+                                     t.bar_buckets)
+                yield song.cursor, ([song], Cb, Rb, [min(max_n_bars, Rb)])
+                continue
+            group, caps = [], []
+            while len(group) < args.batch_size:
+                _, song = next(songs)
+                if song.pitched_empty:
+                    continue
+                if group and song.beats_per_bar != group[0].beats_per_bar:
+                    continue  # batch tensors share one beats-per-bar axis
+                group.append(song)
+                caps.append(t.max_total_bars // song.n_channels)
+            Cb = tr.bucket_shape(max(s.n_channels for s in group),
+                                 t.channel_buckets)
+            Rb = tr.bucket_shape(max(min(s.n_bars, c)
+                                     for s, c in zip(group, caps)),
+                                 t.bar_buckets)
+            # memory budget: cap the bar bucket so B*Cb*Rb*T activations
+            # fit; truncation beyond the cap mirrors max_total_bars
+            Rb = tr.clamp_bar_bucket(Rb, len(group), Cb,
+                                     group[0].beats_per_bar,
+                                     t.batch_cell_budget, t.bar_buckets)
+            caps = [min(c, Rb) for c in caps]
+            yield group[-1].cursor, (group, Cb, Rb, caps)
+
+    def stack_signature(g):
+        songs_g, Cb, Rb, _ = g
+        has_u = any(s.has_unpitched for s in songs_g)
+        return (len(songs_g), Cb, Rb, songs_g[0].beats_per_bar, has_u)
+
+    spd = args.steps_per_dispatch
+    if spd > 1:
+        groups = group_stream()
+        if args.bucket_window:
+            groups = tr.window_sort(groups, args.bucket_window,
+                                    stack_signature)
+        stacks = tr.group_stacks(groups, spd, stack_signature,
+                                 limit=t.n_iterations - start_iteration)
+    else:
+        stacks = ((c, [g]) for c, g in group_stream())
+
+    def build_stream():
+        """Build batches on the prefetch thread: one raster build covers
+        the whole stack (K*B songs), so host parsing and the record upload
+        of the next stack overlap the current steps."""
+        for cursor, groups in stacks:
+            songs_flat = [s for g in groups for s in g[0]]
+            caps = [c for g in groups for c in g[3]]
+            _, Cb, Rb, _ = groups[0]
+            if args.exact_shapes:
+                if args.batch_size == 1:
+                    batch = tr.batch_from_song(
+                        songs_flat[0],
+                        t.max_total_bars // songs_flat[0].n_channels,
+                        device=device)
+                    if batch is None:
+                        continue
+                else:
+                    batch = tr.pad_batch(songs_flat, Cb, Rb, bar_cap=caps,
+                                         device=device)
+            else:
+                batch = tr.device_batch_from_songs(songs_flat, Cb, Rb,
+                                                   bar_cap=caps,
+                                                   device=device)
+            yield cursor, (len(groups), batch)
+
+    batches = prefetch_iterator(build_stream(), depth=t.prefetch_depth)
+    step_fns = {}
+
+    def record(base_iteration, loss_vecs, has_unpitched):
+        # one host fetch for the whole call: (n,) for a single step or
+        # (K, n) for a stack
+        arr = loss_vecs.cpu().numpy()
+        for j, row in enumerate(arr.reshape(-1, arr.shape[-1])):
+            losses = LossDict(*[float(v) for v in row])
+            values = dict(
+                total_loss=losses.total,
+                pitched_loss=losses.pitched_total,
+                pitched_notes_loss=losses.pitched_notes,
+                song_info_loss=losses.song_info_total,
+                instruments_loss=losses.instruments,
+                channels_loss=losses.channels_total,
+                mode_loss=losses.mode,
+                bpm_loss=losses.bpm,
+            )
+            if has_unpitched:
+                values.update(unpitched_loss=losses.unpitched_total,
+                              unpitched_notes_loss=losses.unpitched_notes)
+            # parity: train-model.py:125, widened to every component — a
+            # NaN in one branch must never hide behind a zeroed mean
+            assert all(np.isfinite(v) for v in values.values()), values
+            pbar.add(1, **values)
+            logger.append(iteration=base_iteration + j,
+                          **flatten_losses(losses))
+
+    data_cursor = resume_cursor
+    pending = None  # (first iteration, device loss vector(s), has_u)
+    profile = None
+    iteration = start_iteration
+    while iteration < t.n_iterations:
+        data_cursor, (ksteps, batch) = next(batches)
+        has_unpitched = batch.unpitched is not None
+        key = (has_unpitched, ksteps)
+        if key not in step_fns:
+            step_fns[key] = (
+                tr.make_train_step(config, has_unpitched)
+                if ksteps == 1 else
+                tr.make_multi_train_step(config, has_unpitched, ksteps))
+        if args.profile_dir and profile is None and iteration >= 10:
+            profile = profiler_trace(args.profile_dir)
+            profile.__enter__()
+        state, loss_vec = step_fns[key](state, batch)
+        if profile is not None and iteration + ksteps >= 15:
+            profile.__exit__(None, None, None)
+            print(f"profile written to {args.profile_dir}")
+            args.profile_dir, profile = None, None
+
+        # fetch the PREVIOUS call's losses: the copy then waits only for
+        # work already queued, not for this step
+        if pending is not None:
+            record(*pending)
+        pending = (iteration, loss_vec, has_unpitched)
+
+        crossed_save = (iteration // t.save_interval) != \
+            ((iteration + ksteps - 1) // t.save_interval) or \
+            iteration % t.save_interval == 0
+        iteration += ksteps
+        if crossed_save:
+            # drain the deferred fetch first: record() asserts every loss
+            # component is finite, so a NaN-poisoned state is never saved
+            record(*pending)
+            pending = None
+            checkpoints.save(iteration - 1, state, cursor=data_cursor)
+
+    if pending is not None:
+        record(*pending)
+    if profile is not None:
+        profile.__exit__(None, None, None)
+    pbar.close()
+    return state
+
+
+if __name__ == "__main__":
+    main()
