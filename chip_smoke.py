@@ -12,15 +12,25 @@ Phases (any failure exits non-zero):
 2. K1 (``csrc/raster.cu``) against its plain torch version on the card, at
    the main path's extraction shape (the six songs of
    ``mst_torch/assets/smoke``: 6 x 8 channels x 128 bars x 4 beats x 10
-   fractions rows, 280 and 94 lanes) and on a collision-heavy random case:
-   bit-equal.
+   fractions rows, 280 and 94 lanes), on a collision-heavy random case and
+   on an unsorted edge-value case (negative values, +-0.0, NaN of both
+   signs, +-inf, denormals, sentinel rows and rows past the raster):
+   bit-equal, NaN where the plain version has NaN. One ``rasterize`` call
+   at the extraction shape runs under
+   ``torch.cuda.set_sync_debug_mode("error")``: it must not synchronise.
 3. K2 (``csrc/grid_tail.cu``) against its plain version at the apply shape
-   (12 jobs: 491,520 rows), within ``K2_ATOL``.
+   (12 jobs: 491,520 rows) with ``rest`` per song and at full shape, and
+   at 63 and 30 rows (a ragged last tile, rest blocks that cross tiles or
+   are shorter than one), within ``K2_ATOL``, with the count of values
+   that differ. One ``grid_tail_fwd`` call at the apply shape must not
+   synchronise. K2's launch shape (threads, shared memory, blocks per SM).
 4. Each kernel's time (CUDA events, warmed up, many launches), its plain
    version's, the one PyTorch call that computes the same function where
    there is one, and the bound: the larger of the bytes the function must
    move over 3.35 TB/s and its operations over 67 TFLOP/s (fp32), the
-   H100 SXM's published peaks.
+   H100 SXM's published peaks. Beside K1, ``torch.zeros`` of its raster
+   alone; beside K2, its time at the batch-6 training shape (122,880 rows)
+   and in its copy-only and compute-only modes.
 5. The serving path: ``transfer_styles`` with the ``snapshots/4900``
    weights on 3 compositions x 3 styles (12 jobs) on ``cuda``, once to warm
    up and once with every launch counter at 0, which must see K1 and K2
@@ -174,8 +184,47 @@ def smoke_paths():
     return comps, styles
 
 
+def raster_bits_equal(torch, got, want):
+    """NaN where ``want`` has NaN, equal bits everywhere else."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
+def edge_records(torch, n, n_rows, n_notes):
+    """Unsorted pitched records whose values are edge cases of the max:
+    negative durations and velocities, +-0.0, NaN of both signs, +-inf and
+    a denormal, on few rows (collisions), with sentinel rows, rows past
+    the raster and invalid notes."""
+    g = torch.Generator().manual_seed(4)
+    edges = torch.tensor([-1.5, -0.0, 0.0, float("nan"), -float("nan"),
+                          float("inf"), -float("inf"), 1e-40, -1e-40, 0.25,
+                          3.0])
+    pick = lambda: edges[torch.randint(0, len(edges), (n,), generator=g)]
+    row = torch.randint(0, n_rows + 16, (n,), generator=g, dtype=torch.int32)
+    row = torch.where(torch.rand(n, generator=g) < 0.05, 2 ** 30, row)
+    return (row.to(torch.int32),
+            torch.randint(0, n_notes, (n,), generator=g, dtype=torch.int32),
+            torch.randint(0, 3, (n,), generator=g, dtype=torch.int32),
+            pick(), pick(), torch.rand(n, generator=g) > 0.05)
+
+
+def assert_no_sync(torch, label, fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): a call that
+    waits for the device raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"{label}: no host synchronisation (sync debug mode 'error')")
+
+
 def phase_k1(torch, bundle, songs):
-    """K1 vs plain at the extraction shape, plus a collision-heavy case."""
+    """K1 vs plain at the extraction shape, a collision-heavy case and an
+    edge-value case; no host sync; K1 against the zero-fill alone."""
     from mst_torch.ops import raster_kernel as rk
     from mst_torch.transfer import _extract_inputs
 
@@ -193,22 +242,32 @@ def phase_k1(torch, bundle, songs):
             torch.rand(n, generator=g) * 6, torch.rand(n, generator=g),
             torch.rand(n, generator=g) > 0.05)
     cases.append(("collisions", tuple(t.cuda() for t in rand), n_rows, 56, 5))
+    edge = tuple(t.cuda() for t in edge_records(torch, 1 << 16, 1024, 56))
+    cases.append(("edge values", edge, 1024, 56, 5))
     max_err = 0.0
     for name, notes, rows, n_notes, n_feat in cases:
         got = rk.rasterize(*notes, rows, n_notes, n_feat)
         want = rk.segment_rasterize_plain(*notes, rows, n_notes, n_feat)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
+        if not raster_bits_equal(torch, got, want):
+            raise AssertionError(f"K1 {name}: not bit-equal")
+        finite = torch.isfinite(want)
+        err = (got[finite] - want[finite]).abs().max().item()
         max_err = max(max_err, err)
-        if not torch.equal(got, want) or err > K1_TOL:
-            raise AssertionError(f"K1 {name}: not bit-equal (max |err| {err})")
+        if err > K1_TOL:
+            raise AssertionError(f"K1 {name}: max |err| {err}")
         log(f"K1 {name}: rows {rows} x {n_notes * n_feat} lanes, "
-            f"{notes[0].shape[0]} notes: bit-equal")
+            f"{notes[0].shape[0]} notes: bit-equal"
+            + (f" ({int(torch.isnan(want).sum())} NaN cells, NaN in both)"
+               if name == "edge values" else ""))
 
-    # timing at the main path's pitched shape
+    # the main path's pitched shape
     _, notes, rows, n_notes, n_feat = cases[0]
     lanes = n_notes * n_feat
+    assert_no_sync(torch, "K1 rasterize at the extraction shape",
+                   lambda: rk.rasterize(*notes, rows, n_notes, n_feat))
     ms = cuda_ms(lambda: rk.rasterize(*notes, rows, n_notes, n_feat), 50)
+    zero_ms = cuda_ms(lambda: torch.zeros(rows * lanes, device="cuda"), 50)
     plain = cuda_ms(lambda: rk.segment_rasterize_plain(
         *notes, rows, n_notes, n_feat), 20)
     # the one PyTorch call: scatter_reduce_ amax of the same (index, value)
@@ -223,47 +282,132 @@ def phase_k1(torch, bundle, songs):
                       .scatter_reduce_(0, idx, val, "amax"), 50)
     in_bytes = sum(t.numel() * t.element_size() for t in notes)
     b_ms, b_by = bound_ms(in_bytes + rows * lanes * 4, 3 * int(keep.sum()))
+    log(f"K1 split at {rows} x {lanes}: kernel {ms:.4f} ms, torch.zeros of "
+        f"the raster alone {zero_ms:.4f} ms, scatter_reduce_ {library:.4f} "
+        f"ms, bound {b_ms:.4f} ms")
     return dict(name="raster", route="cuda", source="mst_torch/csrc/raster.cu",
                 replaces="mst_tpu/ops/pallas_raster.py:96",
                 max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library)
+                bound_by=b_by, library_ms=library,
+                detail={"zero_fill_ms": zero_ms})
+
+
+def tail_inputs(torch, lead, seed, full_rest=False):
+    """Random tail inputs at lead shape ``lead`` on the card."""
+    g = torch.Generator().manual_seed(seed)
+    rest_lead = lead if full_rest else (lead[0], 1) + tuple(lead[2:])
+    return (torch.randn(*lead, 8, 30, generator=g).cuda(),
+            torch.randn(*lead, 7, 30, generator=g).cuda(),
+            (torch.randn(30, 5, generator=g) * 0.3).cuda(),
+            torch.randn(*rest_lead, 56, 5, generator=g).cuda())
+
+
+def tail_bound_ms(n, rest_rows):
+    """K2's bound for n rows and rest_rows rest rows: xo, xd, w and rest
+    read once, out written once; per (row, o, d) 30 x (add, leaky, 5
+    multiplies, 5 adds) + 5 x (add, exp, add, divide, scale)."""
+    n_bytes = 4 * (n * (240 + 210 + 280) + 150 + rest_rows * 280)
+    return bound_ms(n_bytes, n * 56 * (30 * 12 + 5 * 5))
+
+
+def tail_launch_info():
+    """K2's (dynamic shared memory bytes, threads per block, resident
+    blocks per SM) on this card."""
+    import ctypes
+
+    from mst_torch.ops import cuda_build
+
+    info = (ctypes.c_int * 3)()
+    rc = cuda_build.load("grid_tail").mst_grid_tail_info(info)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch info: CUDA error {rc}")
+    return tuple(info)
+
+
+def tail_variant_ms(torch, xo, xd, w, rest, lead):
+    """K2's time in its two measuring modes (csrc/grid_tail.cu, ``Mode``):
+    the same launch moving its bytes only, and computing only."""
+    import ctypes
+
+    from mst_torch.ops import cuda_build, grid_kernel as gk
+
+    fn = cuda_build.load("grid_tail").mst_grid_tail_variant
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rep, inner = gk._rest_layout(lead, rest.shape)
+    out = torch.empty(*lead, 56, 5, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for mode, name in ((1, "copy_only_ms"), (2, "compute_only_ms")):
+        def run():
+            rc = fn(mode, xo.data_ptr(), xd.data_ptr(), w.data_ptr(),
+                    rest.data_ptr(), out.data_ptr(), xo.numel() // 240, rep,
+                    inner, stream)
+            if rc != 0:
+                raise RuntimeError(f"K2 mode {mode}: CUDA error {rc}")
+        times[name] = cuda_ms(run, 50)
+    return times
 
 
 def phase_k2(torch):
-    """K2 vs plain at the apply shape of 12 jobs."""
+    """K2 vs plain at the apply shape of 12 jobs in both rest layouts and
+    at ragged row counts; no host sync; K2's time there and at the batch-6
+    training shape."""
     from mst_torch.ops import grid_kernel as gk
 
-    L = (12, 8, 128, 4, 10)
-    g = torch.Generator().manual_seed(2)
-    xo = torch.randn(*L, 8, 30, generator=g).cuda()
-    xd = torch.randn(*L, 7, 30, generator=g).cuda()
-    w = (torch.randn(30, 5, generator=g) * 0.3).cuda()
-    rest = torch.randn(L[0], 1, *L[2:], 56, 5, generator=g).cuda()
     scale = (6.0, 1.0, 1.0, 1.0, 1.0)
-    got = gk.grid_tail(xo, xd, w, rest, scale)
-    want = gk.grid_tail_plain(xo, xd, w, rest, scale)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    n_diff = int((got != want).sum())
-    if not err <= K2_ATOL:
-        raise AssertionError(f"K2: max |err| {err} > {K2_ATOL}")
+    L = (12, 8, 128, 4, 10)
+    smem, threads, per_sm = tail_launch_info()
+    log(f"K2 launch: {threads} threads a block, {smem} B of dynamic shared "
+        f"memory, {per_sm} blocks per SM")
+    max_err = 0.0
+    # (label, lead, full rest): the 12-job apply shape, then 63 rows (a
+    # ragged last tile; rest blocks of 21 rows cross tiles) and 30 rows
+    # (rest blocks of 5 rows, shorter than a tile)
+    for label, lead, full in (("12 jobs", L, False), ("12 jobs", L, True),
+                              ("63 rows", (1, 3, 7, 3, 1), False),
+                              ("63 rows", (1, 3, 7, 3, 1), True),
+                              ("30 rows", (2, 3, 1, 1, 5), False)):
+        xo, xd, w, rest = tail_inputs(torch, lead, 2, full)
+        got = gk.grid_tail(xo, xd, w, rest, scale)
+        want = gk.grid_tail_plain(xo, xd, w, rest, scale)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        n_diff = int((got != want).sum())
+        max_err = max(max_err, err)
+        if not err <= K2_ATOL:
+            raise AssertionError(f"K2 {label}: max |err| {err} > {K2_ATOL}")
+        log(f"K2 {label} ({xo.numel() // 240} rows, "
+            f"{'full' if full else 'per-song'} rest): max |err| {err} "
+            f"(tolerance {K2_ATOL}), {n_diff} of {got.numel()} values differ")
+        del got, want
+
+    xo, xd, w, rest = tail_inputs(torch, L, 2)
     n = xo.numel() // 240
-    log(f"K2: {n} rows, max |err| {err} (tolerance {K2_ATOL}), "
-        f"{n_diff} of {got.numel()} values differ")
+    assert_no_sync(torch, f"K2 grid_tail_fwd at {n} rows",
+                   lambda: gk.grid_tail_fwd(xo, xd, w, rest, scale))
     ms = cuda_ms(lambda: gk.grid_tail(xo, xd, w, rest, scale), 50)
     plain = cuda_ms(lambda: gk.grid_tail_plain(xo, xd, w, rest, scale), 3,
                     warmup=1)
-    n_bytes = 4 * (xo.numel() + xd.numel() + w.numel() + rest.numel()
-                   + got.numel())
-    # per (row, o, d): 30 x (add, leaky, 5 multiplies, 5 adds) + 5 x (add,
-    # exp, add, divide, scale)
-    n_ops = n * 56 * (30 * 12 + 5 * 5)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    b_ms, b_by = tail_bound_ms(n, rest.numel() // 280)
+    # the batch-6 training step's shape (6 songs x 4 channels x 128 bars)
+    args = tail_inputs(torch, (6, 4, 128, 4, 10), 5)
+    rows = args[0].numel() // 240
+    b6_ms = cuda_ms(lambda: gk.grid_tail(*args, scale), 50)
+    b6_bound, _ = tail_bound_ms(rows, args[3].numel() // 280)
+    log(f"K2 at {n} rows: {ms:.4f} ms (bound {b_ms:.4f} ms); at the "
+        f"batch-6 step's {rows} rows: {b6_ms:.4f} ms (bound "
+        f"{b6_bound:.4f} ms)")
+    detail = {f"ms_{rows}_rows": b6_ms, f"bound_ms_{rows}_rows": b6_bound}
+    detail.update(tail_variant_ms(torch, xo, xd, w, rest, L))
+    log(f"K2 split at {n} rows: copy only {detail['copy_only_ms']:.4f} ms, "
+        f"compute only {detail['compute_only_ms']:.4f} ms, both {ms:.4f} ms")
     return dict(name="grid_tail", route="cuda",
                 source="mst_torch/csrc/grid_tail.cu",
-                replaces="mst_tpu/ops/pallas_grid.py:217", max_abs_err=err,
+                replaces="mst_tpu/ops/pallas_grid.py:217", max_abs_err=max_err,
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, detail=detail)
 
 
 def phase_k3(torch, L=(8, 8, 128, 4, 10)):
@@ -334,7 +478,7 @@ def phase_k3(torch, L=(8, 8, 128, 4, 10)):
                 source="mst_torch/csrc/grid_tail_bwd.cu",
                 replaces="mst_tpu/ops/pallas_grid.py:234",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, detail={})
 
 
 def check_outputs(written, label):
@@ -624,7 +768,7 @@ def main():
             f"{k['bound_by']}), launches {by_path}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path")
+            "launches_by_path", "detail")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

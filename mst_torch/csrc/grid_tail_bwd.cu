@@ -67,6 +67,10 @@ constexpr int ROWS = 8;
 constexpr int THREADS = ROWS * M;  // 448
 constexpr int KF = K * F;
 
+struct Scale {
+  float v[F];
+};
+
 __device__ __forceinline__ float leaky(float x) {
   return x >= 0.0f ? x : 0.01f * x;
 }
@@ -90,8 +94,7 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
                      const float* __restrict__ xd,
                      const float* __restrict__ out,
                      const float* __restrict__ ct,
-                     const float* __restrict__ w,
-                     const float* __restrict__ scale,
+                     const float* __restrict__ w, Scale scale,
                      float* __restrict__ ct_xo, float* __restrict__ ct_xd,
                      float* __restrict__ ct_y, float* __restrict__ ct_w_parts,
                      int64_t n) {
@@ -100,12 +103,18 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
   __shared__ float s_cty[ROWS * OUT];
   __shared__ float s_w[KF];
   __shared__ float s_part[2 * KF];
+  __shared__ float s_scale[F];
 
   const int tid = threadIdx.x;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * ROWS;
   const int rows = static_cast<int>(n - row0 < ROWS ? n - row0 : ROWS);
 
   for (int i = tid; i < KF; i += THREADS) s_w[i] = w[i];
+  if (tid == 0) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) s_scale[f] = scale.v[f];
+  }
+  __syncthreads();
   for (int i = tid; i < rows * O * K; i += THREADS) {
     s_ao[i] = leaky(xo[row0 * (O * K) + i]);
   }
@@ -113,7 +122,7 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
     s_ad[i] = leaky(xd[row0 * (D * K) + i]);
   }
   for (int i = tid; i < rows * OUT; i += THREADS) {
-    const float sc = scale[i % F];
+    const float sc = s_scale[i % F];
     const float s = out[row0 * OUT + i] * (1.0f / sc);
     const float c = ct[row0 * OUT + i] * (sc * s * (1.0f - s));
     s_cty[i] = c;
@@ -188,22 +197,23 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
 extern "C" int mst_grid_tail_bwd_rows() { return ROWS; }
 
 // Launches K3 on `stream`: xo (n, 8, 30), xd (n, 7, 30), out and ct
-// (n, 56, 5), w (30, 5), scale (5,); writes ct_xo (n, 8, 30), ct_xd
-// (n, 7, 30), ct_y (n, 56, 5) and ct_w_parts (ceil(n / 8), 30, 5). All fp32
-// and contiguous. Returns cudaGetLastError().
+// (n, 56, 5), w (30, 5), the five scales by value; writes ct_xo
+// (n, 8, 30), ct_xd (n, 7, 30), ct_y (n, 56, 5) and ct_w_parts
+// (ceil(n / 8), 30, 5). All fp32 and contiguous. Returns
+// cudaGetLastError().
 extern "C" int mst_grid_tail_bwd(const void* xo, const void* xd,
                                  const void* out, const void* ct,
-                                 const void* w, const void* scale,
-                                 void* ct_xo, void* ct_xd, void* ct_y,
+                                 const void* w, float s0, float s1,
+                                 float s2, float s3, float s4, void* ct_xo, void* ct_xd, void* ct_y,
                                  void* ct_w_parts, int64_t n, void* stream) {
   if (n > 0) {
     const int64_t blocks = (n + ROWS - 1) / ROWS;
+    const Scale scale = {{s0, s1, s2, s3, s4}};
     grid_tail_bwd_kernel<<<static_cast<unsigned int>(blocks), THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(xo), static_cast<const float*>(xd),
         static_cast<const float*>(out), static_cast<const float*>(ct),
-        static_cast<const float*>(w), static_cast<const float*>(scale),
-        static_cast<float*>(ct_xo), static_cast<float*>(ct_xd),
+        static_cast<const float*>(w), scale, static_cast<float*>(ct_xo), static_cast<float*>(ct_xd),
         static_cast<float*>(ct_y), static_cast<float*>(ct_w_parts), n);
   }
   return static_cast<int>(cudaGetLastError());

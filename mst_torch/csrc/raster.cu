@@ -13,76 +13,130 @@
 // What bounds it on the H100: bytes. The notes are a few hundred KB; the
 // raster is hundreds of MB (6 songs x 8 channels x 128 bars x 4 beats x 10
 // fractions x 280 lanes x 4 B = 275 MB at the main path's extraction
-// shape) and is almost all zeros. Its one write is the bound, and the
-// wrapper's torch.zeros pays it; this kernel then touches only the
-// 2-3 cells of each note.
+// shape) and is almost all zeros. Its one write is the bound: 0.082 ms at
+// 3.35 TB/s.
 //
-// Design: one thread per note and a global atomicMax on the int bit
-// pattern of each value. For floats >= 0 the int order of the bit
-// patterns is the float order, so the max is exact and independent of the
-// order the atomics land in; the wrapper rejects a negative or NaN
-// duration or velocity before the launch. The TPU kernel's 512-row VMEM
-// chunk (512 x 280 x 4 B = 573 KB) does not fit a block's 227 KB of
-// shared memory and buys nothing here, so it is not carried over, nor is
-// its note-count cap (MAX_PALLAS_NOTES, a VMEM limit). Offsets are int64:
-// row * lanes passes 2**31 at large batches.
+// Design: one cooperative launch that writes the whole raster. Its grid is
+// no larger than the blocks the card holds at once. Every thread first
+// zero-fills a grid-stride share of the raster with 16-byte stores; after
+// a grid-wide barrier (cooperative_groups::this_grid().sync()) one thread
+// per note applies its 2-3 values with a global atomicMax on the int bit
+// pattern. So the raster is written once, by this kernel, and the records
+// may come in any order. The wrapper allocates the output with
+// torch.empty and never waits for the device. On an NVIDIA H100 80GB HBM3
+// at 700 W (chip_smoke.py) the launch takes 0.094 ms at the extraction
+// shape, torch.zeros of the same raster alone 0.086 ms.
+//
+// The int-bit max is exact for every fp32 value. Before the atomic a NaN
+// of either sign becomes the canonical positive quiet NaN (0x7FC00000),
+// whose int pattern beats +inf's. Negative values, -0.0 and -inf have
+// negative int patterns and lose to the zero base; for values >= +0.0 the
+// int order is the float order. That is what torch's scatter_reduce_
+// "amax" and JAX's .at[].max give on a zero base: negatives and -0.0 leave
+// +0.0, +inf wins, NaN wins (only its sign and payload may differ).
+//
+// The TPU kernel's 512-row VMEM chunk (573 KB) does not fit a block's
+// 227 KB of shared memory and buys nothing here, so it is not carried
+// over, nor is its note-count cap (MAX_PALLAS_NOTES, a VMEM limit).
+// Offsets are int64: row * lanes passes 2**31 at large batches.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int THREADS = 256;
+constexpr int CANONICAL_NAN = 0x7FC00000;
 
 __device__ __forceinline__ void max_into(int* base, int64_t lane,
                                          int64_t lanes, float value) {
-  if (lane >= 0 && lane < lanes) {
-    atomicMax(base + lane, __float_as_int(value));
-  }
+  const int bits = value != value ? CANONICAL_NAN : __float_as_int(value);
+  // a pattern <= 0 (+0.0, -0.0, any negative) cannot beat the zero base
+  if (bits > 0 && lane >= 0 && lane < lanes) atomicMax(base + lane, bits);
 }
 
-__global__ void raster_kernel(const int32_t* __restrict__ row,
-                              const int32_t* __restrict__ note_idx,
-                              const int32_t* __restrict__ acc,
-                              const float* __restrict__ duration,
-                              const float* __restrict__ velocity,
-                              const uint8_t* __restrict__ valid,
-                              int64_t n, int64_t n_rows, int32_t n_notes,
-                              int32_t n_feat, int* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n || !valid[i]) return;
-  const int64_t r = row[i];
-  if (r < 0 || r >= n_rows) return;
+__global__ void __launch_bounds__(THREADS)
+raster_kernel(const int32_t* __restrict__ row,
+              const int32_t* __restrict__ note_idx,
+              const int32_t* __restrict__ acc,
+              const float* __restrict__ duration,
+              const float* __restrict__ velocity,
+              const uint8_t* __restrict__ valid, int64_t n, int64_t n_rows,
+              int32_t n_notes, int32_t n_feat, float* __restrict__ out) {
   const int64_t lanes = static_cast<int64_t>(n_notes) * n_feat;
-  int* cell = out + r * lanes;
-  const int64_t lane0 = static_cast<int64_t>(note_idx[i]) * n_feat;
-  max_into(cell, lane0, lanes, duration[i]);
-  max_into(cell, lane0 + 1, lanes, velocity[i]);
-  if (n_feat == 5) {
-    max_into(cell, lane0 + 2 + acc[i], lanes, 1.0f);
+  const int64_t total = n_rows * lanes;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+
+  // zero-fill: 16-byte stores, then the < 4 floats of the tail
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const int64_t n4 = total / 4;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int64_t i = tid; i < n4; i += stride) out4[i] = zero;
+  for (int64_t i = n4 * 4 + tid; i < total; i += stride) out[i] = 0.0f;
+
+  cg::this_grid().sync();
+
+  int* cells = reinterpret_cast<int*>(out);
+  for (int64_t i = tid; i < n; i += stride) {
+    if (!valid[i]) continue;
+    const int64_t r = row[i];
+    if (r < 0 || r >= n_rows) continue;
+    int* cell = cells + r * lanes;
+    const int64_t lane0 = static_cast<int64_t>(note_idx[i]) * n_feat;
+    max_into(cell, lane0, lanes, duration[i]);
+    max_into(cell, lane0 + 1, lanes, velocity[i]);
+    if (n_feat == 5) max_into(cell, lane0 + 2 + acc[i], lanes, 1.0f);
   }
 }
 
 }  // namespace
 
-// Launches K1 on `stream`. `out` is the zero-filled (n_rows, lanes) fp32
-// raster, written through its int bit patterns. Returns cudaGetLastError().
+// Launches K1 on `stream`: writes the whole (n_rows, n_notes * n_feat)
+// fp32 raster `out` (16-byte aligned; its prior contents are ignored).
+// Returns the first CUDA error, or 0.
 extern "C" int mst_raster(const void* row, const void* note_idx,
                           const void* acc, const void* duration,
                           const void* velocity, const void* valid,
                           int64_t n, int64_t n_rows, int32_t n_notes,
                           int32_t n_feat, void* out, void* stream) {
-  if (n > 0) {
-    const int threads = 256;
-    const int64_t blocks = (n + threads - 1) / threads;
-    raster_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(row),
-        static_cast<const int32_t*>(note_idx),
-        static_cast<const int32_t*>(acc),
-        static_cast<const float*>(duration),
-        static_cast<const float*>(velocity),
-        static_cast<const uint8_t*>(valid), n, n_rows, n_notes, n_feat,
-        static_cast<int*>(out));
+  const int64_t total = n_rows * n_notes * n_feat;
+  if (total <= 0) return 0;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
   }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, raster_kernel, THREADS, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // no more blocks than the card holds at once (the grid barrier needs
+  // every block resident), and no more than the work needs
+  const int64_t work = total / 4 > n ? total / 4 : n;
+  int64_t blocks = (work + THREADS - 1) / THREADS;
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;
+  const int32_t* row_ = static_cast<const int32_t*>(row);
+  const int32_t* note_ = static_cast<const int32_t*>(note_idx);
+  const int32_t* acc_ = static_cast<const int32_t*>(acc);
+  const float* dur_ = static_cast<const float*>(duration);
+  const float* vel_ = static_cast<const float*>(velocity);
+  const uint8_t* valid_ = static_cast<const uint8_t*>(valid);
+  float* out_ = static_cast<float*>(out);
+  void* args[] = {&row_, &note_, &acc_, &dur_, &vel_, &valid_, &n,
+                  &n_rows, &n_notes, &n_feat, &out_};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(raster_kernel),
+      dim3(static_cast<unsigned int>(blocks)), dim3(THREADS), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,14 @@ output and the output's cotangent it recomputes the grid and forms the
 cotangents of xo, xd, w and rest.
 
 The kernel sources are ``csrc/grid_tail.cu`` and ``csrc/grid_tail_bwd.cu``;
-their headers say what bounds each on the H100 (HBM bytes) and what the
-design does about it (the (…, 8, 7, 30) grid is never stored; ``rest`` is
-read per song, never expanded over channels).
+their headers say what bounds each on the H100 (HBM bytes, and for K2
+instruction issue close behind) and what the design does about it: the
+(…, 8, 7, 30) grid is never stored; ``rest`` is read per song, never
+expanded over channels; K2 is a persistent kernel that streams 8-row
+tiles of xo, xd and rest through a ring in shared memory with TMA bulk
+copies, finds each tile's rest rows once, and reads ``w`` from constant
+memory. Both wrappers pass the five scales by value and never wait for
+the device.
 
 ``grid_tail`` is the entry point. With autograd recording it runs
 ``GridTail``, whose forward is K2 and whose backward is K3; otherwise (under
@@ -32,6 +37,7 @@ tolerance).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence
 
@@ -47,20 +53,28 @@ N_FEATURES = 5
 _SLOPE = 0.01
 
 
+_SCALES = [ctypes.c_float] * 5
+
+
+@functools.cache
 def _entry():
-    """The C entry point of csrc/grid_tail.cu (built at first use)."""
+    """The C entry point of csrc/grid_tail.cu (built and bound once)."""
     fn = cuda_build.load("grid_tail").mst_grid_tail
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + _SCALES + [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
 def _bwd_entry():
-    """(C entry point, rows per block) of csrc/grid_tail_bwd.cu."""
+    """(C entry point, rows per block) of csrc/grid_tail_bwd.cu (built and
+    bound once)."""
     lib = cuda_build.load("grid_tail_bwd")
     fn = lib.mst_grid_tail_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + _SCALES + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.mst_grid_tail_bwd_rows.restype = ctypes.c_int
     return fn, lib.mst_grid_tail_bwd_rows()
@@ -160,10 +174,18 @@ def _check_widths(xo, xd, w, scale):
     return tuple(lead)
 
 
+def _aligned(t):
+    """``t`` as contiguous fp32 starting on a 16-byte boundary, as K2's
+    bulk copies need (a view into a larger tensor may start elsewhere)."""
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def grid_tail_fwd(xo, xd, w, rest, scale: Sequence[float]):
     """The K2 wrapper: (*L, 8, 30), (*L, 7, 30), (30, 5) and rest of shape
     (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) fp32. CPU tensors
-    run ``grid_tail_plain``; CUDA tensors run K2. Records no gradient."""
+    run ``grid_tail_plain``; CUDA tensors run K2 on the current stream,
+    without waiting for the device. Records no gradient."""
     lead = _check_widths(xo, xd, w, scale)
     if xo.device.type == "cpu":
         return grid_tail_plain(xo, xd, w, rest, scale)
@@ -171,16 +193,15 @@ def grid_tail_fwd(xo, xd, w, rest, scale: Sequence[float]):
     if not xo.is_cuda:
         raise ValueError(f"grid_tail: unsupported device {xo.device}")
     rest_rep, rest_inner = _rest_layout(lead, rest.shape)
-    ins = [t.to(torch.float32).contiguous() for t in (xo, xd, w, rest)]
-    sc = torch.tensor(list(scale), dtype=torch.float32, device=xo.device)
+    ins = [_aligned(t) for t in (xo, xd, w, rest)]
     n = math.prod(lead)
     out = torch.empty(*lead, N_OCTAVES * N_SCALE_DEGREES, N_FEATURES,
                       dtype=torch.float32, device=xo.device)
     if n == 0:
         return out
     stream = torch.cuda.current_stream(xo.device).cuda_stream
-    rc = launch(*(t.data_ptr() for t in ins), sc.data_ptr(), out.data_ptr(),
-                n, rest_rep, rest_inner, stream)
+    rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
+                out.data_ptr(), n, rest_rep, rest_inner, stream)
     if rc != 0:
         raise RuntimeError(f"grid tail kernel launch failed: CUDA error {rc}")
     grid_tail.launches += 1
@@ -205,14 +226,13 @@ def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
         raise ValueError(f"grid_tail_bwd: unsupported device {xo.device}")
     dev = xo.device
     ins = [t.to(torch.float32).contiguous() for t in (xo, xd, out, ct, w)]
-    sc = torch.tensor(list(scale), dtype=torch.float32, device=dev)
     n = math.prod(lead)
     ct_xo, ct_xd, ct_y = (torch.empty_like(t) for t in ins[:3])
     parts = torch.zeros(max(-(-n // rows_per_block), 1), GRID_DEPTH,
                         N_FEATURES, dtype=torch.float32, device=dev)
     if n:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*(t.data_ptr() for t in ins), sc.data_ptr(),
+        rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
                     ct_xo.data_ptr(), ct_xd.data_ptr(), ct_y.data_ptr(),
                     parts.data_ptr(), n, stream)
         if rc != 0:

@@ -3,17 +3,21 @@
 Replaces the Pallas TPU kernel ``mst_tpu/ops/pallas_raster.py:_kernel``
 (via ``_pallas_call``, :96-125). The kernel source is ``csrc/raster.cu``;
 its header says what bounds it on the H100 (one write of a mostly-zero
-raster) and what the design does about it (one thread per note, exact
-int-bit ``atomicMax`` on a zero base).
+raster) and what the design does about it: one cooperative launch that
+zero-fills the raster and then applies one note per thread with an
+int-bit ``atomicMax`` that is exact for every fp32 value (NaN wins,
+negatives and -0.0 lose to the zero base), so any valid input is taken.
 
 ``rasterize`` is the wrapper: a tensor on the CPU takes the plain version
 ``segment_rasterize_plain``; a tensor anywhere else launches the kernel or
-raises. ``rasterize.launches`` counts kernel launches.
+raises. It checks dtypes and shapes only and never waits for the device.
+``rasterize.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,8 +26,9 @@ from mst_torch.ops import cuda_build
 SENTINEL_ROW = 2 ** 30
 
 
+@functools.cache
 def _entry():
-    """The C entry point of csrc/raster.cu (built at first use)."""
+    """The C entry point of csrc/raster.cu (built and bound once)."""
     fn = cuda_build.load("raster").mst_raster
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
@@ -50,14 +55,18 @@ def segment_rasterize_plain(row, note_idx, acc, duration, velocity, valid,
     """Plain torch scatter-max -> (n_rows, n_notes * n_feat) fp32 on a zero
     base: the semantics of mst_tpu.ops.device_raster.segment_rasterize
     (``.at[].max``) through ``scatter_reduce_(..., "amax")``. Notes that are
-    invalid, or whose row or lane lies outside the raster, are skipped."""
+    invalid, or whose row or lane lies outside the raster, are skipped.
+    -0.0 becomes +0.0 before the scatter: on the CPU torch's max keeps the
+    zero base against it, on CUDA its atomic would store -0.0, and JAX and
+    K1 keep +0.0. NaN of either sign propagates."""
     lanes = n_notes * n_feat
     out = torch.zeros(n_rows * lanes, dtype=torch.float32,
                       device=row.device)
     keep = valid & (row >= 0) & (row < n_rows)
     r = row[keep].long() * lanes
     lane0 = note_idx[keep].long() * n_feat
-    dur, vel = duration[keep], velocity[keep]
+    dur, vel = (torch.where(v == 0, 0.0, v) for v in (duration[keep],
+                                                       velocity[keep]))
     cols = [lane0, lane0 + 1]
     vals = [dur, vel]
     if n_feat == 5:
@@ -75,8 +84,8 @@ def rasterize(row, note_idx, acc, duration, velocity, valid,
               n_rows: int, n_notes: int, n_feat: int):
     """Scatter-max rasterization of (N,) note records -> (n_rows,
     n_notes * n_feat) fp32. CPU tensors run the plain version; CUDA tensors
-    run K1, whose int-bit max needs every valid duration and velocity to be
-    >= 0 (checked here: a negative or NaN value raises)."""
+    run K1, one launch that writes the whole raster, on the current stream
+    and without waiting for the device."""
     _check_records(row, note_idx, acc, duration, velocity, valid)
     if row.device.type == "cpu":
         return segment_rasterize_plain(row, note_idx, acc, duration,
@@ -85,18 +94,13 @@ def rasterize(row, note_idx, acc, duration, velocity, valid,
     launch = _entry()
     if not row.is_cuda:
         raise ValueError(f"rasterize: unsupported device {row.device}")
-    bad = valid & ~((duration >= 0) & (velocity >= 0))
-    if bool(bad.any()):
-        raise ValueError("rasterize: a valid note has a negative or NaN "
-                         "duration or velocity; the kernel's max needs "
-                         "values >= 0")
     ins = [t.contiguous() for t in (row, note_idx, acc, duration, velocity,
                                     valid)]
-    out = torch.zeros((n_rows, n_notes * n_feat), dtype=torch.float32,
+    out = torch.empty((n_rows, n_notes * n_feat), dtype=torch.float32,
                       device=row.device)
-    n = ins[0].shape[0]
-    if n == 0:
+    if out.numel() == 0:
         return out
+    n = ins[0].shape[0]
     stream = torch.cuda.current_stream(row.device).cuda_stream
     rc = launch(*(t.data_ptr() for t in ins), n, n_rows, n_notes, n_feat,
                 out.data_ptr(), stream)

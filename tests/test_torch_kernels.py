@@ -8,7 +8,10 @@ kernels replace:
 - K1 (mst_torch.ops.raster_kernel): ``segment_rasterize_plain`` must be
   BIT-EQUAL to mst_tpu's ``segment_rasterize`` and to the Pallas kernel
   ``pallas_rasterize(..., interpret=True)`` — a max of the same fp32 values
-  is exact whatever the order.
+  is exact whatever the order. On edge values (negatives, +-0.0, NaN of
+  both signs, +-inf) it must be bit-equal, NaN positions equal, to
+  ``segment_rasterize`` and to a numpy model of the int-bit rule that the
+  CUDA kernel implements.
 - K2 (mst_torch.ops.grid_kernel): ``grid_tail_plain`` must match
   ``_tail_unrolled`` (the serving path's tail) and ``fused_grid_tail(...,
   interpret=True)`` (the Pallas kernel) within atol = 1e-6: each output is a
@@ -90,6 +93,81 @@ def test_raster_plain_bit_equal_to_jax_and_pallas(n, n_rows, n_notes,
         want_pallas = np.asarray(pallas_rasterize(dn, n_rows, n_notes,
                                                   n_feat, interpret=True))
         np.testing.assert_array_equal(got, want_pallas)
+
+
+def _edge_records(rng, n, n_rows, n_notes):
+    """Unsorted pitched records whose values are edge cases of the max:
+    negative durations and velocities, +-0.0, NaN of both signs and +-inf,
+    with collisions, sentinel rows, rows past the raster and invalid notes
+    (chip_smoke.py runs the same kinds of values on K1, and denormals too:
+    XLA on the CPU flushes those to zero, torch and K1 keep them)."""
+    edges = np.float32([-1.5, -0.0, 0.0, np.nan, -np.nan, np.inf, -np.inf,
+                        0.25, 3.0])
+    row = rng.integers(0, n_rows + 4, n).astype(np.int32)
+    row = np.where(rng.random(n) < 0.05, 2 ** 30, row).astype(np.int32)
+    return jdr.DeviceNotes(
+        row=row, note_idx=rng.integers(0, n_notes, n).astype(np.int32),
+        acc=rng.integers(0, 3, n).astype(np.int32),
+        duration=edges[rng.integers(0, len(edges), n)],
+        velocity=edges[rng.integers(0, len(edges), n)],
+        valid=rng.random(n) > 0.05)
+
+
+def _kernel_rule(dn, n_rows, n_notes, n_feat):
+    """K1's rule in numpy: a NaN becomes the canonical positive quiet NaN,
+    then a signed-int max of the bit patterns on a zero base."""
+    lanes = n_notes * n_feat
+    out = np.zeros(n_rows * lanes, np.int32)
+    keep = dn.valid & (dn.row >= 0) & (dn.row < n_rows)
+    base = dn.row[keep].astype(np.int64) * lanes
+    lane0 = dn.note_idx[keep].astype(np.int64) * n_feat
+    pairs = [(lane0, dn.duration[keep]), (lane0 + 1, dn.velocity[keep])]
+    if n_feat == 5:
+        pairs.append((lane0 + 2 + dn.acc[keep],
+                      np.ones(int(keep.sum()), np.float32)))
+    for lane, value in pairs:
+        bits = np.where(np.isnan(value), np.int32(0x7FC00000),
+                        value.view(np.int32))
+        inside = (lane >= 0) & (lane < lanes)
+        np.maximum.at(out, base[inside] + lane[inside], bits[inside])
+    return out.view(np.float32).reshape(n_rows, lanes)
+
+
+def _assert_raster_bits(got, want):
+    """NaN where ``want`` has NaN, equal bits everywhere else."""
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.int32)[~nan],
+                                  want.view(np.int32)[~nan])
+
+
+@pytest.mark.parametrize("n,n_rows", [(2000, 30), (400, 300)])
+def test_raster_edge_values_bit_equal_to_jax_and_kernel_rule(n, n_rows):
+    """Negative values, -0.0 and -inf lose to the zero base, +inf and NaN
+    of either sign win, in the plain version, in mst_tpu's
+    segment_rasterize and in the numpy model of K1's int-bit rule."""
+    rng = np.random.default_rng(n + n_rows)
+    dn = _edge_records(rng, n, n_rows, 56)
+    got = raster_kernel.segment_rasterize_plain(
+        *_torch_args(dn), n_rows, 56, 5).numpy()
+    want_jax = np.asarray(jdr.segment_rasterize(
+        *(jnp.asarray(a) for a in (dn.row, dn.note_idx, dn.acc, dn.duration,
+                                   dn.velocity, dn.valid)), n_rows, 56, 5))
+    rule = _kernel_rule(dn, n_rows, 56, 5)
+    for want in (want_jax, rule):
+        _assert_raster_bits(got, want)
+    assert np.isnan(rule).any() and (rule == np.inf).any()
+    assert not (np.signbit(rule) & ~np.isnan(rule)).any()
+
+
+def test_raster_kernel_rule_matches_plain_on_ordinary_records():
+    """On the records of the bit-equality test above (values >= 0), the
+    numpy model of K1's rule gives the plain version's raster."""
+    rng = np.random.default_rng(5)
+    dn = _records(rng, 900, 200, 47, 2, spill_rows=20)
+    got = raster_kernel.segment_rasterize_plain(
+        *_torch_args(dn), 200, 47, 2).numpy()
+    np.testing.assert_array_equal(got, _kernel_rule(dn, 200, 47, 2))
 
 
 def test_raster_collisions_take_the_max():
@@ -219,6 +297,50 @@ def test_grid_tail_rest_layout():
     b, c, m = np.unravel_index(n, (2, rep, inner))
     np.testing.assert_array_equal((n // (rep * inner)) * inner + n % inner,
                                   b * inner + m)
+
+
+def _tile_rest_runs(r0, rows, rest_rep, rest_inner):
+    """The (first rest row, row count) runs that K2's producer copies for
+    the tile of ``rows`` output rows starting at row ``r0``, replayed from
+    mst_torch/csrc/grid_tail.cu: one division for the tile, then steps that
+    wrap at ``rest_inner``; with ``rest_rep`` 1 the tile's own rows."""
+    if rest_rep == 1:
+        return [(r0, rows)]
+    q, m = divmod(r0, rest_inner)
+    runs, done = [], 0
+    while done < rows:
+        count = min(rest_inner - m, rows - done)
+        runs.append(((q // rest_rep) * rest_inner + m, count))
+        done += count
+        m = 0
+        q += 1
+    return runs
+
+
+@pytest.mark.parametrize("lead,full_rest", [
+    ((1, 3, 7, 3, 1), False),      # 63 rows, rest blocks of 21 rows
+    ((2, 3, 1, 1, 5), False),      # 30 rows, rest blocks shorter than a tile
+    ((2, 3, 4, 2, 10), False),     # 480 rows, rest blocks of 80 rows
+    ((1, 3, 7, 3, 1), True),       # rest of the full lead shape
+], ids=["63-rows", "inner-5", "480-rows", "full"])
+def test_grid_tail_tile_rest_runs(lead, full_rest):
+    """K2's tiles of 8 rows (the last one ragged) read, run by run, the
+    rest rows that the per-row mapping gives every output row."""
+    tail = (56, 5)
+    rest_shape = (lead if full_rest else (lead[0], 1) + lead[2:]) + tail
+    rep, inner = grid_kernel._rest_layout(lead, rest_shape)
+    n = int(np.prod(lead))
+    b, c, m = np.unravel_index(np.arange(n), (lead[0], lead[1],
+                                              n // (lead[0] * lead[1])))
+    want = (np.arange(n) if full_rest else b * (n // (lead[0] * lead[1]))
+            + m)
+    got = []
+    for r0 in range(0, n, 8):
+        runs = _tile_rest_runs(r0, min(8, n - r0), rep, inner)
+        assert len(runs) <= 8
+        for first, count in runs:
+            got.extend(range(first, first + count))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_grid_tail_rejects_wrong_widths():
