@@ -41,10 +41,17 @@ Phases (any failure exits non-zero):
    the fp32-boundary rule (mst_torch.parity).
 6. K3 (``csrc/grid_tail_bwd.cu``) against its plain version at the
    327,680-row budget shape (8 x 8 x 128 x 4 x 10, ``batch_cell_budget``)
-   with a random cotangent, within ``K3_RTOL`` and ``K3_W_RTOL``; two runs
-   must be bit-equal. Then ``GridTail``'s K2+K3 gradients against torch
-   autograd of ``grid_tail_plain`` on the card, on a small case. K3's time,
-   its plain version's and its bound.
+   and at 63 and 30 rows (ragged last tiles) with a random cotangent,
+   within ``K3_RTOL`` and ``K3_W_RTOL``, with the count of values that
+   differ; two runs must be bit-equal, and an input view that does not
+   start on a 16-byte boundary must give the aligned call's bits. One
+   ``grid_tail_bwd`` call and one ``GridTail`` backward at the budget
+   shape must not synchronise. Then
+   ``GridTail``'s K2+K3 gradients against torch autograd of
+   ``grid_tail_plain`` on the card, on a small case. K3's launch shape,
+   its time, its plain version's and its bound; the kernel alone in its
+   full, copy-only and compute-only modes; and its time with a cold L2 at
+   the training step's shapes (10,240, 20,480 and 122,880 rows).
 7. The training path at full width (``ModelConfig()``) from a seed-108
    fresh init on the six smoke songs: 8 batch-1 micro-steps and 2 batch-6
    steps through ``create_train_state``, ``device_batch_from_songs`` and
@@ -66,6 +73,7 @@ result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -168,9 +176,14 @@ def phase_setup(torch):
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(sorted(logs)) or 'already built'})")
     for name, out in sorted(logs.items()):
+        function = name
         for line in out.splitlines():
+            if "Function properties for" in line:
+                # a kernel template's instance: its mode (FULL is 0)
+                m = re.search(r"ILi(\d+)E", line)
+                function = f"mode {m.group(1)}" if m else "kernel"
             if "Used" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name}: {function}: {line.strip()}")
 
 
 def smoke_paths():
@@ -410,42 +423,150 @@ def phase_k2(torch):
                 library_ms=None, detail=detail)
 
 
+def cuda_ms_cold(fn, iters, warmup=3, flush_bytes=256 << 20):
+    """Mean device time of ``fn`` in ms over ``iters`` calls, each timed
+    alone with a cold L2: a 256 MB write evicts the 50 MB L2 before each
+    call, and a device-side sleep before that lets the host enqueue the
+    call ahead of the device, so the events see the kernels alone."""
+    import torch
+    flush = torch.empty(flush_bytes // 4, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        torch.cuda._sleep(500_000)
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+K3_SCALE = (6.0, 1.0, 1.0, 1.0, 1.0)
+
+
+def k3_case(torch, lead, seed):
+    """K3's inputs at lead shape ``lead`` on the card: the tail's inputs,
+    its output by K2 and a random cotangent."""
+    from mst_torch.ops import grid_kernel as gk
+    xo, xd, w, rest = tail_inputs(torch, lead, seed)
+    out = gk.grid_tail_fwd(xo, xd, w, rest, K3_SCALE)
+    g = torch.Generator().manual_seed(seed + 1)
+    ct = torch.randn(*lead, 56, 5, generator=g).cuda()
+    return xo, xd, out, ct, w, rest
+
+
+def k3_bound_ms(n):
+    """K3's bound for n rows. Bytes: xo, xd, out and ct read once, ct_xo,
+    ct_xd and ct_y written once (w, the scales and the ct_w partials are
+    small). Operations per (row, o, d): ct_y (5 x: multiply, subtract, 3
+    multiplies) and per k: gp (1), ct_G (5 multiplies, 4 adds), dLR (1),
+    the two sums (2), LR(gp) (1), ct_w (5 multiplies, 5 adds) = 24."""
+    n_bytes = 4 * n * (240 + 210 + 280 + 280 + 240 + 210 + 280)
+    return bound_ms(n_bytes, n * 56 * (5 * 5 + 30 * 24))
+
+
+def k3_kernel_ms(torch, case, modes):
+    """K3's kernel alone (no ct_w sum), by its C entry, in each of
+    ``modes`` (csrc/grid_tail_bwd.cu, ``Mode``: 0 full, 1 copy only, 2
+    compute only), with unit scales: {mode: ms}."""
+    import ctypes
+
+    from mst_torch.ops import cuda_build, grid_kernel as gk
+
+    fn = cuda_build.load("grid_tail_bwd").mst_grid_tail_bwd_variant
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    xo, xd, out, ct, w = case[:5]
+    n = xo.numel() // 240
+    _, _, per_sm, rows = gk._bwd_entry()[1]
+    blocks = gk.bwd_grid(n, per_sm, torch.cuda.get_device_properties(
+        0).multi_processor_count, rows)
+    outs = [torch.empty_like(t) for t in (xo, xd, ct)]
+    parts = torch.empty(blocks, 30, 5, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for mode in modes:
+        def run():
+            rc = fn(mode, *(t.data_ptr() for t in (xo, xd, out, ct, w)),
+                    *(t.data_ptr() for t in outs), parts.data_ptr(), n,
+                    blocks, stream)
+            if rc != 0:
+                raise RuntimeError(f"K3 mode {mode}: CUDA error {rc}")
+        times[mode] = cuda_ms(run, 20)
+    return times
+
+
 def phase_k3(torch, L=(8, 8, 128, 4, 10)):
-    """K3 vs plain at the 327,680-row budget shape ``L``, determinism, and
-    GridTail's gradients against autograd of the plain forward."""
+    """K3 vs plain at the 327,680-row budget shape ``L`` and at ragged row
+    counts, determinism, no host sync, GridTail's gradients against
+    autograd of the plain forward; K3's time there, in its measuring modes
+    and at the training step's shapes."""
     from mst_torch.ops import grid_kernel as gk
 
-    scale = (6.0, 1.0, 1.0, 1.0, 1.0)
-    g = torch.Generator().manual_seed(3)
-    xo = torch.randn(*L, 8, 30, generator=g).cuda()
-    xd = torch.randn(*L, 7, 30, generator=g).cuda()
-    w = (torch.randn(30, 5, generator=g) * 0.3).cuda()
-    rest = torch.randn(L[0], 1, *L[2:], 56, 5, generator=g).cuda()
-    ct = torch.randn(*L, 56, 5, generator=g).cuda()
-    out = gk.grid_tail_fwd(xo, xd, w, rest, scale)
-    got = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
-    again = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
-    want = gk.grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
-    torch.cuda.synchronize()
-    n = xo.numel() // 240
-    errs = []
-    for name, a, b, c in zip(("ct_xo", "ct_xd", "ct_y", "ct_w"), got, again,
-                             want):
+    scale = K3_SCALE
+    smem, threads, per_sm, rows_per_tile = gk._bwd_entry()[1]
+    log(f"K3 launch: {threads} threads a block, {smem} B of dynamic shared "
+        f"memory, {per_sm} blocks per SM, {rows_per_tile} rows a tile")
+    max_err = 0.0
+    # the budget shape, 63 rows (7 whole tiles and a ragged one of 7 rows)
+    # and 30 rows (3 whole tiles and one of 6)
+    for label, lead in (("budget", L), ("63 rows", (1, 3, 7, 3, 1)),
+                        ("30 rows", (2, 3, 1, 1, 5))):
+        xo, xd, out, ct, w, _ = k3_case(torch, lead, 3)
+        got = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
+        again = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
+        want = gk.grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
+        torch.cuda.synchronize()
+        n = xo.numel() // 240
+        for name, a, b, c in zip(("ct_xo", "ct_xd", "ct_y", "ct_w"), got,
+                                 again, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K3 {label} {name}: two runs differ")
+            err = (a - c).abs().max().item()
+            largest = c.abs().max().item()
+            tol = (K3_W_RTOL if name == "ct_w" else K3_RTOL) * largest
+            if not err <= tol:
+                raise AssertionError(f"K3 {label} {name}: max |err| {err} > "
+                                     f"{tol}")
+            max_err = max(max_err, err)
+            log(f"K3 {label} ({n} rows) {name}: max |err| {err} (largest "
+                f"|value| {largest:.6g}, tolerance {tol:.3g}), "
+                f"{int((a != c).sum())} of {a.numel()} values differ; two "
+                f"runs bit-equal")
+        del got, again, want
+
+    # an input view 4 bytes past a 16-byte boundary: the wrapper copies it
+    xo, xd, out, ct, w, _ = k3_case(torch, (1, 3, 7, 3, 1), 4)
+    shifted = torch.empty(xo.numel() + 1, device="cuda")[1:].view_as(xo)
+    shifted.copy_(xo)
+    for a, b in zip(gk.grid_tail_bwd(shifted, xd, out, ct, w, scale),
+                    gk.grid_tail_bwd(xo, xd, out, ct, w, scale)):
         if not torch.equal(a, b):
-            raise AssertionError(f"K3 {name}: two runs differ")
-        err = (a - c).abs().max().item()
-        scale_ = c.abs().max().item()
-        tol = (K3_W_RTOL if name == "ct_w" else K3_RTOL) * scale_
-        if not err <= tol:
-            raise AssertionError(f"K3 {name}: max |err| {err} > {tol}")
-        errs.append(err)
-        log(f"K3 {name}: max |err| {err} (largest |value| {scale_:.6g}, "
-            f"tolerance {tol:.3g}), {int((a != c).sum())} of {a.numel()} "
-            f"values differ; two runs bit-equal")
-    del again, want
+            raise AssertionError("K3 on a misaligned view differs")
+    log(f"K3 on an xo view at {shifted.data_ptr() % 16} bytes past a "
+        f"16-byte boundary: bit-equal to the aligned call")
+
+    xo, xd, out, ct, w, rest = k3_case(torch, L, 3)
+    n = xo.numel() // 240
+    assert_no_sync(torch, f"K3 grid_tail_bwd at {n} rows",
+                   lambda: gk.grid_tail_bwd(xo, xd, out, ct, w, scale))
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (xo, xd, w, rest)]
+    y = gk.grid_tail(*leaves, scale)
+    assert_no_sync(torch, f"GridTail backward (K3) at {n} rows",
+                   lambda: torch.autograd.grad(y, leaves, ct))
+    del leaves, y
 
     # GridTail (K2 forward, K3 backward) against autograd of the plain
     # forward, on the card, at tests/test_fused_tails.py's tolerance
+    g = torch.Generator().manual_seed(3)
     small = (2, 3, 4, 4, 10)
     args = [t.cuda().requires_grad_(True) for t in (
         torch.randn(*small, 8, 30, generator=g),
@@ -463,22 +584,34 @@ def phase_k3(torch, L=(8, 8, 128, 4, 10)):
     log("GridTail on the card: K2+K3 gradients match autograd of "
         "grid_tail_plain (rtol 1e-5, atol 1e-5 + 2e-6 max|grad|)")
 
+    # the wrapper: K3 and the sum of its ct_w partials
     ms = cuda_ms(lambda: gk.grid_tail_bwd(xo, xd, out, ct, w, scale), 20)
     plain_ms = cuda_ms(lambda: gk.grid_tail_bwd_plain(xo, xd, out, ct, w,
                                                       scale), 3, warmup=1)
-    # bytes: xo, xd, out and ct read once, ct_xo, ct_xd and ct_y written
-    # once (w, the scales and the ct_w partials are small)
-    n_bytes = 4 * n * (240 + 210 + 280 + 280 + 240 + 210 + 280)
-    # per (row, o, d): ct_y (5 x: multiply, subtract, 3 multiplies) and per
-    # k: gp (1), ct_G (5 multiplies, 4 adds), dLR (1), the two sums (2),
-    # LR(gp) (1), ct_w (5 multiplies, 5 adds) = 24
-    n_ops = n * 56 * (5 * 5 + 30 * 24)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    b_ms, b_by = k3_bound_ms(n)
+    modes = k3_kernel_ms(torch, (xo, xd, out, ct, w), (0, 1, 2))
+    detail = {"kernel_only_ms": modes[0], "copy_only_ms": modes[1],
+              "compute_only_ms": modes[2]}
+    log(f"K3 at {n} rows: {ms:.4f} ms with the ct_w sum (bound {b_ms:.4f} "
+        f"ms by {b_by}); kernel alone {modes[0]:.4f} ms, copy only "
+        f"{modes[1]:.4f} ms, compute only {modes[2]:.4f} ms")
+    del xo, xd, out, ct, w, rest
+    torch.cuda.empty_cache()
+    # the training step's shapes: batch-1 with 2 and 4 channels, batch-6
+    for lead in ((1, 2, 128, 4, 10), (1, 4, 128, 4, 10), (6, 4, 128, 4, 10)):
+        case = k3_case(torch, lead, 5)
+        rows = case[0].numel() // 240
+        t = cuda_ms_cold(lambda: gk.grid_tail_bwd(*case[:5], scale), 20)
+        bound, _ = k3_bound_ms(rows)
+        detail[f"ms_{rows}_rows"] = t
+        detail[f"bound_ms_{rows}_rows"] = bound
+        log(f"K3 at {rows} rows, cold L2: {t:.4f} ms (bound {bound:.4f} ms)")
+        del case
     return dict(name="grid_tail_bwd", route="cuda",
                 source="mst_torch/csrc/grid_tail_bwd.cu",
                 replaces="mst_tpu/ops/pallas_grid.py:234",
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, detail={})
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, detail=detail)
 
 
 def check_outputs(written, label):

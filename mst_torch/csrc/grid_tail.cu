@@ -44,7 +44,8 @@
 // scale comes by value. A ragged last tile (fewer than 8 rows) is copied
 // by the producer warp with plain loads. The TPU kernel's transposed
 // rows-on-lanes layout (pallas_grid.py:23-28) is a TPU artefact; rows stay
-// in their natural layout.
+// in their natural layout. The ring's barriers and bulk copies come from
+// tile_ring.cuh, which K3 (grid_tail_bwd.cu) shares.
 //
 // w lives in one __constant__ array per process: two launches on two
 // streams with different weights would race. The port runs on one stream.
@@ -52,7 +53,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_ring.cuh"
+
 namespace {
+
+using namespace tile_ring;
 
 constexpr int O = 8;    // octaves
 constexpr int D = 7;    // scale degrees
@@ -81,73 +86,8 @@ __device__ __forceinline__ float leaky(float x) {
   return fmaxf(x, 0.01f * x);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait for the completion of the barrier's phase of the given parity; a
-// wait of 2**34 cycles (~9 s) traps, so a fault fails the launch instead
-// of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1LL << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-      "r"(smem_addr(src)), "r"(bytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// generic-proxy writes to shared memory, made visible to the TMA engine
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+  named_sync<CONSUMERS>();
 }
 
 // the rest row of output row r: the channel index dropped
@@ -237,7 +177,7 @@ grid_tail_kernel(const float* __restrict__ xo, const float* __restrict__ xd,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 1);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -328,13 +268,14 @@ grid_tail_kernel(const float* __restrict__ xo, const float* __restrict__ xd,
       if (MODE != COMPUTE_ONLY) {
         bulk_store(out + r0 * OUT, s_rest,
                    static_cast<uint32_t>(rows) * OUT * 4);
+        bulk_commit();
       }
       // the previous tile's store has read its stage: hand that stage back
-      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      bulk_wait_read<1>();
       if (i > 0) mbar_arrive(&empty[(i - 1) % STAGES]);
     }
   }
-  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if (tid == 0) bulk_wait_all();
 }
 
 #undef MST_TERM

@@ -26,53 +26,87 @@
 // sum runs in a fixed order, so two runs give bit-equal gradients. It
 // follows _bwd_kernel's numerics, not autodiff's: s comes from the saved
 // output times the reciprocal of the scale. The library is built with
-// --fmad=false, so each multiply and add rounds on its own, as in the plain
-// torch version (grid_kernel.grid_tail_bwd_plain), and ct_y, ct_xo and
-// ct_xd agree with it bit for bit.
+// --fmad=false, so each multiply and add of ct_y, ct_G and the two sums
+// rounds on its own, in the order of the plain torch version
+// (grid_kernel.grid_tail_bwd_plain), and ct_y, ct_xo and ct_xd agree with
+// it bit for bit. ct_w, a sum over every row in another order, uses
+// explicit fused multiply-adds (__fmaf_rn).
 //
 // What bounds it on the H100: bytes. Per row it reads xo, xd, out and ct
 // (240 + 210 + 280 + 280 floats) and writes ct_xo, ct_xd and ct_y (240 +
-// 210 + 280): 1,740 floats, 6,960 B. At the 327,680-row budget shape
-// (8 x 8 x 128 x 4 x 10) that is 2.28 GB, 0.68 ms at 3.35 TB/s, against
-// ~700 operations per (row, o, d), ~12.8 GFLOP, 0.19 ms at 67 TFLOP/s.
-// Prediction before the first card run: about 3x the byte bound, as K2
-// landed (1.49 ms against 0.45 ms), because this first version recomputes
-// the grid three times (once per cotangent) and its ct_w phase runs on
-// 300 of 448 threads.
+// 210 + 280): 6,960 B. At the 327,680-row budget shape (8 x 8 x 128 x 4 x
+// 10) that is 2.28 GB, 0.68 ms at 3.35 TB/s. Each (row, o, d, k) of the
+// grid takes ~24 issued instructions (two shared loads, the add of gp, the
+// 9 rounded operations of ct_G, the sign select, the two sums, 5 FFMA of
+// ct_w; 340 for the pass loop's 14 terms, tools/sass_opcodes.py --loops).
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) the launch takes
+// 0.61 ms computing alone, 0.80 ms moving its bytes alone (85% of the HBM
+// rate) and 0.84 ms doing both: the arithmetic hides behind the copies.
 //
-// Design: a block takes ROWS consecutive rows. Its threads copy the rows'
-// embeddings (leaky applied once) and w into shared memory, form ct_y from
-// out and ct (written straight to global memory and kept in shared
-// memory), and then compute, from shared memory only:
-//   - ct_xo: one thread per (row, o, k) sums its 7 d terms in order;
-//   - ct_xd: one thread per (row, d, k) sums its 8 o terms in order;
-//   - ct_w: two threads per (k, f), each over half of the block's rows in
-//     (row, o, d) order; their two sums are added in a fixed order.
-// The (row, o, d, k) grid is never stored: each phase recomputes gp from
-// the two embeddings. Rows stay in their natural layout; the TPU kernel's
-// transposed rows-on-lanes layout is a TPU artefact.
+// Design: a persistent grid (as many blocks as the card holds, at most one
+// per tile) walks tiles of ROWS = 8 rows, tile blockIdx.x + i * gridDim.x
+// at step i. In each block one producer warp keeps tiles in flight in a
+// ring of STAGES stages: 1-D TMA bulk copies (cp.async.bulk with an
+// mbarrier, tile_ring.cuh) of the tile's contiguous xo, xd, out and ct
+// spans (32,320 B). One consumer warp owns each row of the tile:
+//   1. ct_y first, in place: lane l forms the 5 ct_y of (o, d) = l and
+//      l + 32 over the tile's ct slot (for the store) and into a padded
+//      copy, 8 floats per (o, d), so the pass reads them with one 16-byte
+//      and one 4-byte broadcast load.
+//   2. One pass over the row's grid: lane k < 30 owns (row, k). It holds
+//      LR(xd)[row, 0..6, k], w[k, 0..4], the 7 ct_xd sums and 5 ct_w sums
+//      in registers and walks the 56 (o, d) in order, o outer and d inner,
+//      forming each gp and ct_G once. The sums start at -0.0, which adds
+//      like starting from the first term. ct_xo and ct_xd overwrite the
+//      tile's xo and xd in place: a lane owns those addresses alone.
+// The consumers fence (fence.proxy.async) and meet on a named barrier, and
+// one thread stores ct_xo, ct_xd and ct_y back with bulk stores, as one
+// bulk group. Halfway through the next tile's pass it waits until that
+// group has read its stage (wait_group.read) and hands the stage back to
+// the producer. A ragged last tile (fewer than 8 rows; a row of xd is
+// 840 B, not a multiple of 16) moves by plain loads and stores. ct_w: each
+// lane adds its tile partial (56 FFMA per feature, from -0.0) to a running
+// sum per (row slot, k, f) over its block's tiles; at the end the 8 row
+// slots are summed in ascending order into the block's (30, 5) partial.
+// The TPU kernel's transposed rows-on-lanes layout is a TPU artefact; rows
+// stay in their natural layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_ring.cuh"
+
 namespace {
+
+using namespace tile_ring;
 
 constexpr int O = 8;    // octaves
 constexpr int D = 7;    // scale degrees
 constexpr int K = 30;   // grid depth
 constexpr int F = 5;    // output features
 constexpr int M = O * D;
-constexpr int OUT = M * F;
-constexpr int ROWS = 8;
-constexpr int THREADS = ROWS * M;  // 448
+constexpr int OUT = M * F;              // 280 floats per row
 constexpr int KF = K * F;
+constexpr int ROWS = 8;                 // rows per tile
+constexpr int CONSUMERS = ROWS * 32;    // one warp per row
+constexpr int THREADS = CONSUMERS + 32; // + one producer warp
+constexpr int STAGES = 3;
+constexpr int XO_BYTES = ROWS * O * K * 4;   // 7,680
+constexpr int XD_BYTES = ROWS * D * K * 4;   // 6,720
+constexpr int OUT_BYTES = ROWS * OUT * 4;    // 8,960 (out, ct and ct_y)
+constexpr int STAGE_BYTES = XO_BYTES + XD_BYTES + 2 * OUT_BYTES;  // 32,320
+constexpr int CTY_PAD = 8;                   // floats per (o, d), padded
+constexpr int CTY_BYTES = ROWS * M * CTY_PAD * 4;                 // 14,336
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + CTY_BYTES + 2 * STAGES * 8;
+static_assert(ROWS * KF * 4 <= CTY_BYTES, "ct_w scratch reuses the cty copy");
 
 struct Scale {
   float v[F];
 };
 
+// torch's leaky_relu: x > 0 ? x : x * 0.01
 __device__ __forceinline__ float leaky(float x) {
-  return x >= 0.0f ? x : 0.01f * x;
+  return x > 0.0f ? x : 0.01f * x;
 }
 
 // dLR(x) * c, without forming the derivative
@@ -80,16 +114,34 @@ __device__ __forceinline__ float dleaky_mul(float x, float c) {
   return x >= 0.0f ? c : 0.01f * c;
 }
 
-// ct_G[k] for one (row, o, d): ct_y[0] * w[k,0] + ... + ct_y[4] * w[k,4]
-__device__ __forceinline__ float ct_grid(const float* cty, const float* w,
-                                         int k) {
-  float g = cty[0] * w[k * F];
-#pragma unroll
-  for (int f = 1; f < F; ++f) g = g + cty[f] * w[k * F + f];
-  return g;
+__device__ __forceinline__ void consumers_sync() {
+  named_sync<CONSUMERS>();
 }
 
-__global__ void __launch_bounds__(THREADS)
+struct Stage {
+  float* xo;   // xo in, ct_xo out
+  float* xd;   // xd in, ct_xd out
+  float* out;
+  float* ct;   // ct in, ct_y out
+};
+
+__device__ __forceinline__ Stage stage(unsigned char* smem, int s) {
+  unsigned char* p = smem + s * STAGE_BYTES;
+  return {reinterpret_cast<float*>(p),
+          reinterpret_cast<float*>(p + XO_BYTES),
+          reinterpret_cast<float*>(p + XO_BYTES + XD_BYTES),
+          reinterpret_cast<float*>(p + XO_BYTES + XD_BYTES + OUT_BYTES)};
+}
+
+// What a launch does. FULL is K3. The other two exist to measure it
+// (chip_smoke.py times them): COPY_ONLY moves the same bytes through the
+// ring (the tile's xo, xd and ct spans go back out as ct_xo, ct_xd and
+// ct_y) and computes nothing; COMPUTE_ONLY runs the consumers on a zeroed
+// ring and neither reads nor writes the row tensors.
+enum Mode { FULL = 0, COPY_ONLY = 1, COMPUTE_ONLY = 2 };
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2)
 grid_tail_bwd_kernel(const float* __restrict__ xo,
                      const float* __restrict__ xd,
                      const float* __restrict__ out,
@@ -98,123 +150,284 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
                      float* __restrict__ ct_xo, float* __restrict__ ct_xd,
                      float* __restrict__ ct_y, float* __restrict__ ct_w_parts,
                      int64_t n) {
-  __shared__ float s_ao[ROWS * O * K];
-  __shared__ float s_ad[ROWS * D * K];
-  __shared__ float s_cty[ROWS * OUT];
-  __shared__ float s_w[KF];
-  __shared__ float s_part[2 * KF];
-  __shared__ float s_scale[F];
-
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_cty = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES + CTY_BYTES);
+  uint64_t* empty = full + STAGES;
   const int tid = threadIdx.x;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * ROWS;
-  const int rows = static_cast<int>(n - row0 < ROWS ? n - row0 : ROWS);
+  const int64_t n_tiles = (n + ROWS - 1) / ROWS;
 
-  for (int i = tid; i < KF; i += THREADS) s_w[i] = w[i];
+  if (MODE == COMPUTE_ONLY) {
+    for (int j = tid; j < STAGES * STAGE_BYTES / 4; j += THREADS) {
+      reinterpret_cast<float*>(smem)[j] = 0.0f;
+    }
+  }
   if (tid == 0) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) s_scale[f] = scale.v[f];
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * O * K; i += THREADS) {
-    s_ao[i] = leaky(xo[row0 * (O * K) + i]);
-  }
-  for (int i = tid; i < rows * D * K; i += THREADS) {
-    s_ad[i] = leaky(xd[row0 * (D * K) + i]);
-  }
-  for (int i = tid; i < rows * OUT; i += THREADS) {
-    const float sc = s_scale[i % F];
-    const float s = out[row0 * OUT + i] * (1.0f / sc);
-    const float c = ct[row0 * OUT + i] * (sc * s * (1.0f - s));
-    s_cty[i] = c;
-    ct_y[row0 * OUT + i] = c;
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // ct_xo: thread per (row, o, k), sum over d in ascending order. LR keeps
-  // the sign, so the leaky embedding's sign is the raw one's.
-  for (int i = tid; i < rows * O * K; i += THREADS) {
-    const int r = i / (O * K);
-    const int o = (i / K) % O;
-    const int k = i % K;
-    const float ao = s_ao[i];
-    const float* ad = s_ad + r * (D * K) + k;
-    const float* cty = s_cty + r * OUT + o * (D * F);
-    float acc = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float c = dleaky_mul(ao + ad[d * K], ct_grid(cty + d * F, s_w, k));
-      acc = d == 0 ? c : acc + c;
-    }
-    ct_xo[row0 * (O * K) + i] = dleaky_mul(ao, acc);
-  }
-
-  // ct_xd: thread per (row, d, k), sum over o in ascending order
-  for (int i = tid; i < rows * D * K; i += THREADS) {
-    const int r = i / (D * K);
-    const int d = (i / K) % D;
-    const int k = i % K;
-    const float ad = s_ad[i];
-    const float* ao = s_ao + r * (O * K) + k;
-    const float* cty = s_cty + r * OUT + d * F;
-    float acc = 0.0f;
-    for (int o = 0; o < O; ++o) {
-      const float c = dleaky_mul(ao[o * K] + ad,
-                                 ct_grid(cty + o * (D * F), s_w, k));
-      acc = o == 0 ? c : acc + c;
-    }
-    ct_xd[row0 * (D * K) + i] = dleaky_mul(ad, acc);
-  }
-
-  // ct_w: two threads per (k, f), each over half of the block's rows
-  if (tid < 2 * KF) {
-    const int h = tid / KF;
-    const int k = (tid % KF) / F;
-    const int f = tid % F;
-    const int r_end = rows < (h + 1) * (ROWS / 2) ? rows : (h + 1) * (ROWS / 2);
-    float acc = 0.0f;
-    for (int r = h * (ROWS / 2); r < r_end; ++r) {
-      const float* ao = s_ao + r * (O * K) + k;
-      const float* ad = s_ad + r * (D * K) + k;
-      const float* cty = s_cty + r * OUT + f;
-      for (int o = 0; o < O; ++o) {
-        for (int d = 0; d < D; ++d) {
-          acc = acc + leaky(ao[o * K] + ad[d * K]) * cty[(o * D + d) * F];
+  if (tid >= CONSUMERS) {
+    // ---- producer warp ----
+    const int lane = tid - CONSUMERS;
+    int i = 0;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
+      const int s = i % STAGES;
+      if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+      const Stage st = stage(smem, s);
+      const int64_t r0 = t * ROWS;
+      const int rows = static_cast<int>(n - r0 < ROWS ? n - r0 : ROWS);
+      if (MODE == COMPUTE_ONLY) {
+        if (lane == 0) mbar_arrive(&full[s]);
+      } else if (rows == ROWS) {
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], STAGE_BYTES);
+          bulk_load(st.xo, xo + r0 * (O * K), XO_BYTES, &full[s]);
+          bulk_load(st.xd, xd + r0 * (D * K), XD_BYTES, &full[s]);
+          bulk_load(st.out, out + r0 * OUT, OUT_BYTES, &full[s]);
+          bulk_load(st.ct, ct + r0 * OUT, OUT_BYTES, &full[s]);
         }
+      } else {
+        // the ragged last tile: plain loads by the whole warp
+        for (int j = lane; j < rows * O * K; j += 32) {
+          st.xo[j] = xo[r0 * (O * K) + j];
+        }
+        for (int j = lane; j < rows * D * K; j += 32) {
+          st.xd[j] = xd[r0 * (D * K) + j];
+        }
+        for (int j = lane; j < rows * OUT; j += 32) {
+          st.out[j] = out[r0 * OUT + j];
+          st.ct[j] = ct[r0 * OUT + j];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
       }
     }
-    s_part[tid] = acc;
+    return;
   }
-  __syncthreads();
+
+  // ---- consumers: warp r owns row r of each tile, lane k < K owns k ----
+  const int r = tid / 32;
+  const int lane = tid % 32;
+  float wk[F], sc[F], inv[F], run[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    wk[f] = lane < K ? w[lane * F + f] : 0.0f;
+    sc[f] = scale.v[f];
+    inv[f] = 1.0f / sc[f];
+    run[f] = 0.0f;
+  }
+  int i = 0;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
+    const int s = i % STAGES;
+    const Stage st = stage(smem, s);
+    const int64_t r0 = t * ROWS;
+    const int rows = static_cast<int>(n - r0 < ROWS ? n - r0 : ROWS);
+    // hand the previous tile's stage back once its bulk store has read it
+    auto release_previous = [&]() {
+      if (i > 0) {
+        bulk_wait_read<0>();
+        mbar_arrive(&empty[(i - 1) % STAGES]);
+      }
+    };
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    if (MODE == COPY_ONLY) {
+      if (tid == 0) release_previous();
+    } else if (r < rows) {
+      // 1. ct_y over the ct slot, and its padded copy
+      const float* so = st.out + r * OUT;
+      float* sy = st.ct + r * OUT;
+      float* cy = s_cty + r * (M * CTY_PAD);
+      for (int m = lane; m < M; m += 32) {
+        float v[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float s_ = so[m * F + f] * inv[f];
+          v[f] = sy[m * F + f] * (sc[f] * s_ * (1.0f - s_));
+          sy[m * F + f] = v[f];
+        }
+        *reinterpret_cast<float4*>(cy + m * CTY_PAD) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        cy[m * CTY_PAD + 4] = v[4];
+      }
+      __syncwarp();
+      // 2. the pass over the row's (o, d) for this lane's k
+      if (lane < K) {
+        float* px = st.xo + r * (O * K) + lane;
+        float* pd = st.xd + r * (D * K) + lane;
+        float ad[D], acc_d[D], part[F];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          ad[d] = leaky(pd[d * K]);
+          acc_d[d] = -0.0f;
+        }
+#pragma unroll
+        for (int f = 0; f < F; ++f) part[f] = -0.0f;
+#pragma unroll 2
+        for (int o = 0; o < O; ++o) {
+          const float x = px[o * K];
+          const float ao = leaky(x);
+          float acc_o = -0.0f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float* c = cy + (o * D + d) * CTY_PAD;
+            const float4 c4 = *reinterpret_cast<const float4*>(c);
+            const float c5 = c[4];
+            const float gp = ao + ad[d];
+            float g = c4.x * wk[0];
+            g = g + c4.y * wk[1];
+            g = g + c4.z * wk[2];
+            g = g + c4.w * wk[3];
+            g = g + c5 * wk[4];
+            const bool pos = gp >= 0.0f;
+            const float cg = pos ? g : 0.01f * g;     // dLR(gp) * ct_G
+            const float lr = pos ? gp : 0.01f * gp;   // LR(gp)
+            acc_o = acc_o + cg;
+            acc_d[d] = acc_d[d] + cg;
+            part[0] = __fmaf_rn(lr, c4.x, part[0]);
+            part[1] = __fmaf_rn(lr, c4.y, part[1]);
+            part[2] = __fmaf_rn(lr, c4.z, part[2]);
+            part[3] = __fmaf_rn(lr, c4.w, part[3]);
+            part[4] = __fmaf_rn(lr, c5, part[4]);
+          }
+          px[o * K] = dleaky_mul(x, acc_o);
+          if (o == O / 2 - 1 && tid == 0) release_previous();
+        }
+#pragma unroll
+        for (int d = 0; d < D; ++d) pd[d * K] = dleaky_mul(pd[d * K], acc_d[d]);
+#pragma unroll
+        for (int f = 0; f < F; ++f) run[f] = run[f] + part[f];
+      }
+    }
+    fence_async_smem();
+    consumers_sync();
+
+    if (MODE == COMPUTE_ONLY) continue;
+    if (rows == ROWS) {
+      if (tid == 0) {
+        bulk_store(ct_xo + r0 * (O * K), st.xo, XO_BYTES);
+        bulk_store(ct_xd + r0 * (D * K), st.xd, XD_BYTES);
+        bulk_store(ct_y + r0 * OUT, st.ct, OUT_BYTES);
+        bulk_commit();
+      }
+    } else {
+      // the ragged last tile: plain stores by all consumers
+      for (int j = tid; j < rows * O * K; j += CONSUMERS) {
+        ct_xo[r0 * (O * K) + j] = st.xo[j];
+      }
+      for (int j = tid; j < rows * D * K; j += CONSUMERS) {
+        ct_xd[r0 * (D * K) + j] = st.xd[j];
+      }
+      for (int j = tid; j < rows * OUT; j += CONSUMERS) {
+        ct_y[r0 * OUT + j] = st.ct[j];
+      }
+    }
+  }
+
+  // the block's ct_w partial: the row slots' running sums in ascending
+  // order, through the cty copy (every pass is over)
+  if (lane < K) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) s_cty[(r * K + lane) * F + f] = run[f];
+  }
+  consumers_sync();
   if (tid < KF) {
-    ct_w_parts[static_cast<int64_t>(blockIdx.x) * KF + tid] =
-        s_part[tid] + s_part[KF + tid];
+    float acc = s_cty[tid];
+    for (int rr = 1; rr < ROWS; ++rr) acc = acc + s_cty[rr * KF + tid];
+    ct_w_parts[static_cast<int64_t>(blockIdx.x) * KF + tid] = acc;
   }
+  if (tid == 0) bulk_wait_all();
 }
 
 }  // namespace
 
-// Rows per block: the wrapper sizes the ct_w partials as
-// (ceil(n / mst_grid_tail_bwd_rows()), 30, 5).
-extern "C" int mst_grid_tail_bwd_rows() { return ROWS; }
+// (dynamic shared memory bytes, threads per block, resident blocks per SM,
+// rows per tile) of K3's launch. The first call sets the kernel's
+// shared-memory limit. The wrapper sizes the ct_w partials by the grid it
+// passes: min(blocks per SM x SMs, tiles).
+extern "C" int mst_grid_tail_bwd_info(int* info) {
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0) {
+    const void* kernels[] = {
+        reinterpret_cast<const void*>(grid_tail_bwd_kernel<FULL>),
+        reinterpret_cast<const void*>(grid_tail_bwd_kernel<COPY_ONLY>),
+        reinterpret_cast<const void*>(grid_tail_bwd_kernel<COMPUTE_ONLY>)};
+    for (const void* kernel : kernels) {
+      if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      }
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, grid_tail_bwd_kernel<FULL>, THREADS, SMEM_BYTES);
+    }
+  }
+  info[0] = SMEM_BYTES;
+  info[1] = THREADS;
+  info[2] = per_sm;
+  info[3] = ROWS;
+  return static_cast<int>(err);
+}
 
-// Launches K3 on `stream`: xo (n, 8, 30), xd (n, 7, 30), out and ct
-// (n, 56, 5), w (30, 5), the five scales by value; writes ct_xo
-// (n, 8, 30), ct_xd (n, 7, 30), ct_y (n, 56, 5) and ct_w_parts
-// (ceil(n / 8), 30, 5). All fp32 and contiguous. Returns
-// cudaGetLastError().
+namespace {
+
+int launch(int mode, const void* xo, const void* xd, const void* out,
+           const void* ct, const void* w, Scale scale, void* ct_xo,
+           void* ct_xd, void* ct_y, void* ct_w_parts, int64_t n,
+           int64_t blocks, void* stream) {
+  if (n <= 0) return 0;
+  int info[4];
+  const cudaError_t err =
+      static_cast<cudaError_t>(mst_grid_tail_bwd_info(info));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (info[2] < 1 || blocks < 1 || blocks > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  auto kernel = mode == COPY_ONLY      ? grid_tail_bwd_kernel<COPY_ONLY>
+                : mode == COMPUTE_ONLY ? grid_tail_bwd_kernel<COMPUTE_ONLY>
+                                       : grid_tail_bwd_kernel<FULL>;
+  kernel<<<static_cast<unsigned int>(blocks), THREADS, SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xo), static_cast<const float*>(xd),
+      static_cast<const float*>(out), static_cast<const float*>(ct),
+      static_cast<const float*>(w), scale, static_cast<float*>(ct_xo),
+      static_cast<float*>(ct_xd), static_cast<float*>(ct_y),
+      static_cast<float*>(ct_w_parts), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches K3 on `stream` with `blocks` blocks: xo (n, 8, 30), xd (n, 7,
+// 30), out and ct (n, 56, 5), w (30, 5), the five scales by value; writes
+// ct_xo (n, 8, 30), ct_xd (n, 7, 30), ct_y (n, 56, 5) and ct_w_parts
+// (blocks, 30, 5). All fp32, contiguous and 16-byte aligned. Returns the
+// first CUDA error, or 0.
 extern "C" int mst_grid_tail_bwd(const void* xo, const void* xd,
                                  const void* out, const void* ct,
-                                 const void* w, float s0, float s1,
-                                 float s2, float s3, float s4, void* ct_xo, void* ct_xd, void* ct_y,
-                                 void* ct_w_parts, int64_t n, void* stream) {
-  if (n > 0) {
-    const int64_t blocks = (n + ROWS - 1) / ROWS;
-    const Scale scale = {{s0, s1, s2, s3, s4}};
-    grid_tail_bwd_kernel<<<static_cast<unsigned int>(blocks), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(xo), static_cast<const float*>(xd),
-        static_cast<const float*>(out), static_cast<const float*>(ct),
-        static_cast<const float*>(w), scale, static_cast<float*>(ct_xo), static_cast<float*>(ct_xd),
-        static_cast<float*>(ct_y), static_cast<float*>(ct_w_parts), n);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 const void* w, float s0, float s1, float s2,
+                                 float s3, float s4, void* ct_xo, void* ct_xd,
+                                 void* ct_y, void* ct_w_parts, int64_t n,
+                                 int64_t blocks, void* stream) {
+  return launch(FULL, xo, xd, out, ct, w, Scale{{s0, s1, s2, s3, s4}}, ct_xo,
+                ct_xd, ct_y, ct_w_parts, n, blocks, stream);
+}
+
+// The same launch in one of the measuring modes (1: copy only, 2: compute
+// only), with unit scales; the outputs then hold no result.
+extern "C" int mst_grid_tail_bwd_variant(int mode, const void* xo,
+                                         const void* xd, const void* out,
+                                         const void* ct, const void* w,
+                                         void* ct_xo, void* ct_xd, void* ct_y,
+                                         void* ct_w_parts, int64_t n,
+                                         int64_t blocks, void* stream) {
+  return launch(mode, xo, xd, out, ct, w, Scale{{1.0f, 1.0f, 1.0f, 1.0f, 1.0f}},
+                ct_xo, ct_xd, ct_y, ct_w_parts, n, blocks, stream);
 }

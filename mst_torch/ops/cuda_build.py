@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one file ``mst_torch/csrc/<name>.cu`` with a plain C entry
-point. At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``)
-into a shared library under ``build/mst_torch_kernels/`` at the root of the
-checkout and loaded with ctypes. The library's file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale build
-is never loaded. A failed build raises; nothing falls back to plain torch.
+point; it may include the shared headers ``csrc/*.cuh``. At first use it is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/mst_torch_kernels/`` at the root of the checkout and loaded with
+ctypes. The library's file name carries a hash of the source, the shared
+headers and the flags, so an edited source or header is rebuilt and a
+stale build is never loaded. A failed build raises; nothing falls back to
+plain torch.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them: that is how ``chip_smoke.py`` builds every kernel of the main path.
@@ -60,10 +62,13 @@ def _flags(name: str) -> Tuple[str, ...]:
 
 
 def library_path(name: str) -> str:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read())
+    """Where the library built from ``csrc/<name>.cu`` lives. The hash
+    covers the source, every shared header of ``csrc/`` and the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as fh:
+            digest.update(fh.read())
     digest.update(" ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 

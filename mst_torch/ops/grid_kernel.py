@@ -12,14 +12,15 @@ output and the output's cotangent it recomputes the grid and forms the
 cotangents of xo, xd, w and rest.
 
 The kernel sources are ``csrc/grid_tail.cu`` and ``csrc/grid_tail_bwd.cu``;
-their headers say what bounds each on the H100 (HBM bytes, and for K2
-instruction issue close behind) and what the design does about it: the
-(…, 8, 7, 30) grid is never stored; ``rest`` is read per song, never
-expanded over channels; K2 is a persistent kernel that streams 8-row
-tiles of xo, xd and rest through a ring in shared memory with TMA bulk
-copies, finds each tile's rest rows once, and reads ``w`` from constant
-memory. Both wrappers pass the five scales by value and never wait for
-the device.
+their headers say what bounds each on the H100 and what the design does
+about it: the (…, 8, 7, 30) grid is never stored; both are persistent
+kernels that stream 8-row tiles through a ring in shared memory with TMA
+bulk copies (``csrc/tile_ring.cuh``). K2 reads ``rest`` per song, never
+expanded over channels, finds each tile's rest rows once and reads ``w``
+from constant memory. K3 forms each (row, o, d, k) of the grid once, in
+one pass that a warp per row makes, and sums ct_w per block in a fixed
+order. Both wrappers pass the five scales by value and never wait for the
+device.
 
 ``grid_tail`` is the entry point. With autograd recording it runs
 ``GridTail``, whose forward is K2 and whose backward is K3; otherwise (under
@@ -69,15 +70,33 @@ def _entry():
 
 @functools.cache
 def _bwd_entry():
-    """(C entry point, rows per block) of csrc/grid_tail_bwd.cu (built and
-    bound once)."""
+    """(C entry point, launch info) of csrc/grid_tail_bwd.cu, built and
+    bound once. The info is (dynamic shared memory bytes, threads per
+    block, resident blocks per SM, rows per tile)."""
     lib = cuda_build.load("grid_tail_bwd")
     fn = lib.mst_grid_tail_bwd
     fn.argtypes = [ctypes.c_void_p] * 5 + _SCALES + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int64, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.mst_grid_tail_bwd_rows.restype = ctypes.c_int
-    return fn, lib.mst_grid_tail_bwd_rows()
+    lib.mst_grid_tail_bwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.mst_grid_tail_bwd_info.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    rc = lib.mst_grid_tail_bwd_info(info)
+    if rc != 0:
+        raise RuntimeError(f"grid tail backward kernel: CUDA error {rc}")
+    return fn, tuple(info)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_grid(n: int, blocks_per_sm: int, sms: int, rows_per_tile: int) -> int:
+    """K3's grid for ``n`` rows: as many blocks as the card holds, at most
+    one per tile. Block b takes tiles b, b + grid, b + 2 grid, ... and
+    writes one ct_w partial."""
+    return min(blocks_per_sm * sms, -(-n // rows_per_tile))
 
 
 def _leaky(x):
@@ -175,8 +194,9 @@ def _check_widths(xo, xd, w, scale):
 
 
 def _aligned(t):
-    """``t`` as contiguous fp32 starting on a 16-byte boundary, as K2's
-    bulk copies need (a view into a larger tensor may start elsewhere)."""
+    """``t`` as contiguous fp32 starting on a 16-byte boundary, as the bulk
+    copies of K2 and K3 need (a view into a larger tensor may start
+    elsewhere)."""
     t = t.to(torch.float32).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -212,7 +232,9 @@ def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
     """The K3 wrapper: the cotangents (ct_xo, ct_xd, ct_y, ct_w) of the tail
     from its inputs ``xo``, ``xd``, ``w``, its output ``out`` and the
     output's cotangent ``ct``. CPU tensors run ``grid_tail_bwd_plain``;
-    CUDA tensors run K3, whose per-block ct_w partials are summed here."""
+    CUDA tensors run K3 on the current stream (``bwd_grid`` blocks), whose
+    per-block ct_w partials are summed here, without waiting for the
+    device."""
     lead = _check_widths(xo, xd, w, scale)
     want = lead + (N_OCTAVES * N_SCALE_DEGREES, N_FEATURES)
     for name, t in (("out", out), ("ct", ct)):
@@ -221,24 +243,27 @@ def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
                              f"be {want}")
     if xo.device.type == "cpu":
         return grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
-    launch, rows_per_block = _bwd_entry()
+    launch, (_, _, per_sm, rows_per_tile) = _bwd_entry()
     if not xo.is_cuda:
         raise ValueError(f"grid_tail_bwd: unsupported device {xo.device}")
     dev = xo.device
-    ins = [t.to(torch.float32).contiguous() for t in (xo, xd, out, ct, w)]
+    ins = [_aligned(t) for t in (xo, xd, out, ct, w)]
     n = math.prod(lead)
     ct_xo, ct_xd, ct_y = (torch.empty_like(t) for t in ins[:3])
-    parts = torch.zeros(max(-(-n // rows_per_block), 1), GRID_DEPTH,
-                        N_FEATURES, dtype=torch.float32, device=dev)
-    if n:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
-                    ct_xo.data_ptr(), ct_xd.data_ptr(), ct_y.data_ptr(),
-                    parts.data_ptr(), n, stream)
-        if rc != 0:
-            raise RuntimeError(f"grid tail backward kernel launch failed: "
-                               f"CUDA error {rc}")
-        grid_tail_bwd.launches += 1
+    if n == 0:
+        return ct_xo, ct_xd, ct_y, torch.zeros(GRID_DEPTH, N_FEATURES,
+                                               device=dev)
+    blocks = bwd_grid(n, per_sm, _sm_count(dev.index), rows_per_tile)
+    parts = torch.empty(blocks, GRID_DEPTH, N_FEATURES, dtype=torch.float32,
+                        device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
+                ct_xo.data_ptr(), ct_xd.data_ptr(), ct_y.data_ptr(),
+                parts.data_ptr(), n, blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"grid tail backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    grid_tail_bwd.launches += 1
     return ct_xo, ct_xd, ct_y, parts.sum(dim=0)
 
 

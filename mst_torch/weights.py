@@ -93,18 +93,22 @@ def _flat(tree: Mapping) -> Dict[str, np.ndarray]:
 
 def train_state_from_flax(params: Mapping, mu: Mapping, nu: Mapping,
                           count: int, accum_grads: Mapping, micro_step: int,
-                          opt_step: int, config=None, device="cpu"):
+                          opt_step: int, config=None, device=None):
     """A port ``TrainState`` (mst_torch.runtime.train) holding an mst_tpu
     ``TrainState`` given as numpy: ``params``, the ``mu``/``nu`` moments and
     ``count`` of optax's ScaleByAdamState (``opt_state[0]``),
     ``accum_grads``, ``micro_step`` and ``opt_step``. Each tree maps leaf
     for leaf by the rules above; Adam's ``exp_avg``/``exp_avg_sq``/``step``
     take mu/nu/count, and the StepLR schedule is stepped ``opt_step`` times,
-    as an uninterrupted port run would have stepped it."""
+    as an uninterrupted port run would have stepped it. ``device=None``
+    means the GPU and raises without one (``transfer.resolve_device``);
+    pass ``"cpu"`` to build the state on the host."""
     from mst_torch.config import Config
     from mst_torch.models import StyleTransferModel
     from mst_torch.runtime.train import create_train_state
+    from mst_torch.transfer import resolve_device
 
+    device = resolve_device(device)
     config = Config() if config is None else config
     model = StyleTransferModel(config.model)
     model.load_state_dict(state_dict_from_flax(params))

@@ -444,3 +444,115 @@ def test_grid_tail_bwd_rejects_wrong_shapes():
         grid_kernel.grid_tail_bwd(xo, xd, out[..., :4], out, w, SCALE)
     with pytest.raises(ValueError):
         grid_kernel.grid_tail_bwd(xo, xd, out, out[:, :, :, :, :9], w, SCALE)
+
+
+def test_grid_tail_bwd_on_cpu_takes_the_plain_version():
+    """grid_tail_bwd on CPU tensors returns grid_tail_bwd_plain's four
+    cotangents, bit for bit, and counts no launch."""
+    rng = np.random.default_rng(8)
+    lead = (1, 3, 7, 3, 1)
+    xo, xd, w, rest = (torch.from_numpy(a) for a in _tail_inputs(rng, lead))
+    out = grid_kernel.grid_tail_plain(xo, xd, w, rest, SCALE)
+    ct = torch.from_numpy(rng.normal(size=lead + (56, 5)).astype(np.float32))
+    before = grid_kernel.grid_tail_bwd.launches
+    got = grid_kernel.grid_tail_bwd(xo, xd, out, ct, w, SCALE)
+    want = grid_kernel.grid_tail_bwd_plain(xo, xd, out, ct, w, SCALE)
+    for g, wv in zip(got, want):
+        assert torch.equal(g, wv)
+    assert grid_kernel.grid_tail_bwd.launches == before
+
+
+# K3's persistent schedule (csrc/grid_tail_bwd.cu), replayed: a grid of
+# bwd_grid(...) blocks; block b takes the 8-row tiles b, b + grid, ...
+K3_ROWS = 8
+
+
+def _k3_block_tiles(n, grid):
+    """{block: [(first row, rows), ...]} in the order each block walks."""
+    tiles = -(-n // K3_ROWS)
+    return {b: [(t * K3_ROWS, min(K3_ROWS, n - t * K3_ROWS))
+                for t in range(b, tiles, grid)] for b in range(grid)}
+
+
+@pytest.mark.parametrize("per_sm,sms", [(1, 1), (1, 132), (2, 132)],
+                         ids=["grid-1", "grid-132", "grid-264"])
+@pytest.mark.parametrize("n", [1, 7, 8, 63, 10_240])
+def test_grid_tail_bwd_schedule_covers_every_row_once(n, per_sm, sms):
+    """Every row lies in exactly one tile of one block; no block is
+    empty; only the last tile is short, and it is the last of its block."""
+    grid = grid_kernel.bwd_grid(n, per_sm, sms, K3_ROWS)
+    tiles = -(-n // K3_ROWS)
+    assert grid == min(per_sm * sms, tiles)
+    schedule = _k3_block_tiles(n, grid)
+    seen = np.zeros(n, np.int64)
+    for b, walk in schedule.items():
+        assert walk, f"block {b} has no tile"
+        for first, rows in walk:
+            seen[first:first + rows] += 1
+    np.testing.assert_array_equal(seen, 1)
+    last_first, last_rows = max(t for walk in schedule.values() for t in walk)
+    assert last_rows == (n % K3_ROWS or K3_ROWS)
+    short = [(b, walk.index(t)) for b, walk in schedule.items()
+             for t in walk if t[1] < K3_ROWS]
+    assert len(short) == (1 if n % K3_ROWS else 0)
+    for b, at in short:
+        assert at == len(schedule[b]) - 1
+
+
+def _k3_ct_w_replay(xo, xd, ct_y, grid):
+    """K3's ct_w in its own summation order, in numpy: per row, a tile
+    partial over the 56 (o, d) in order (a fused multiply-add each,
+    emulated in float64 and rounded to fp32); per block and row slot, a
+    running sum of its tiles' partials; per block, the 8 slots in
+    ascending order; then the block partials in ascending order."""
+    f32 = np.float32
+    n = xo.shape[0]
+    leaky = lambda x: np.where(x > 0, x, x * f32(0.01))
+    gp = leaky(xo)[:, :, None, :] + leaky(xd)[:, None, :, :]
+    lr = leaky(gp).reshape(n, 56, 30)
+    cty = ct_y.reshape(n, 56, 5)
+    part = np.full((n, 30, 5), -0.0, f32)
+    for m in range(56):
+        part = (lr[:, m, :, None].astype(np.float64) * cty[:, m, None, :]
+                + part).astype(f32)
+    blocks = []
+    for walk in _k3_block_tiles(n, grid).values():
+        run = np.zeros((K3_ROWS, 30, 5), f32)
+        for first, rows in walk:
+            run[:rows] = run[:rows] + part[first:first + rows]
+        acc = run[0]
+        for slot in range(1, K3_ROWS):
+            acc = acc + run[slot]
+        blocks.append(acc)
+    total = blocks[0]
+    for b in blocks[1:]:
+        total = total + b
+    return total
+
+
+@pytest.mark.parametrize("lead,grid", [
+    ((1, 3, 10, 1, 10), 5),        # 300 rows: 38 tiles, the last of 4 rows
+    ((2, 2, 4, 2, 5), 3),          # 160 rows: whole tiles only
+], ids=["300-rows", "160-rows"])
+def test_grid_tail_bwd_ct_w_order_matches_plain_and_pallas(lead, grid):
+    """K3's ct_w summation order (tile partials, per-block running sums,
+    fixed-order sums of the slots and of the block partials) gives
+    grid_tail_bwd_plain's ct_w and the Pallas backward's, within
+    tests/test_fused_tails.py's tolerance."""
+    rng = np.random.default_rng(sum(lead) + grid)
+    args = _tail_inputs(rng, lead)
+    ct = rng.normal(size=lead + (56, 5)).astype(np.float32)
+    j_args = tuple(jnp.asarray(a) for a in args)
+    out, vjp = jax.vjp(
+        lambda *a: fused_grid_tail(*a, SCALE, interpret=True), *j_args)
+    want_pallas = np.asarray(vjp(jnp.asarray(ct))[2])
+    xo, xd, w, _ = (torch.from_numpy(a) for a in args)
+    _, _, ct_y, want_plain = grid_kernel.grid_tail_bwd_plain(
+        xo, xd, torch.from_numpy(np.array(out)), torch.from_numpy(ct), w,
+        SCALE)
+    n = int(np.prod(lead))
+    got = _k3_ct_w_replay(args[0].reshape(n, 8, 30),
+                          args[1].reshape(n, 7, 30),
+                          ct_y.numpy().reshape(n, 56, 5), grid)
+    _assert_grad_close(got, want_plain.numpy(), "plain")
+    _assert_grad_close(got, want_pallas, "pallas")

@@ -152,3 +152,43 @@ def test_library_name_follows_source_and_flags():
     assert "--fmad=false" in cuda_build._flags("grid_tail")
     assert "--fmad=false" in cuda_build._flags("grid_tail_bwd")
     assert "arch=compute_90a,code=sm_90a" in cuda_build._flags("raster")
+
+
+def test_library_name_follows_shared_headers(monkeypatch, tmp_path):
+    """Editing a shared header (csrc/*.cuh) renames every library, so a
+    kernel that includes it is rebuilt."""
+    for name in os.listdir(cuda_build.CSRC):
+        (tmp_path / name).write_bytes(
+            open(os.path.join(cuda_build.CSRC, name), "rb").read())
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    assert (tmp_path / "tile_ring.cuh").exists()
+    before = {n: cuda_build.library_path(n) for n in cuda_build.KERNEL_FLAGS}
+    with open(tmp_path / "tile_ring.cuh", "a") as fh:
+        fh.write("// edited\n")
+    after = {n: cuda_build.library_path(n) for n in cuda_build.KERNEL_FLAGS}
+    assert all(before[n] != after[n] for n in before)
+
+
+def test_sass_loop_bodies():
+    """tools/sass_opcodes.py finds a loop's body from its backward branch
+    and leaves out the idle branch-to-self after EXIT."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sass_opcodes
+
+    listing = """
+        Function : _Z6kernelv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   FFMA R8, R4, R5, R8 ;
+        /*0030*/              @P0 BRA 0x10 ;
+        /*0040*/                   EXIT ;
+        /*0050*/                   BRA 0x50;
+    """
+    listing = "\n".join(line.strip() for line in listing.splitlines())
+    fns = sass_opcodes.functions(listing)
+    assert list(fns) == ["_Z6kernelv"]
+    assert fns["_Z6kernelv"][0] == (0, "MOV R1, c[0x0][0x28]")
+    bodies = sass_opcodes.loops(fns["_Z6kernelv"])
+    assert len(bodies) == 1
+    assert dict(sass_opcodes.count(bodies[0])) == {"LDS": 1, "FFMA": 1,
+                                                   "BRA": 1}

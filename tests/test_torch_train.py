@@ -495,7 +495,8 @@ def test_resume_from_mst_tpu_state(trajectory, model_pair):
     adam = mid.opt_state[0]
     state = weights.train_state_from_flax(
         mid.params, adam.mu, adam.nu, int(adam.count), mid.accum_grads,
-        int(mid.micro_step), int(mid.opt_step), config=t_config)
+        int(mid.micro_step), int(mid.opt_step), config=t_config,
+        device="cpu")
     assert (state.micro_step, state.opt_step) == (2, 1)
     multi = ttr.make_multi_train_step(t_config, True, 2)
     stacked = ttr.Batch(*(None if f[0] is None else torch.cat(f)
@@ -503,6 +504,15 @@ def test_resume_from_mst_tpu_state(trajectory, model_pair):
     _, got = multi(state, stacked)
     np.testing.assert_allclose(got.numpy(), want[2:], rtol=2e-5, atol=1e-7)
     assert (state.micro_step, state.opt_step) == (4, 2)
+
+
+def test_train_state_from_flax_defaults_to_cuda_and_raises_without_it(
+        monkeypatch):
+    """Without a device, the carried-over state goes to the GPU; a host
+    without one gets an error, never a state on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        weights.train_state_from_flax({}, {}, {}, 0, {}, 0, 0)
 
 
 # -------------------------------------- (i) the CLI and its resume

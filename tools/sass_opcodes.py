@@ -3,6 +3,8 @@
 
     python tools/sass_opcodes.py grid_tail --function grid_tail_kernelILi0E \\
         --span "BAR.SYNC.DEFER_BLOCKING 0x1" MUFU.EX2
+    python tools/sass_opcodes.py grid_tail_bwd \\
+        --function grid_tail_bwd_kernelILi0E --loops
 
 Builds ``mst_torch/csrc/<name>.cu`` as the port builds it
 (``mst_torch.ops.cuda_build``), disassembles the library with
@@ -11,7 +13,11 @@ contains ``--function``, its instruction count by opcode. Each ``--span
 START STOP`` also counts the instructions from the first one that contains
 START to the first one after it that contains STOP (STOP excluded): for
 K2's FULL instance, the span above is the consumers' 30-term loop, and
-``--span MUFU.EX2 "BAR.SYNC.DEFER_BLOCKING 0x1"`` its epilogue. Needs the
+``--span MUFU.EX2 "BAR.SYNC.DEFER_BLOCKING 0x1"`` its epilogue. ``--loops``
+counts the body of every loop (from a backward branch's target to the
+branch), shortest first: for K3's FULL instance, the loop that holds the
+FFMAs is the pass over octaves, two octaves of 7 (o, d) terms a trip (the
+shorter ones are barrier waits). Needs the
 CUDA toolkit (``nvcc``, ``cuobjdump``): run it on the machine with the card.
 """
 
@@ -27,11 +33,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mst_torch.ops import cuda_build  # noqa: E402
 
-INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+INSTRUCTION = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+BRANCH = re.compile(r"\bBRA(?:\.\w+)*\s+`?\(?0x([0-9a-f]+)")
 
 
 def functions(sass: str):
-    """{mangled name: [instruction text, ...]} of a cuobjdump listing."""
+    """{mangled name: [(address, instruction text), ...]} of a cuobjdump
+    listing."""
     out, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -40,8 +48,22 @@ def functions(sass: str):
         elif name is not None:
             m = INSTRUCTION.match(line)
             if m:
-                out[name].append(m.group(1))
+                out[name].append((int(m.group(1), 16), m.group(2)))
     return out
+
+
+def loops(instructions):
+    """The body of each loop of an [(address, text), ...] listing, from a
+    backward branch's target to the branch itself, shortest first (a
+    branch to itself, the idle loop after EXIT, is none)."""
+    bodies = []
+    for address, text in instructions:
+        m = BRANCH.search(text)
+        if m and int(m.group(1), 16) < address:
+            target = int(m.group(1), 16)
+            bodies.append([t for a, t in instructions
+                           if target <= a <= address])
+    return sorted(bodies, key=len)
 
 
 def opcode(text: str) -> str:
@@ -75,19 +97,25 @@ def main():
                     help="substring of the mangled function names to show")
     ap.add_argument("--span", nargs=2, action="append", default=[],
                     metavar=("START", "STOP"))
+    ap.add_argument("--loops", action="store_true",
+                    help="count the body of every loop, shortest first")
     args = ap.parse_args()
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     cuda_build.build_all([args.name])
     sass = subprocess.run([tool, "-sass", cuda_build.library_path(args.name)],
                           capture_output=True, text=True, check=True).stdout
-    for name, body in functions(sass).items():
+    for name, listing in functions(sass).items():
         if args.function not in name:
             continue
+        body = [text for _, text in listing]
         print(name)
         show("function", count(body))
         for start, stop in args.span:
             show(f"from {start!r} to {stop!r}",
                  count(span(body, start, stop)))
+        if args.loops:
+            for i, loop in enumerate(loops(listing)):
+                show(f"loop {i}", count(loop))
     return 0
 
 
