@@ -63,8 +63,24 @@ Phases (any failure exits non-zero):
    step on the CPU (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), and a save
    after step 4 and a resume must reproduce step 5's losses
    (``RESUME_RTOL``).
+8. The bf16 precision policies (mst_torch.ops.precision): the bf16 forms
+   of K1 (a bf16 raster), K2 and K3 (bf16 storage) against their plain
+   versions, at the shapes and on the cases of phases 2, 3 and 6 (K1
+   bit-equal; K2 bit-equal; K3's row cotangents bit-equal, ct_w within
+   ``K3_W_RTOL``, two runs bit-equal), none synchronising, each timed
+   beside its bound at bf16 widths (run inside phases 2, 3 and 6). A
+   12-job request with ``extract_storage_dtype="bfloat16"`` must launch
+   K1's bf16 form twice, and its files parse; the share of note events
+   that differ from the fp32 request is printed. Then the training run of
+   phase 7 again with ``ModelConfig(storage_dtype="bfloat16",
+   compute_dtype="bfloat16")``: the bf16 forms of K1, K2 and K3 must each
+   launch and no fp32 tail kernel may; every loss finite; the first step
+   against the CPU's within ``TRAIN_BF16_LOSS_TOL`` and
+   ``TRAIN_BF16_GRAD_TOL``; ms per step, device-busy share and peak memory
+   beside the fp32 run's.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``, one entry per kernel
+form; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside this file, it exits non-zero and prints no
 result.
@@ -98,6 +114,15 @@ TRAIN_GRAD_TOL = 1e-4     # per leaf, relative to the leaf's largest |grad|
 # step 5 after a resume runs the same forward on the same parameters
 # (measured bit-equal); the tolerance allows another cuDNN algorithm
 RESUME_RTOL = 1e-6
+# the first bf16-storage, bf16-compute step on the card against the CPU:
+# both round at the same points, but the card's bf16 GEMMs and convolution
+# sum in other orders than the CPU's fp32 products of bf16 values, and a
+# sum that lands on the other side of a bf16 rounding boundary moves by
+# 2**-8 relative and carries that downstream. Losses: |diff| <= rtol |cpu|
+# + atol (the atol covers components near 0); gradients per leaf, relative
+# to the leaf's largest |grad|.
+TRAIN_BF16_LOSS_TOL = (1e-2, 1e-3)
+TRAIN_BF16_GRAD_TOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -132,20 +157,27 @@ def device_busy_us(events):
                and not getattr(e, "is_user_annotation", False))
 
 
-def reset_launches():
-    """Every kernel's launch count to 0."""
+def _counters():
+    """(name in the kernels line, wrapper, counter attribute) of every
+    kernel form."""
     from mst_torch.ops import grid_kernel, raster_kernel
-    raster_kernel.rasterize.launches = 0
-    grid_kernel.grid_tail.launches = 0
-    grid_kernel.grid_tail_bwd.launches = 0
+    wrappers = (("raster", raster_kernel.rasterize),
+                ("grid_tail", grid_kernel.grid_tail),
+                ("grid_tail_bwd", grid_kernel.grid_tail_bwd))
+    return [(name + suffix, fn, attr) for name, fn in wrappers
+            for suffix, attr in (("", "launches"),
+                                 ("_bf16", "launches_bf16"))]
+
+
+def reset_launches():
+    """Every kernel form's launch count to 0."""
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    """Every kernel's launch count, by the name in the kernels line."""
-    from mst_torch.ops import grid_kernel, raster_kernel
-    return {"raster": raster_kernel.rasterize.launches,
-            "grid_tail": grid_kernel.grid_tail.launches,
-            "grid_tail_bwd": grid_kernel.grid_tail_bwd.launches}
+    """Every kernel form's launch count, by the name in the kernels line."""
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
 
 
 def bound_ms(n_bytes, n_ops):
@@ -169,6 +201,15 @@ def phase_setup(torch):
     strict_fp32()
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    # the bf16 compute policy's products: bf16 operands, an fp32 result
+    a = torch.ones(8, 16, dtype=torch.bfloat16, device="cuda")
+    for name, product, args in (("mm", torch.mm, (a, a.t())),
+                                ("bmm", torch.bmm, (a[None], a.t()[None]))):
+        out = product(*args, out_dtype=torch.float32)
+        if out.dtype != torch.float32 or out.flatten()[0].item() != 16.0:
+            raise AssertionError(f"torch.{name}(out_dtype=float32) gave "
+                                 f"{out.dtype}")
+    log("torch.mm and torch.bmm take out_dtype=float32 for bf16 operands")
     log("midi codec: " + ("native (native/libmidicodec.so)"
                           if native._load() is not None else "pure Python"))
     t0 = time.perf_counter()
@@ -179,9 +220,13 @@ def phase_setup(torch):
         function = name
         for line in out.splitlines():
             if "Function properties for" in line:
-                # a kernel template's instance: its mode (FULL is 0)
-                m = re.search(r"ILi(\d+)E", line)
-                function = f"mode {m.group(1)}" if m else "kernel"
+                # a kernel template's instance: its mode (FULL is 0) and
+                # form (Lb1 and t: bf16)
+                m = re.search(r"ILi(\d+)ELb(\d)E", line)
+                form = ("bf16" if re.search(r"Lb1E|IjE|ItE", line)
+                        else "fp32")
+                function = (f"mode {m.group(1)} {form}" if m
+                            else f"kernel {form}")
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {function}: {line.strip()}")
 
@@ -198,10 +243,12 @@ def smoke_paths():
 
 
 def raster_bits_equal(torch, got, want):
-    """NaN where ``want`` has NaN, equal bits everywhere else."""
+    """NaN where ``want`` has NaN, equal bits everywhere else (fp32 or
+    bf16 rasters)."""
     nan = torch.isnan(want)
+    ints = torch.int32 if want.dtype == torch.float32 else torch.int16
     return bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
-        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+        got.view(ints)[~nan], want.view(ints)[~nan]))
 
 
 def edge_records(torch, n, n_rows, n_notes):
@@ -237,7 +284,9 @@ def assert_no_sync(torch, label, fn):
 
 def phase_k1(torch, bundle, songs):
     """K1 vs plain at the extraction shape, a collision-heavy case and an
-    edge-value case; no host sync; K1 against the zero-fill alone."""
+    edge-value case, in both forms (fp32 and bf16 rasters); no host sync;
+    K1 against the zero-fill alone. Returns the kernels-line entries of
+    the two forms."""
     from mst_torch.ops import raster_kernel as rk
     from mst_torch.transfer import _extract_inputs
 
@@ -257,81 +306,102 @@ def phase_k1(torch, bundle, songs):
     cases.append(("collisions", tuple(t.cuda() for t in rand), n_rows, 56, 5))
     edge = tuple(t.cuda() for t in edge_records(torch, 1 << 16, 1024, 56))
     cases.append(("edge values", edge, 1024, 56, 5))
-    max_err = 0.0
-    for name, notes, rows, n_notes, n_feat in cases:
-        got = rk.rasterize(*notes, rows, n_notes, n_feat)
-        want = rk.segment_rasterize_plain(*notes, rows, n_notes, n_feat)
-        torch.cuda.synchronize()
-        if not raster_bits_equal(torch, got, want):
-            raise AssertionError(f"K1 {name}: not bit-equal")
-        finite = torch.isfinite(want)
-        err = (got[finite] - want[finite]).abs().max().item()
-        max_err = max(max_err, err)
-        if err > K1_TOL:
-            raise AssertionError(f"K1 {name}: max |err| {err}")
-        log(f"K1 {name}: rows {rows} x {n_notes * n_feat} lanes, "
-            f"{notes[0].shape[0]} notes: bit-equal"
-            + (f" ({int(torch.isnan(want).sum())} NaN cells, NaN in both)"
-               if name == "edge values" else ""))
+    entries = []
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        label = "K1" + (" bf16" if suffix else "")
+        max_err = 0.0
+        for name, notes, rows, n_notes, n_feat in cases:
+            got = rk.rasterize(*notes, rows, n_notes, n_feat, dtype)
+            want = rk.segment_rasterize_plain(*notes, rows, n_notes, n_feat,
+                                              dtype)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or not raster_bits_equal(torch, got, want):
+                raise AssertionError(f"{label} {name}: not bit-equal")
+            finite = torch.isfinite(want)
+            err = (got[finite].float() - want[finite].float()).abs().max()
+            err = err.item()
+            max_err = max(max_err, err)
+            if err > K1_TOL:
+                raise AssertionError(f"{label} {name}: max |err| {err}")
+            log(f"{label} {name}: rows {rows} x {n_notes * n_feat} lanes, "
+                f"{notes[0].shape[0]} notes: bit-equal"
+                + (f" ({int(torch.isnan(want).sum())} NaN cells, NaN in "
+                   f"both)" if name == "edge values" else ""))
+            del got, want
 
-    # the main path's pitched shape
-    _, notes, rows, n_notes, n_feat = cases[0]
-    lanes = n_notes * n_feat
-    assert_no_sync(torch, "K1 rasterize at the extraction shape",
-                   lambda: rk.rasterize(*notes, rows, n_notes, n_feat))
-    ms = cuda_ms(lambda: rk.rasterize(*notes, rows, n_notes, n_feat), 50)
-    zero_ms = cuda_ms(lambda: torch.zeros(rows * lanes, device="cuda"), 50)
-    plain = cuda_ms(lambda: rk.segment_rasterize_plain(
-        *notes, rows, n_notes, n_feat), 20)
-    # the one PyTorch call: scatter_reduce_ amax of the same (index, value)
-    # pairs onto a zero base
-    row, note, acc, dur, vel, valid = notes
-    keep = valid & (row < rows)
-    r = row[keep].long() * lanes
-    l0 = note[keep].long() * n_feat
-    idx = torch.cat([r + l0, r + l0 + 1, r + l0 + 2 + acc[keep].long()])
-    val = torch.cat([dur[keep], vel[keep], torch.ones_like(dur[keep])])
-    library = cuda_ms(lambda: torch.zeros(rows * lanes, device="cuda")
-                      .scatter_reduce_(0, idx, val, "amax"), 50)
-    in_bytes = sum(t.numel() * t.element_size() for t in notes)
-    b_ms, b_by = bound_ms(in_bytes + rows * lanes * 4, 3 * int(keep.sum()))
-    log(f"K1 split at {rows} x {lanes}: kernel {ms:.4f} ms, torch.zeros of "
-        f"the raster alone {zero_ms:.4f} ms, scatter_reduce_ {library:.4f} "
-        f"ms, bound {b_ms:.4f} ms")
-    return dict(name="raster", route="cuda", source="mst_torch/csrc/raster.cu",
-                replaces="mst_tpu/ops/pallas_raster.py:96",
-                max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library,
-                detail={"zero_fill_ms": zero_ms})
+        # the main path's pitched shape
+        _, notes, rows, n_notes, n_feat = cases[0]
+        lanes = n_notes * n_feat
+        assert_no_sync(torch, f"{label} rasterize at the extraction shape",
+                       lambda: rk.rasterize(*notes, rows, n_notes, n_feat,
+                                            dtype))
+        ms = cuda_ms(lambda: rk.rasterize(*notes, rows, n_notes, n_feat,
+                                          dtype), 50)
+        zero_ms = cuda_ms(lambda: torch.zeros(rows * lanes, dtype=dtype,
+                                              device="cuda"), 50)
+        plain = cuda_ms(lambda: rk.segment_rasterize_plain(
+            *notes, rows, n_notes, n_feat, dtype), 20)
+        # the one PyTorch call: scatter_reduce_ amax of the same (index,
+        # value) pairs onto a zero base of the raster's dtype
+        row, note, acc, dur, vel, valid = notes
+        keep = valid & (row < rows)
+        r = row[keep].long() * lanes
+        l0 = note[keep].long() * n_feat
+        idx = torch.cat([r + l0, r + l0 + 1, r + l0 + 2 + acc[keep].long()])
+        val = torch.cat([dur[keep], vel[keep],
+                         torch.ones_like(dur[keep])]).to(dtype)
+        library = cuda_ms(lambda: torch.zeros(rows * lanes, dtype=dtype,
+                                              device="cuda")
+                          .scatter_reduce_(0, idx, val, "amax"), 50)
+        in_bytes = sum(t.numel() * t.element_size() for t in notes)
+        out_bytes = rows * lanes * torch.finfo(dtype).bits // 8
+        b_ms, b_by = bound_ms(in_bytes + out_bytes, 3 * int(keep.sum()))
+        log(f"{label} split at {rows} x {lanes}: kernel {ms:.4f} ms, "
+            f"torch.zeros of the raster alone {zero_ms:.4f} ms, "
+            f"scatter_reduce_ {library:.4f} ms, bound {b_ms:.4f} ms")
+        entries.append(dict(
+            name="raster" + suffix, route="cuda",
+            source="mst_torch/csrc/raster.cu",
+            replaces="mst_tpu/ops/pallas_raster.py:96", max_abs_err=max_err,
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library, detail={"zero_fill_ms": zero_ms}))
+    return entries
 
 
-def tail_inputs(torch, lead, seed, full_rest=False):
-    """Random tail inputs at lead shape ``lead`` on the card."""
+def tail_inputs(torch, lead, seed, full_rest=False, bf16=False):
+    """Random tail inputs at lead shape ``lead`` on the card; with
+    ``bf16`` xo and xd are bf16 (the bf16 form's inputs)."""
     g = torch.Generator().manual_seed(seed)
     rest_lead = lead if full_rest else (lead[0], 1) + tuple(lead[2:])
-    return (torch.randn(*lead, 8, 30, generator=g).cuda(),
-            torch.randn(*lead, 7, 30, generator=g).cuda(),
+    store = torch.bfloat16 if bf16 else torch.float32
+    return (torch.randn(*lead, 8, 30, generator=g).cuda().to(store),
+            torch.randn(*lead, 7, 30, generator=g).cuda().to(store),
             (torch.randn(30, 5, generator=g) * 0.3).cuda(),
             torch.randn(*rest_lead, 56, 5, generator=g).cuda())
 
 
-def tail_bound_ms(n, rest_rows):
+def tail_bound_ms(n, rest_rows, bf16=False):
     """K2's bound for n rows and rest_rows rest rows: xo, xd, w and rest
-    read once, out written once; per (row, o, d) 30 x (add, leaky, 5
-    multiplies, 5 adds) + 5 x (add, exp, add, divide, scale)."""
-    n_bytes = 4 * (n * (240 + 210 + 280) + 150 + rest_rows * 280)
+    read once, out written once (xo, xd and out at 2 bytes in the bf16
+    form); per (row, o, d) 30 x (add, leaky, 5 multiplies, 5 adds) + 5 x
+    (add, exp, add, divide, scale)."""
+    e = 2 if bf16 else 4
+    n_bytes = e * n * (240 + 210 + 280) + 4 * (150 + rest_rows * 280)
     return bound_ms(n_bytes, n * 56 * (30 * 12 + 5 * 5))
 
 
-def tail_launch_info():
+def tail_launch_info(bf16=False):
     """K2's (dynamic shared memory bytes, threads per block, resident
-    blocks per SM) on this card."""
+    blocks per SM) on this card, in one form."""
     import ctypes
 
     from mst_torch.ops import cuda_build
 
     info = (ctypes.c_int * 3)()
-    rc = cuda_build.load("grid_tail").mst_grid_tail_info(info)
+    fn = cuda_build.load("grid_tail").mst_grid_tail_info
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rc = fn(int(bf16), info)
     if rc != 0:
         raise RuntimeError(f"K2 launch info: CUDA error {rc}")
     return tuple(info)
@@ -339,22 +409,24 @@ def tail_launch_info():
 
 def tail_variant_ms(torch, xo, xd, w, rest, lead):
     """K2's time in its two measuring modes (csrc/grid_tail.cu, ``Mode``):
-    the same launch moving its bytes only, and computing only."""
+    the same launch moving its bytes only, and computing only, in the form
+    of xo's dtype."""
     import ctypes
 
     from mst_torch.ops import cuda_build, grid_kernel as gk
 
     fn = cuda_build.load("grid_tail").mst_grid_tail_variant
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int64] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rep, inner = gk._rest_layout(lead, rest.shape)
-    out = torch.empty(*lead, 56, 5, device="cuda")
+    out = torch.empty(*lead, 56, 5, dtype=xo.dtype, device="cuda")
+    bf16 = int(xo.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
     for mode, name in ((1, "copy_only_ms"), (2, "compute_only_ms")):
         def run():
-            rc = fn(mode, xo.data_ptr(), xd.data_ptr(), w.data_ptr(),
+            rc = fn(mode, bf16, xo.data_ptr(), xd.data_ptr(), w.data_ptr(),
                     rest.data_ptr(), out.data_ptr(), xo.numel() // 240, rep,
                     inner, stream)
             if rc != 0:
@@ -365,62 +437,77 @@ def tail_variant_ms(torch, xo, xd, w, rest, lead):
 
 def phase_k2(torch):
     """K2 vs plain at the apply shape of 12 jobs in both rest layouts and
-    at ragged row counts; no host sync; K2's time there and at the batch-6
-    training shape."""
+    at ragged row counts, in both forms (the bf16 form at the apply shape
+    with rest per song); no host sync; K2's time there and at the batch-6
+    training shape. Returns the entries of the two forms."""
     from mst_torch.ops import grid_kernel as gk
 
     scale = (6.0, 1.0, 1.0, 1.0, 1.0)
     L = (12, 8, 128, 4, 10)
-    smem, threads, per_sm = tail_launch_info()
-    log(f"K2 launch: {threads} threads a block, {smem} B of dynamic shared "
-        f"memory, {per_sm} blocks per SM")
-    max_err = 0.0
-    # (label, lead, full rest): the 12-job apply shape, then 63 rows (a
-    # ragged last tile; rest blocks of 21 rows cross tiles) and 30 rows
-    # (rest blocks of 5 rows, shorter than a tile)
-    for label, lead, full in (("12 jobs", L, False), ("12 jobs", L, True),
-                              ("63 rows", (1, 3, 7, 3, 1), False),
-                              ("63 rows", (1, 3, 7, 3, 1), True),
-                              ("30 rows", (2, 3, 1, 1, 5), False)):
-        xo, xd, w, rest = tail_inputs(torch, lead, 2, full)
-        got = gk.grid_tail(xo, xd, w, rest, scale)
-        want = gk.grid_tail_plain(xo, xd, w, rest, scale)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        n_diff = int((got != want).sum())
-        max_err = max(max_err, err)
-        if not err <= K2_ATOL:
-            raise AssertionError(f"K2 {label}: max |err| {err} > {K2_ATOL}")
-        log(f"K2 {label} ({xo.numel() // 240} rows, "
-            f"{'full' if full else 'per-song'} rest): max |err| {err} "
-            f"(tolerance {K2_ATOL}), {n_diff} of {got.numel()} values differ")
-        del got, want
+    entries = []
+    for bf16 in (False, True):
+        label = "K2 bf16" if bf16 else "K2"
+        smem, threads, per_sm = tail_launch_info(bf16)
+        log(f"{label} launch: {threads} threads a block, {smem} B of "
+            f"dynamic shared memory, {per_sm} blocks per SM")
+        max_err = 0.0
+        # (label, lead, full rest): the 12-job apply shape, then 63 rows (a
+        # ragged last tile; rest blocks of 21 rows cross tiles) and 30 rows
+        # (rest blocks of 5 rows, shorter than a tile)
+        shapes = [("12 jobs", L, False), ("12 jobs", L, True),
+                  ("63 rows", (1, 3, 7, 3, 1), False),
+                  ("63 rows", (1, 3, 7, 3, 1), True),
+                  ("30 rows", (2, 3, 1, 1, 5), False)]
+        for case, lead, full in shapes:
+            if bf16 and full and case == "12 jobs":
+                continue
+            xo, xd, w, rest = tail_inputs(torch, lead, 2, full, bf16)
+            got = gk.grid_tail(xo, xd, w, rest, scale)
+            want = gk.grid_tail_plain(xo, xd, w, rest, scale)
+            torch.cuda.synchronize()
+            if got.dtype != xo.dtype:
+                raise AssertionError(f"{label} {case}: output {got.dtype}")
+            err = (got.float() - want.float()).abs().max().item()
+            n_diff = int((got != want).sum())
+            max_err = max(max_err, err)
+            if not err <= K2_ATOL:
+                raise AssertionError(f"{label} {case}: max |err| {err} > "
+                                     f"{K2_ATOL}")
+            log(f"{label} {case} ({xo.numel() // 240} rows, "
+                f"{'full' if full else 'per-song'} rest): max |err| {err} "
+                f"(tolerance {K2_ATOL}), {n_diff} of {got.numel()} values "
+                f"differ")
+            del got, want
 
-    xo, xd, w, rest = tail_inputs(torch, L, 2)
-    n = xo.numel() // 240
-    assert_no_sync(torch, f"K2 grid_tail_fwd at {n} rows",
-                   lambda: gk.grid_tail_fwd(xo, xd, w, rest, scale))
-    ms = cuda_ms(lambda: gk.grid_tail(xo, xd, w, rest, scale), 50)
-    plain = cuda_ms(lambda: gk.grid_tail_plain(xo, xd, w, rest, scale), 3,
-                    warmup=1)
-    b_ms, b_by = tail_bound_ms(n, rest.numel() // 280)
-    # the batch-6 training step's shape (6 songs x 4 channels x 128 bars)
-    args = tail_inputs(torch, (6, 4, 128, 4, 10), 5)
-    rows = args[0].numel() // 240
-    b6_ms = cuda_ms(lambda: gk.grid_tail(*args, scale), 50)
-    b6_bound, _ = tail_bound_ms(rows, args[3].numel() // 280)
-    log(f"K2 at {n} rows: {ms:.4f} ms (bound {b_ms:.4f} ms); at the "
-        f"batch-6 step's {rows} rows: {b6_ms:.4f} ms (bound "
-        f"{b6_bound:.4f} ms)")
-    detail = {f"ms_{rows}_rows": b6_ms, f"bound_ms_{rows}_rows": b6_bound}
-    detail.update(tail_variant_ms(torch, xo, xd, w, rest, L))
-    log(f"K2 split at {n} rows: copy only {detail['copy_only_ms']:.4f} ms, "
-        f"compute only {detail['compute_only_ms']:.4f} ms, both {ms:.4f} ms")
-    return dict(name="grid_tail", route="cuda",
-                source="mst_torch/csrc/grid_tail.cu",
-                replaces="mst_tpu/ops/pallas_grid.py:217", max_abs_err=max_err,
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, detail=detail)
+        xo, xd, w, rest = tail_inputs(torch, L, 2, bf16=bf16)
+        n = xo.numel() // 240
+        assert_no_sync(torch, f"{label} grid_tail_fwd at {n} rows",
+                       lambda: gk.grid_tail_fwd(xo, xd, w, rest, scale))
+        ms = cuda_ms(lambda: gk.grid_tail(xo, xd, w, rest, scale), 50)
+        plain = cuda_ms(lambda: gk.grid_tail_plain(xo, xd, w, rest, scale),
+                        3, warmup=1)
+        b_ms, b_by = tail_bound_ms(n, rest.numel() // 280, bf16)
+        # the batch-6 training step's shape (6 songs x 4 channels x 128 bars)
+        args = tail_inputs(torch, (6, 4, 128, 4, 10), 5, bf16=bf16)
+        rows = args[0].numel() // 240
+        b6_ms = cuda_ms(lambda: gk.grid_tail(*args, scale), 50)
+        b6_bound, _ = tail_bound_ms(rows, args[3].numel() // 280, bf16)
+        log(f"{label} at {n} rows: {ms:.4f} ms (bound {b_ms:.4f} ms); at "
+            f"the batch-6 step's {rows} rows: {b6_ms:.4f} ms (bound "
+            f"{b6_bound:.4f} ms)")
+        detail = {f"ms_{rows}_rows": b6_ms, f"bound_ms_{rows}_rows": b6_bound}
+        detail.update(tail_variant_ms(torch, xo, xd, w, rest, L))
+        log(f"{label} split at {n} rows: copy only "
+            f"{detail['copy_only_ms']:.4f} ms, compute only "
+            f"{detail['compute_only_ms']:.4f} ms, both {ms:.4f} ms")
+        entries.append(dict(
+            name="grid_tail_bf16" if bf16 else "grid_tail", route="cuda",
+            source="mst_torch/csrc/grid_tail.cu",
+            replaces="mst_tpu/ops/pallas_grid.py:217", max_abs_err=max_err,
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, detail=detail))
+        del xo, xd, w, rest, args
+    return entries
 
 
 def cuda_ms_cold(fn, iters, warmup=3, flush_bytes=256 << 20):
@@ -450,51 +537,56 @@ def cuda_ms_cold(fn, iters, warmup=3, flush_bytes=256 << 20):
 K3_SCALE = (6.0, 1.0, 1.0, 1.0, 1.0)
 
 
-def k3_case(torch, lead, seed):
+def k3_case(torch, lead, seed, bf16=False):
     """K3's inputs at lead shape ``lead`` on the card: the tail's inputs,
-    its output by K2 and a random cotangent."""
+    its output by K2 and a random cotangent, in one form."""
     from mst_torch.ops import grid_kernel as gk
-    xo, xd, w, rest = tail_inputs(torch, lead, seed)
+    xo, xd, w, rest = tail_inputs(torch, lead, seed, bf16=bf16)
     out = gk.grid_tail_fwd(xo, xd, w, rest, K3_SCALE)
     g = torch.Generator().manual_seed(seed + 1)
-    ct = torch.randn(*lead, 56, 5, generator=g).cuda()
+    ct = torch.randn(*lead, 56, 5, generator=g).cuda().to(xo.dtype)
     return xo, xd, out, ct, w, rest
 
 
-def k3_bound_ms(n):
+def k3_bound_ms(n, bf16=False):
     """K3's bound for n rows. Bytes: xo, xd, out and ct read once, ct_xo,
-    ct_xd and ct_y written once (w, the scales and the ct_w partials are
-    small). Operations per (row, o, d): ct_y (5 x: multiply, subtract, 3
-    multiplies) and per k: gp (1), ct_G (5 multiplies, 4 adds), dLR (1),
-    the two sums (2), LR(gp) (1), ct_w (5 multiplies, 5 adds) = 24."""
-    n_bytes = 4 * n * (240 + 210 + 280 + 280 + 240 + 210 + 280)
+    ct_xd and ct_y written once (all but ct_y at 2 bytes in the bf16 form;
+    w, the scales and the ct_w partials are small). Operations per (row,
+    o, d): ct_y (5 x: multiply, subtract, 3 multiplies) and per k: gp (1),
+    ct_G (5 multiplies, 4 adds), dLR (1), the two sums (2), LR(gp) (1),
+    ct_w (5 multiplies, 5 adds) = 24."""
+    e = 2 if bf16 else 4
+    n_bytes = n * (e * (240 + 210 + 280 + 280 + 240 + 210) + 4 * 280)
     return bound_ms(n_bytes, n * 56 * (5 * 5 + 30 * 24))
 
 
 def k3_kernel_ms(torch, case, modes):
     """K3's kernel alone (no ct_w sum), by its C entry, in each of
     ``modes`` (csrc/grid_tail_bwd.cu, ``Mode``: 0 full, 1 copy only, 2
-    compute only), with unit scales: {mode: ms}."""
+    compute only), with unit scales, in the form of xo's dtype: {mode:
+    ms}."""
     import ctypes
 
     from mst_torch.ops import cuda_build, grid_kernel as gk
 
     fn = cuda_build.load("grid_tail_bwd").mst_grid_tail_bwd_variant
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     xo, xd, out, ct, w = case[:5]
     n = xo.numel() // 240
-    _, _, per_sm, rows = gk._bwd_entry()[1]
+    _, _, per_sm, rows = gk._bwd_entry()[1][xo.dtype]
     blocks = gk.bwd_grid(n, per_sm, torch.cuda.get_device_properties(
         0).multi_processor_count, rows)
-    outs = [torch.empty_like(t) for t in (xo, xd, ct)]
+    outs = [torch.empty_like(xo), torch.empty_like(xd),
+            torch.empty(ct.shape, device="cuda")]
     parts = torch.empty(blocks, 30, 5, device="cuda")
+    bf16 = int(xo.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
     for mode in modes:
         def run():
-            rc = fn(mode, *(t.data_ptr() for t in (xo, xd, out, ct, w)),
+            rc = fn(mode, bf16, *(t.data_ptr() for t in (xo, xd, out, ct, w)),
                     *(t.data_ptr() for t in outs), parts.data_ptr(), n,
                     blocks, stream)
             if rc != 0:
@@ -505,113 +597,130 @@ def k3_kernel_ms(torch, case, modes):
 
 def phase_k3(torch, L=(8, 8, 128, 4, 10)):
     """K3 vs plain at the 327,680-row budget shape ``L`` and at ragged row
-    counts, determinism, no host sync, GridTail's gradients against
-    autograd of the plain forward; K3's time there, in its measuring modes
-    and at the training step's shapes."""
+    counts, in both forms; determinism, no host sync, GridTail's gradients
+    against autograd of the plain forward (fp32 form); K3's time there, in
+    its measuring modes and at the training step's shapes. Returns the
+    entries of the two forms."""
     from mst_torch.ops import grid_kernel as gk
 
     scale = K3_SCALE
-    smem, threads, per_sm, rows_per_tile = gk._bwd_entry()[1]
-    log(f"K3 launch: {threads} threads a block, {smem} B of dynamic shared "
-        f"memory, {per_sm} blocks per SM, {rows_per_tile} rows a tile")
-    max_err = 0.0
-    # the budget shape, 63 rows (7 whole tiles and a ragged one of 7 rows)
-    # and 30 rows (3 whole tiles and one of 6)
-    for label, lead in (("budget", L), ("63 rows", (1, 3, 7, 3, 1)),
-                        ("30 rows", (2, 3, 1, 1, 5))):
-        xo, xd, out, ct, w, _ = k3_case(torch, lead, 3)
-        got = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
-        again = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
-        want = gk.grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
-        torch.cuda.synchronize()
-        n = xo.numel() // 240
-        for name, a, b, c in zip(("ct_xo", "ct_xd", "ct_y", "ct_w"), got,
-                                 again, want):
+    entries = []
+    for bf16 in (False, True):
+        label = "K3 bf16" if bf16 else "K3"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        smem, threads, per_sm, rows_per_tile = gk._bwd_entry()[1][dtype]
+        log(f"{label} launch: {threads} threads a block, {smem} B of "
+            f"dynamic shared memory, {per_sm} blocks per SM, "
+            f"{rows_per_tile} rows a tile")
+        max_err = 0.0
+        # the budget shape, 63 rows (7 whole tiles and a ragged one of 7
+        # rows) and 30 rows (3 whole tiles and one of 6)
+        for case, lead in (("budget", L), ("63 rows", (1, 3, 7, 3, 1)),
+                           ("30 rows", (2, 3, 1, 1, 5))):
+            xo, xd, out, ct, w, _ = k3_case(torch, lead, 3, bf16)
+            got = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
+            again = gk.grid_tail_bwd(xo, xd, out, ct, w, scale)
+            want = gk.grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
+            torch.cuda.synchronize()
+            n = xo.numel() // 240
+            for name, a, b, c in zip(("ct_xo", "ct_xd", "ct_y", "ct_w"), got,
+                                     again, want):
+                if a.dtype != c.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"{label} {case} {name}: two runs "
+                                         f"differ or dtype {a.dtype}")
+                err = (a.float() - c.float()).abs().max().item()
+                largest = c.abs().max().item()
+                tol = (K3_W_RTOL if name == "ct_w" else K3_RTOL) * largest
+                if not err <= tol:
+                    raise AssertionError(f"{label} {case} {name}: max |err| "
+                                         f"{err} > {tol}")
+                max_err = max(max_err, err)
+                log(f"{label} {case} ({n} rows) {name} ({a.dtype}): max "
+                    f"|err| {err} (largest |value| {largest:.6g}, tolerance "
+                    f"{tol:.3g}), {int((a != c).sum())} of {a.numel()} "
+                    f"values differ; two runs bit-equal")
+            del got, again, want
+
+        # an input view off a 16-byte boundary: the wrapper copies it
+        xo, xd, out, ct, w, _ = k3_case(torch, (1, 3, 7, 3, 1), 4, bf16)
+        shifted = torch.empty(xo.numel() + 1, dtype=dtype,
+                              device="cuda")[1:].view_as(xo)
+        shifted.copy_(xo)
+        for a, b in zip(gk.grid_tail_bwd(shifted, xd, out, ct, w, scale),
+                        gk.grid_tail_bwd(xo, xd, out, ct, w, scale)):
             if not torch.equal(a, b):
-                raise AssertionError(f"K3 {label} {name}: two runs differ")
-            err = (a - c).abs().max().item()
-            largest = c.abs().max().item()
-            tol = (K3_W_RTOL if name == "ct_w" else K3_RTOL) * largest
-            if not err <= tol:
-                raise AssertionError(f"K3 {label} {name}: max |err| {err} > "
-                                     f"{tol}")
-            max_err = max(max_err, err)
-            log(f"K3 {label} ({n} rows) {name}: max |err| {err} (largest "
-                f"|value| {largest:.6g}, tolerance {tol:.3g}), "
-                f"{int((a != c).sum())} of {a.numel()} values differ; two "
-                f"runs bit-equal")
-        del got, again, want
+                raise AssertionError(f"{label} on a misaligned view differs")
+        log(f"{label} on an xo view at {shifted.data_ptr() % 16} bytes past "
+            f"a 16-byte boundary: bit-equal to the aligned call")
 
-    # an input view 4 bytes past a 16-byte boundary: the wrapper copies it
-    xo, xd, out, ct, w, _ = k3_case(torch, (1, 3, 7, 3, 1), 4)
-    shifted = torch.empty(xo.numel() + 1, device="cuda")[1:].view_as(xo)
-    shifted.copy_(xo)
-    for a, b in zip(gk.grid_tail_bwd(shifted, xd, out, ct, w, scale),
-                    gk.grid_tail_bwd(xo, xd, out, ct, w, scale)):
-        if not torch.equal(a, b):
-            raise AssertionError("K3 on a misaligned view differs")
-    log(f"K3 on an xo view at {shifted.data_ptr() % 16} bytes past a "
-        f"16-byte boundary: bit-equal to the aligned call")
+        xo, xd, out, ct, w, rest = k3_case(torch, L, 3, bf16)
+        n = xo.numel() // 240
+        assert_no_sync(torch, f"{label} grid_tail_bwd at {n} rows",
+                       lambda: gk.grid_tail_bwd(xo, xd, out, ct, w, scale))
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (xo, xd, w, rest)]
+        y = gk.grid_tail(*leaves, scale)
+        assert_no_sync(torch, f"GridTail backward ({label}) at {n} rows",
+                       lambda: torch.autograd.grad(y, leaves, ct))
+        del leaves, y
 
-    xo, xd, out, ct, w, rest = k3_case(torch, L, 3)
-    n = xo.numel() // 240
-    assert_no_sync(torch, f"K3 grid_tail_bwd at {n} rows",
-                   lambda: gk.grid_tail_bwd(xo, xd, out, ct, w, scale))
-    leaves = [t.detach().clone().requires_grad_(True)
-              for t in (xo, xd, w, rest)]
-    y = gk.grid_tail(*leaves, scale)
-    assert_no_sync(torch, f"GridTail backward (K3) at {n} rows",
-                   lambda: torch.autograd.grad(y, leaves, ct))
-    del leaves, y
+        if not bf16:
+            # GridTail (K2 forward, K3 backward) against autograd of the
+            # plain forward, on the card, at tests/test_fused_tails.py's
+            # tolerance (the bf16 form rounds where JAX's gradient does,
+            # not where torch's autograd of its forward would)
+            g = torch.Generator().manual_seed(3)
+            small = (2, 3, 4, 4, 10)
+            args = [t.cuda().requires_grad_(True) for t in (
+                torch.randn(*small, 8, 30, generator=g),
+                torch.randn(*small, 7, 30, generator=g),
+                torch.randn(30, 5, generator=g) * 0.3,
+                torch.randn(small[0], 1, *small[2:], 56, 5, generator=g))]
+            ct_s = torch.randn(*small, 56, 5, generator=g).cuda()
+            grads = torch.autograd.grad(gk.grid_tail(*args, scale), args,
+                                        ct_s)
+            plain = torch.autograd.grad(gk.grid_tail_plain(*args, scale),
+                                        args, ct_s)
+            for name, a, b in zip(("xo", "xd", "w", "rest"), grads, plain):
+                atol = 1e-5 + 2e-6 * b.abs().max().item()
+                if not ((a - b).abs() <= atol + 1e-5 * b.abs()).all():
+                    raise AssertionError(f"GridTail d{name}: max |err| "
+                                         f"{(a - b).abs().max().item()}")
+            log("GridTail on the card: K2+K3 gradients match autograd of "
+                "grid_tail_plain (rtol 1e-5, atol 1e-5 + 2e-6 max|grad|)")
 
-    # GridTail (K2 forward, K3 backward) against autograd of the plain
-    # forward, on the card, at tests/test_fused_tails.py's tolerance
-    g = torch.Generator().manual_seed(3)
-    small = (2, 3, 4, 4, 10)
-    args = [t.cuda().requires_grad_(True) for t in (
-        torch.randn(*small, 8, 30, generator=g),
-        torch.randn(*small, 7, 30, generator=g),
-        torch.randn(30, 5, generator=g) * 0.3,
-        torch.randn(small[0], 1, *small[2:], 56, 5, generator=g))]
-    ct_s = torch.randn(*small, 56, 5, generator=g).cuda()
-    grads = torch.autograd.grad(gk.grid_tail(*args, scale), args, ct_s)
-    plain = torch.autograd.grad(gk.grid_tail_plain(*args, scale), args, ct_s)
-    for name, a, b in zip(("xo", "xd", "w", "rest"), grads, plain):
-        atol = 1e-5 + 2e-6 * b.abs().max().item()
-        if not ((a - b).abs() <= atol + 1e-5 * b.abs()).all():
-            raise AssertionError(f"GridTail d{name}: max |err| "
-                                 f"{(a - b).abs().max().item()}")
-    log("GridTail on the card: K2+K3 gradients match autograd of "
-        "grid_tail_plain (rtol 1e-5, atol 1e-5 + 2e-6 max|grad|)")
-
-    # the wrapper: K3 and the sum of its ct_w partials
-    ms = cuda_ms(lambda: gk.grid_tail_bwd(xo, xd, out, ct, w, scale), 20)
-    plain_ms = cuda_ms(lambda: gk.grid_tail_bwd_plain(xo, xd, out, ct, w,
-                                                      scale), 3, warmup=1)
-    b_ms, b_by = k3_bound_ms(n)
-    modes = k3_kernel_ms(torch, (xo, xd, out, ct, w), (0, 1, 2))
-    detail = {"kernel_only_ms": modes[0], "copy_only_ms": modes[1],
-              "compute_only_ms": modes[2]}
-    log(f"K3 at {n} rows: {ms:.4f} ms with the ct_w sum (bound {b_ms:.4f} "
-        f"ms by {b_by}); kernel alone {modes[0]:.4f} ms, copy only "
-        f"{modes[1]:.4f} ms, compute only {modes[2]:.4f} ms")
-    del xo, xd, out, ct, w, rest
-    torch.cuda.empty_cache()
-    # the training step's shapes: batch-1 with 2 and 4 channels, batch-6
-    for lead in ((1, 2, 128, 4, 10), (1, 4, 128, 4, 10), (6, 4, 128, 4, 10)):
-        case = k3_case(torch, lead, 5)
-        rows = case[0].numel() // 240
-        t = cuda_ms_cold(lambda: gk.grid_tail_bwd(*case[:5], scale), 20)
-        bound, _ = k3_bound_ms(rows)
-        detail[f"ms_{rows}_rows"] = t
-        detail[f"bound_ms_{rows}_rows"] = bound
-        log(f"K3 at {rows} rows, cold L2: {t:.4f} ms (bound {bound:.4f} ms)")
-        del case
-    return dict(name="grid_tail_bwd", route="cuda",
-                source="mst_torch/csrc/grid_tail_bwd.cu",
-                replaces="mst_tpu/ops/pallas_grid.py:234",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None, detail=detail)
+        # the wrapper: K3 and the sum of its ct_w partials
+        ms = cuda_ms(lambda: gk.grid_tail_bwd(xo, xd, out, ct, w, scale), 20)
+        plain_ms = cuda_ms(lambda: gk.grid_tail_bwd_plain(
+            xo, xd, out, ct, w, scale), 3, warmup=1)
+        b_ms, b_by = k3_bound_ms(n, bf16)
+        modes = k3_kernel_ms(torch, (xo, xd, out, ct, w), (0, 1, 2))
+        detail = {"kernel_only_ms": modes[0], "copy_only_ms": modes[1],
+                  "compute_only_ms": modes[2]}
+        log(f"{label} at {n} rows: {ms:.4f} ms with the ct_w sum (bound "
+            f"{b_ms:.4f} ms by {b_by}); kernel alone {modes[0]:.4f} ms, copy "
+            f"only {modes[1]:.4f} ms, compute only {modes[2]:.4f} ms")
+        del xo, xd, out, ct, w, rest
+        torch.cuda.empty_cache()
+        # the training step's shapes: batch-1 with 2 and 4 channels, batch-6
+        for lead in ((1, 2, 128, 4, 10), (1, 4, 128, 4, 10),
+                     (6, 4, 128, 4, 10)):
+            case = k3_case(torch, lead, 5, bf16)
+            rows = case[0].numel() // 240
+            t = cuda_ms_cold(lambda: gk.grid_tail_bwd(*case[:5], scale), 20)
+            bound, _ = k3_bound_ms(rows, bf16)
+            detail[f"ms_{rows}_rows"] = t
+            detail[f"bound_ms_{rows}_rows"] = bound
+            log(f"{label} at {rows} rows, cold L2: {t:.4f} ms (bound "
+                f"{bound:.4f} ms)")
+            del case
+        entries.append(dict(
+            name="grid_tail_bwd_bf16" if bf16 else "grid_tail_bwd",
+            route="cuda", source="mst_torch/csrc/grid_tail_bwd.cu",
+            replaces="mst_tpu/ops/pallas_grid.py:234", max_abs_err=max_err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, detail=detail))
+    return entries
 
 
 def check_outputs(written, label):
@@ -625,6 +734,32 @@ def check_outputs(written, label):
             raise AssertionError(f"{label}: styled output has no notes: "
                                  f"{path}")
     log(f"{label}: {len(written)} files parse; every styled output has notes")
+
+
+def note_on_events(path):
+    """The (time, channel, key, velocity) of every note-on of a file."""
+    from mst_torch.io import smf
+    with open(path, "rb") as fh:
+        data = smf.parse_midi_bytes(fh.read())
+    events = []
+    for track in data.tracks:
+        t = track.delta.cumsum()
+        on = track.type == smf.EV_NOTE_ON
+        events += zip(t[on].tolist(), track.channel[on].tolist(),
+                      track.a[on].tolist(), track.b[on].tolist())
+    return events
+
+
+def differing_share(paths_a, paths_b):
+    """(note-on events of a pair of file sets that have no exact match in
+    the other set, all of their note-on events)."""
+    from collections import Counter
+    differ = total = 0
+    for a, b in zip(paths_a, paths_b):
+        ea, eb = Counter(note_on_events(a)), Counter(note_on_events(b))
+        differ += sum(((ea - eb) + (eb - ea)).values())
+        total += sum(ea.values()) + sum(eb.values())
+    return differ, total
 
 
 def phase_main(torch, bundle, comps, styles, tmp):
@@ -686,7 +821,37 @@ def phase_main(torch, bundle, comps, styles, tmp):
         log(f"GPU vs CPU {os.path.basename(a)}: "
             + ("byte-equal" if equal else
                f"{len(borderline)} fp32-boundary note events"))
-    return launches
+
+    # the same request with bf16 extraction: K1 writes bf16 rasters, the
+    # apply stage stays at fp32 storage
+    bf16 = ModelBundle.from_npz(device="cuda",
+                                extract_storage_dtype="bfloat16")
+    transfer_styles(bf16, comps, styles, os.path.join(tmp, "bf16_warm"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    written_bf16 = transfer_styles(bf16, comps, styles,
+                                   os.path.join(tmp, "bf16"))
+    torch.cuda.synchronize()
+    wall_bf16 = time.perf_counter() - t0
+    launches_bf16 = read_launches()
+    log(f"bf16 extraction: {n_jobs} jobs in {wall_bf16:.3f} s per request "
+        f"(fp32 extraction {wall:.3f} s), launches {launches_bf16}")
+    want = {"raster_bf16": 2, "raster": 0, "grid_tail": 1,
+            "grid_tail_bf16": 0}
+    for name, count in want.items():
+        if launches_bf16[name] != count:
+            raise AssertionError(f"bf16 extraction launched {name} "
+                                 f"{launches_bf16[name]} times, want {count}")
+    check_outputs(written_bf16, "bf16 extraction")
+    styled = [(a, b) for a, b in zip(written, written_bf16)
+              if "style).mid" in a or "(reconstructed)" in a]
+    differ, total = differing_share(*zip(*styled))
+    log(f"bf16 extraction vs fp32: {differ} of {total} note-on events of the "
+        f"{len(styled)} reconstructed and styled files differ "
+        f"({differ / max(total, 1):.2%})")
+    del bf16
+    return launches, launches_bf16
 
 
 def _loss_names(has_unpitched):
@@ -706,20 +871,25 @@ def _check_losses(vec, has_unpitched, label):
         raise AssertionError(f"{label}: non-finite losses {bad}")
 
 
-def phase_train(torch, paths, tmp):
+def phase_train(torch, paths, tmp, bf16=False):
     """The training path at full width: 8 batch-1 micro-steps, then 2
-    batch-6 steps, with the launch counters at 0 first. Returns the
-    launches of the run."""
+    batch-6 steps, with the launch counters at 0 first; with ``bf16``
+    under bf16 storage and bf16 compute. Returns (the launches of the run,
+    its summary for the other run's comparison)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from mst_torch.config import Config
+    from mst_torch.config import Config, ModelConfig
     from mst_torch.runtime import train as tr
     from mst_torch.runtime.checkpoint import CheckpointManager
     from mst_torch.transfer import get_model_input
 
     tr.reproducible_backends()        # as train-model-torch.py runs
-    config = Config()
+    policy = (dict(storage_dtype="bfloat16", compute_dtype="bfloat16")
+              if bf16 else {})
+    config = Config(model=ModelConfig(**policy))
+    label = "bf16 training path" if bf16 else "training path"
     t = config.train
+    raster_dtype = config.model.storage_dtype
     songs = [get_model_input(p)[1] for p in paths]
 
     def single(song, device):
@@ -729,7 +899,8 @@ def phase_train(torch, paths, tmp):
         Rb = tr.bucket_shape(min(song.n_bars, cap), t.bar_buckets)
         return tr.device_batch_from_songs([song], Cb, Rb,
                                           bar_cap=[min(cap, Rb)],
-                                          device=device)
+                                          device=device,
+                                          raster_dtype=raster_dtype)
 
     def group(device):
         caps = [t.max_total_bars // s.n_channels for s in songs]
@@ -741,7 +912,8 @@ def phase_train(torch, paths, tmp):
                                  t.batch_cell_budget, t.bar_buckets)
         return tr.device_batch_from_songs(songs, Cb, Rb,
                                           bar_cap=[min(c, Rb) for c in caps],
-                                          device=device)
+                                          device=device,
+                                          raster_dtype=raster_dtype)
 
     plan = [("batch-1", lambda d, i=i: single(songs[i % len(songs)], d))
             for i in range(8)] + [("batch-6", group)] * 2
@@ -788,17 +960,23 @@ def phase_train(torch, paths, tmp):
     run_wall = time.perf_counter() - t_run
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # each kernel of the run's form launches; the other form's never do
     for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"training path launched no {name} kernel")
+        if name.endswith("_bf16") == bf16 and count == 0:
+            raise AssertionError(f"{label} launched no {name} kernel")
+        if name.endswith("_bf16") != bf16 and count != 0:
+            raise AssertionError(f"{label} launched {name} {count} times")
     for i, (vec, has_u) in enumerate(losses):
-        _check_losses(vec.cpu(), has_u, f"training step {i + 1}")
+        _check_losses(vec.cpu(), has_u, f"{label} step {i + 1}")
     if (state.micro_step, state.opt_step) != (10, 5):
         raise AssertionError(f"counters {state.micro_step}, "
                              f"{state.opt_step} after 10 micro-steps")
     b1 = [dt for kind, dt in times[2:] if kind == "batch-1"]
     b6 = [dt for kind, dt in times if kind == "batch-6"]
-    log(f"training path: {n_params} parameters, 10 micro-steps in "
+    summary = dict(b1_ms=sum(b1) / len(b1) * 1e3, b6_ms=[dt * 1e3
+                                                          for dt in b6],
+                   busy=busy_us / 1e3 / (prof_wall * 1e3), peak_gib=peak)
+    log(f"{label}: {n_params} parameters, 10 micro-steps in "
         f"{run_wall:.3f} s, launches {launches}, peak device memory "
         f"{peak:.2f} GiB")
     log(f"  ms per batch-1 step after 2 warm-up steps: "
@@ -817,15 +995,25 @@ def phase_train(torch, paths, tmp):
     t0 = time.perf_counter()
     cpu_state = tr.create_train_state(config, device="cpu", seed=108)
     cpu_vec, has_u = run_step(cpu_state, plan[0][1], "cpu")
-    log(f"first step on the CPU: {time.perf_counter() - t0:.3f} s")
+    log(f"{label}: first step on the CPU: {time.perf_counter() - t0:.3f} s")
     gpu_vec = losses[0][0].cpu()
     from mst_torch.ops.losses import LossDict
     pick = [LossDict._fields.index(n) for n in _loss_names(has_u)]
-    rel = ((gpu_vec[pick] - cpu_vec[pick]).abs()
-           / cpu_vec[pick].abs().clamp(min=1e-12)).max().item()
-    if not rel <= TRAIN_LOSS_RTOL:
-        raise AssertionError(f"first step GPU vs CPU losses: max relative "
-                             f"difference {rel} > {TRAIN_LOSS_RTOL}")
+    diff = (gpu_vec[pick] - cpu_vec[pick]).abs()
+    rel = (diff / cpu_vec[pick].abs().clamp(min=1e-12)).max().item()
+    if bf16:
+        rtol, atol = TRAIN_BF16_LOSS_TOL
+        ok = bool((diff <= rtol * cpu_vec[pick].abs() + atol).all())
+        loss_tol = f"rtol {rtol}, atol {atol}; max |diff| {diff.max():.3g}"
+        grad_tol = TRAIN_BF16_GRAD_TOL
+    else:
+        ok = rel <= TRAIN_LOSS_RTOL
+        loss_tol, grad_tol = f"{TRAIN_LOSS_RTOL} relative", TRAIN_GRAD_TOL
+    log(f"{label}: first step GPU vs CPU losses: max relative difference "
+        f"{rel:.3g} ({loss_tol})")
+    if not ok:
+        raise AssertionError(f"{label}: first step GPU vs CPU losses beyond "
+                             f"the tolerance")
     worst = (0.0, "")
     for name, p in cpu_state.model.named_parameters():
         want = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -833,14 +1021,14 @@ def phase_train(torch, paths, tmp):
         err = (got - want).abs().max().item() / max(
             want.abs().max().item(), 1e-30)
         worst = max(worst, (err, name))
-        if not err <= TRAIN_GRAD_TOL:
-            raise AssertionError(f"first step GPU vs CPU gradient {name}: "
-                                 f"max |err| / max |grad| {err} > "
-                                 f"{TRAIN_GRAD_TOL}")
-    log(f"first step GPU vs CPU: losses within {rel:.3g} relative "
-        f"(tolerance {TRAIN_LOSS_RTOL}); per-leaf gradients within "
-        f"{worst[0]:.3g} of each leaf's largest |grad| (worst "
-        f"{worst[1]}, tolerance {TRAIN_GRAD_TOL})")
+    log(f"{label}: first step GPU vs CPU per-leaf gradients within "
+        f"{worst[0]:.3g} of each leaf's largest |grad| (worst {worst[1]}, "
+        f"tolerance {grad_tol})")
+    if not worst[0] <= grad_tol:
+        raise AssertionError(f"{label}: first step GPU vs CPU gradient "
+                             f"{worst[1]} beyond the tolerance")
+    if bf16:
+        return launches, summary
 
     # resume from the save after step 4: step 5's losses again
     resumed = tr.create_train_state(config, device="cuda", seed=0)
@@ -855,7 +1043,7 @@ def phase_train(torch, paths, tmp):
     log(f"resume from the save after step 4: step 5 losses within {rel5:.3g} "
         f"relative ({'bit-equal' if torch.equal(vec5, want5) else 'not bit-equal'}"
         f", tolerance {RESUME_RTOL})")
-    return launches
+    return launches, summary
 
 
 def main():
@@ -881,19 +1069,28 @@ def main():
     log(f"host ingest of {len(songs)} songs: "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     bundle = ModelBundle.from_npz(device="cuda")
-    k1 = phase_k1(torch, bundle, songs)
-    k2 = phase_k2(torch)
+    kernels = phase_k1(torch, bundle, songs) + phase_k2(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        serve = phase_main(torch, bundle, comps, styles, tmp)
+        serve, serve_bf16 = phase_main(torch, bundle, comps, styles, tmp)
         del bundle
         torch.cuda.empty_cache()
-        k3 = phase_k3(torch)
+        kernels += phase_k3(torch)
         torch.cuda.empty_cache()
-        train = phase_train(torch, comps + styles, tmp)
-    kernels = [k1, k2, k3]
+        train, fp32 = phase_train(torch, comps + styles, tmp)
+        torch.cuda.empty_cache()
+        train_bf16, bf16 = phase_train(torch, comps + styles, tmp, bf16=True)
+    log(f"training, bf16 storage and compute against fp32 (one call): "
+        f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
+        f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "
+        f"{[round(v, 3) for v in fp32['b6_ms']]} ms; device busy "
+        f"{bf16['busy']:.1%} against {fp32['busy']:.1%}; peak memory "
+        f"{bf16['peak_gib']:.2f} against {fp32['peak_gib']:.2f} GiB")
     for k in kernels:
-        by_path = {"transfer request": serve[k["name"]],
-                   "10 training micro-steps": train[k["name"]]}
+        name = k["name"]
+        by_path = {"transfer request": serve[name],
+                   "transfer request, bf16 extraction": serve_bf16[name],
+                   "10 training micro-steps": train[name],
+                   "10 bf16-storage training micro-steps": train_bf16[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "

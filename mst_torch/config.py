@@ -1,6 +1,5 @@
 """Typed configuration of the representation, the model and training (the
-port's subset of mst_tpu/config.py; the mesh and precision settings are not
-ported yet, and the port computes and stores in float32).
+port's subset of mst_tpu/config.py; the mesh settings are not ported yet).
 
 The reference scatters configuration over module-level constants
 (train-model.py:33-60, style/model.py:11-28, style/midi_conversion.py:349-369,
@@ -67,6 +66,17 @@ class ModelConfig:
     min_bpm: float = 50.0
     max_bpm: float = 200.0
     mean_type: str = "quadratic"
+
+    # numeric policy (mst_torch.ops.precision; mst_tpu/config.py:69-82).
+    # Parameters, gradients and the optimizer state stay float32 under both.
+    # "bfloat16" compute: matmul and conv operands are cast to bf16, products
+    # accumulate in fp32 (the train step and every transfer stage).
+    compute_dtype: str = "float32"
+    # "bfloat16" storage: the grid-scale activations (every leaky_relu
+    # output, the applier outputs, the raster fed to the model and the
+    # losses) are stored as bf16. Training only; serving narrows at most its
+    # extraction stage (transfer.ModelBundle.extract_storage_dtype).
+    storage_dtype: str = "float32"
 
     @property
     def bpm_range(self) -> float:

@@ -70,9 +70,31 @@
 // slots are summed in ascending order into the block's (30, 5) partial.
 // The TPU kernel's transposed rows-on-lanes layout is a TPU artefact; rows
 // stay in their natural layout.
+//
+// The bf16 form (BF16 = true; the bf16 storage policy) reads xo, xd, out
+// (the bf16 output K2's bf16 form saved) and ct as bf16, and writes ct_xo
+// and ct_xd as bf16 and ct_y and the ct_w partials as fp32: JAX's dtypes
+// under autodiff of its jnp tail on bf16 inputs. It rounds where that
+// gradient's jaxpr rounds (grid_kernel.grid_tail_bwd_plain lists the
+// points): gp and LR(gp) as in the forward; ct_G, an fp32 sum over f,
+// rounds to bf16; dLR(gp) * ct_G and dLR(x) * sum are bf16 (the slope
+// bf16(0.01)); the sums over d and over o accumulate in fp32 and round
+// once. s comes from the saved bf16 output, so s * (1 - s) carries the
+// output's rounding (JAX recomputes the fp32 output; the plain version's
+// docstring says why and the CPU tests measure the cost). Per row it reads
+// 480 + 420 + 560 + 560 B and writes 480 + 420 + 1,120 B: 4,040 B, 1.32 GB
+// at 327,680 rows, a bound of 0.40 ms. The roundings add instructions to
+// a term's ~24, so the arithmetic no longer hides behind the copies: this
+// form is bound by issue, not bytes. On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py) it takes 0.99 ms at 327,680 rows, 0.93 ms computing
+// alone and 0.46 ms moving its bytes alone. Its tile keeps ct_y in a slot
+// of its own (8,960 B), so a stage is 25,120 B.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile_ring.cuh"
 
@@ -91,46 +113,97 @@ constexpr int ROWS = 8;                 // rows per tile
 constexpr int CONSUMERS = ROWS * 32;    // one warp per row
 constexpr int THREADS = CONSUMERS + 32; // + one producer warp
 constexpr int STAGES = 3;
-constexpr int XO_BYTES = ROWS * O * K * 4;   // 7,680
-constexpr int XD_BYTES = ROWS * D * K * 4;   // 6,720
-constexpr int OUT_BYTES = ROWS * OUT * 4;    // 8,960 (out, ct and ct_y)
-constexpr int STAGE_BYTES = XO_BYTES + XD_BYTES + 2 * OUT_BYTES;  // 32,320
 constexpr int CTY_PAD = 8;                   // floats per (o, d), padded
 constexpr int CTY_BYTES = ROWS * M * CTY_PAD * 4;                 // 14,336
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + CTY_BYTES + 2 * STAGES * 8;
 static_assert(ROWS * KF * 4 <= CTY_BYTES, "ct_w scratch reuses the cty copy");
+constexpr float SLOPE_BF16 = 0.010009765625f;  // bf16(0.01)
+
+// The element type of xo, xd, out, ct, ct_xo and ct_xd, by form.
+template <bool BF16>
+using Elem = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+
+// The tile's layout in one stage of the ring, by form: xo, xd, out, ct
+// and, for bf16, ct_y (the fp32 form writes ct_y over ct).
+template <bool BF16>
+struct Layout {
+  static constexpr int E = sizeof(Elem<BF16>);
+  static constexpr int XO_BYTES = ROWS * O * K * E;    // 7,680 / 3,840
+  static constexpr int XD_BYTES = ROWS * D * K * E;    // 6,720 / 3,360
+  static constexpr int OUT_BYTES = ROWS * OUT * E;     // 8,960 / 4,480
+  static constexpr int CTY_F32_BYTES = ROWS * OUT * 4; // 8,960
+  static constexpr int LOAD_BYTES = XO_BYTES + XD_BYTES + 2 * OUT_BYTES;
+  static constexpr int STAGE_BYTES =
+      LOAD_BYTES + (BF16 ? CTY_F32_BYTES : 0);         // 32,320 / 25,120
+  static constexpr int SMEM_BYTES =
+      STAGES * STAGE_BYTES + CTY_BYTES + 2 * STAGES * 8;
+  static_assert(STAGE_BYTES % 16 == 0, "stages start on 16 bytes");
+};
 
 struct Scale {
   float v[F];
 };
 
-// torch's leaky_relu: x > 0 ? x : x * 0.01
+// x rounded to bf16 in the bf16 form, x itself in the fp32 form
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float slope() {
+  return BF16 ? SLOPE_BF16 : 0.01f;
+}
+
+// torch's leaky_relu: x > 0 ? x : x * 0.01 (bf16: rounded, slope bf16(0.01))
+template <bool BF16>
 __device__ __forceinline__ float leaky(float x) {
-  return x > 0.0f ? x : 0.01f * x;
+  return x > 0.0f ? x : rnd<BF16>(slope<BF16>() * x);
 }
 
 // dLR(x) * c, without forming the derivative
+template <bool BF16>
 __device__ __forceinline__ float dleaky_mul(float x, float c) {
-  return x >= 0.0f ? c : 0.01f * c;
+  return x >= 0.0f ? c : rnd<BF16>(slope<BF16>() * c);
+}
+
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ float ld(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// v (already a value of T) as a T
+template <typename T>
+__device__ __forceinline__ T to_elem(float v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
 }
 
 __device__ __forceinline__ void consumers_sync() {
   named_sync<CONSUMERS>();
 }
 
+template <bool BF16>
 struct Stage {
-  float* xo;   // xo in, ct_xo out
-  float* xd;   // xd in, ct_xd out
-  float* out;
-  float* ct;   // ct in, ct_y out
+  Elem<BF16>* xo;   // xo in, ct_xo out
+  Elem<BF16>* xd;   // xd in, ct_xd out
+  Elem<BF16>* out;
+  Elem<BF16>* ct;   // ct in
+  float* cty;       // ct_y out: over ct in the fp32 form
 };
 
-__device__ __forceinline__ Stage stage(unsigned char* smem, int s) {
-  unsigned char* p = smem + s * STAGE_BYTES;
-  return {reinterpret_cast<float*>(p),
-          reinterpret_cast<float*>(p + XO_BYTES),
-          reinterpret_cast<float*>(p + XO_BYTES + XD_BYTES),
-          reinterpret_cast<float*>(p + XO_BYTES + XD_BYTES + OUT_BYTES)};
+template <bool BF16>
+__device__ __forceinline__ Stage<BF16> stage(unsigned char* smem, int s) {
+  using L = Layout<BF16>;
+  using E = Elem<BF16>;
+  unsigned char* p = smem + s * L::STAGE_BYTES;
+  unsigned char* ct = p + L::XO_BYTES + L::XD_BYTES + L::OUT_BYTES;
+  return {reinterpret_cast<E*>(p), reinterpret_cast<E*>(p + L::XO_BYTES),
+          reinterpret_cast<E*>(p + L::XO_BYTES + L::XD_BYTES),
+          reinterpret_cast<E*>(ct),
+          reinterpret_cast<float*>(BF16 ? ct + L::OUT_BYTES : ct)};
 }
 
 // What a launch does. FULL is K3. The other two exist to measure it
@@ -140,26 +213,29 @@ __device__ __forceinline__ Stage stage(unsigned char* smem, int s) {
 // ring and neither reads nor writes the row tensors.
 enum Mode { FULL = 0, COPY_ONLY = 1, COMPUTE_ONLY = 2 };
 
-template <int MODE>
+template <int MODE, bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
-grid_tail_bwd_kernel(const float* __restrict__ xo,
-                     const float* __restrict__ xd,
-                     const float* __restrict__ out,
-                     const float* __restrict__ ct,
+grid_tail_bwd_kernel(const Elem<BF16>* __restrict__ xo,
+                     const Elem<BF16>* __restrict__ xd,
+                     const Elem<BF16>* __restrict__ out,
+                     const Elem<BF16>* __restrict__ ct,
                      const float* __restrict__ w, Scale scale,
-                     float* __restrict__ ct_xo, float* __restrict__ ct_xd,
+                     Elem<BF16>* __restrict__ ct_xo,
+                     Elem<BF16>* __restrict__ ct_xd,
                      float* __restrict__ ct_y, float* __restrict__ ct_w_parts,
                      int64_t n) {
+  using L = Layout<BF16>;
+  using E = Elem<BF16>;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* s_cty = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES + CTY_BYTES);
+  float* s_cty = reinterpret_cast<float*>(smem + STAGES * L::STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * L::STAGE_BYTES +
+                                               CTY_BYTES);
   uint64_t* empty = full + STAGES;
   const int tid = threadIdx.x;
   const int64_t n_tiles = (n + ROWS - 1) / ROWS;
 
   if (MODE == COMPUTE_ONLY) {
-    for (int j = tid; j < STAGES * STAGE_BYTES / 4; j += THREADS) {
+    for (int j = tid; j < STAGES * L::STAGE_BYTES / 4; j += THREADS) {
       reinterpret_cast<float*>(smem)[j] = 0.0f;
     }
   }
@@ -179,18 +255,18 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
     for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
       const int s = i % STAGES;
       if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
-      const Stage st = stage(smem, s);
+      const Stage<BF16> st = stage<BF16>(smem, s);
       const int64_t r0 = t * ROWS;
       const int rows = static_cast<int>(n - r0 < ROWS ? n - r0 : ROWS);
       if (MODE == COMPUTE_ONLY) {
         if (lane == 0) mbar_arrive(&full[s]);
       } else if (rows == ROWS) {
         if (lane == 0) {
-          mbar_expect_tx(&full[s], STAGE_BYTES);
-          bulk_load(st.xo, xo + r0 * (O * K), XO_BYTES, &full[s]);
-          bulk_load(st.xd, xd + r0 * (D * K), XD_BYTES, &full[s]);
-          bulk_load(st.out, out + r0 * OUT, OUT_BYTES, &full[s]);
-          bulk_load(st.ct, ct + r0 * OUT, OUT_BYTES, &full[s]);
+          mbar_expect_tx(&full[s], L::LOAD_BYTES);
+          bulk_load(st.xo, xo + r0 * (O * K), L::XO_BYTES, &full[s]);
+          bulk_load(st.xd, xd + r0 * (D * K), L::XD_BYTES, &full[s]);
+          bulk_load(st.out, out + r0 * OUT, L::OUT_BYTES, &full[s]);
+          bulk_load(st.ct, ct + r0 * OUT, L::OUT_BYTES, &full[s]);
         }
       } else {
         // the ragged last tile: plain loads by the whole warp
@@ -225,7 +301,7 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
   int i = 0;
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
     const int s = i % STAGES;
-    const Stage st = stage(smem, s);
+    const Stage<BF16> st = stage<BF16>(smem, s);
     const int64_t r0 = t * ROWS;
     const int rows = static_cast<int>(n - r0 < ROWS ? n - r0 : ROWS);
     // hand the previous tile's stage back once its bulk store has read it
@@ -239,16 +315,18 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
     if (MODE == COPY_ONLY) {
       if (tid == 0) release_previous();
     } else if (r < rows) {
-      // 1. ct_y over the ct slot, and its padded copy
-      const float* so = st.out + r * OUT;
-      float* sy = st.ct + r * OUT;
+      // 1. ct_y into its slot (over ct in the fp32 form), and its padded
+      // copy
+      const E* so = st.out + r * OUT;
+      const E* sct = st.ct + r * OUT;
+      float* sy = st.cty + r * OUT;
       float* cy = s_cty + r * (M * CTY_PAD);
       for (int m = lane; m < M; m += 32) {
         float v[F];
 #pragma unroll
         for (int f = 0; f < F; ++f) {
-          const float s_ = so[m * F + f] * inv[f];
-          v[f] = sy[m * F + f] * (sc[f] * s_ * (1.0f - s_));
+          const float s_ = ld(so[m * F + f]) * inv[f];
+          v[f] = ld(sct[m * F + f]) * (sc[f] * s_ * (1.0f - s_));
           sy[m * F + f] = v[f];
         }
         *reinterpret_cast<float4*>(cy + m * CTY_PAD) =
@@ -258,35 +336,36 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
       __syncwarp();
       // 2. the pass over the row's (o, d) for this lane's k
       if (lane < K) {
-        float* px = st.xo + r * (O * K) + lane;
-        float* pd = st.xd + r * (D * K) + lane;
+        E* px = st.xo + r * (O * K) + lane;
+        E* pd = st.xd + r * (D * K) + lane;
         float ad[D], acc_d[D], part[F];
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          ad[d] = leaky(pd[d * K]);
+          ad[d] = leaky<BF16>(ld(pd[d * K]));
           acc_d[d] = -0.0f;
         }
 #pragma unroll
         for (int f = 0; f < F; ++f) part[f] = -0.0f;
 #pragma unroll 2
         for (int o = 0; o < O; ++o) {
-          const float x = px[o * K];
-          const float ao = leaky(x);
+          const float x = ld(px[o * K]);
+          const float ao = leaky<BF16>(x);
           float acc_o = -0.0f;
 #pragma unroll
           for (int d = 0; d < D; ++d) {
             const float* c = cy + (o * D + d) * CTY_PAD;
             const float4 c4 = *reinterpret_cast<const float4*>(c);
             const float c5 = c[4];
-            const float gp = ao + ad[d];
+            const float gp = rnd<BF16>(ao + ad[d]);
             float g = c4.x * wk[0];
             g = g + c4.y * wk[1];
             g = g + c4.z * wk[2];
             g = g + c4.w * wk[3];
-            g = g + c5 * wk[4];
+            g = rnd<BF16>(g + c5 * wk[4]);
             const bool pos = gp >= 0.0f;
-            const float cg = pos ? g : 0.01f * g;     // dLR(gp) * ct_G
-            const float lr = pos ? gp : 0.01f * gp;   // LR(gp)
+            // dLR(gp) * ct_G and LR(gp)
+            const float cg = pos ? g : rnd<BF16>(slope<BF16>() * g);
+            const float lr = pos ? gp : rnd<BF16>(slope<BF16>() * gp);
             acc_o = acc_o + cg;
             acc_d[d] = acc_d[d] + cg;
             part[0] = __fmaf_rn(lr, c4.x, part[0]);
@@ -295,11 +374,14 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
             part[3] = __fmaf_rn(lr, c4.w, part[3]);
             part[4] = __fmaf_rn(lr, c5, part[4]);
           }
-          px[o * K] = dleaky_mul(x, acc_o);
+          px[o * K] = to_elem<E>(dleaky_mul<BF16>(x, rnd<BF16>(acc_o)));
           if (o == O / 2 - 1 && tid == 0) release_previous();
         }
 #pragma unroll
-        for (int d = 0; d < D; ++d) pd[d * K] = dleaky_mul(pd[d * K], acc_d[d]);
+        for (int d = 0; d < D; ++d) {
+          pd[d * K] = to_elem<E>(dleaky_mul<BF16>(ld(pd[d * K]),
+                                                  rnd<BF16>(acc_d[d])));
+        }
 #pragma unroll
         for (int f = 0; f < F; ++f) run[f] = run[f] + part[f];
       }
@@ -310,9 +392,9 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
     if (MODE == COMPUTE_ONLY) continue;
     if (rows == ROWS) {
       if (tid == 0) {
-        bulk_store(ct_xo + r0 * (O * K), st.xo, XO_BYTES);
-        bulk_store(ct_xd + r0 * (D * K), st.xd, XD_BYTES);
-        bulk_store(ct_y + r0 * OUT, st.ct, OUT_BYTES);
+        bulk_store(ct_xo + r0 * (O * K), st.xo, L::XO_BYTES);
+        bulk_store(ct_xd + r0 * (D * K), st.xd, L::XD_BYTES);
+        bulk_store(ct_y + r0 * OUT, st.cty, L::CTY_F32_BYTES);
         bulk_commit();
       }
     } else {
@@ -324,12 +406,12 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
         ct_xd[r0 * (D * K) + j] = st.xd[j];
       }
       for (int j = tid; j < rows * OUT; j += CONSUMERS) {
-        ct_y[r0 * OUT + j] = st.ct[j];
+        ct_y[r0 * OUT + j] = st.cty[j];
       }
     }
   }
 
-  // the block's ct_w partial: the row slots' running sums in ascending
+// the block's ct_w partial: the row slots' running sums in ascending
   // order, through the cty copy (every pass is over)
   if (lane < K) {
 #pragma unroll
@@ -344,90 +426,111 @@ grid_tail_bwd_kernel(const float* __restrict__ xo,
   if (tid == 0) bulk_wait_all();
 }
 
-}  // namespace
 
 // (dynamic shared memory bytes, threads per block, resident blocks per SM,
-// rows per tile) of K3's launch. The first call sets the kernel's
-// shared-memory limit. The wrapper sizes the ct_w partials by the grid it
-// passes: min(blocks per SM x SMs, tiles).
-extern "C" int mst_grid_tail_bwd_info(int* info) {
+// rows per tile) of K3's launch in one form. The first call for a form
+// sets its kernels' shared-memory limit.
+template <bool BF16>
+int launch_info(int* info) {
   static int per_sm = 0;
+  constexpr int smem = Layout<BF16>::SMEM_BYTES;
   cudaError_t err = cudaSuccess;
   if (per_sm == 0) {
     const void* kernels[] = {
-        reinterpret_cast<const void*>(grid_tail_bwd_kernel<FULL>),
-        reinterpret_cast<const void*>(grid_tail_bwd_kernel<COPY_ONLY>),
-        reinterpret_cast<const void*>(grid_tail_bwd_kernel<COMPUTE_ONLY>)};
+        reinterpret_cast<const void*>(grid_tail_bwd_kernel<FULL, BF16>),
+        reinterpret_cast<const void*>(grid_tail_bwd_kernel<COPY_ONLY, BF16>),
+        reinterpret_cast<const void*>(
+            grid_tail_bwd_kernel<COMPUTE_ONLY, BF16>)};
     for (const void* kernel : kernels) {
       if (err == cudaSuccess) {
         err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       }
     }
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, grid_tail_bwd_kernel<FULL>, THREADS, SMEM_BYTES);
+          &per_sm, grid_tail_bwd_kernel<FULL, BF16>, THREADS, smem);
     }
   }
-  info[0] = SMEM_BYTES;
+  info[0] = smem;
   info[1] = THREADS;
   info[2] = per_sm;
   info[3] = ROWS;
   return static_cast<int>(err);
 }
 
-namespace {
-
+template <bool BF16>
 int launch(int mode, const void* xo, const void* xd, const void* out,
            const void* ct, const void* w, Scale scale, void* ct_xo,
            void* ct_xd, void* ct_y, void* ct_w_parts, int64_t n,
            int64_t blocks, void* stream) {
   if (n <= 0) return 0;
   int info[4];
-  const cudaError_t err =
-      static_cast<cudaError_t>(mst_grid_tail_bwd_info(info));
+  const cudaError_t err = static_cast<cudaError_t>(launch_info<BF16>(info));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (info[2] < 1 || blocks < 1 || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  auto kernel = mode == COPY_ONLY      ? grid_tail_bwd_kernel<COPY_ONLY>
-                : mode == COMPUTE_ONLY ? grid_tail_bwd_kernel<COMPUTE_ONLY>
-                                       : grid_tail_bwd_kernel<FULL>;
-  kernel<<<static_cast<unsigned int>(blocks), THREADS, SMEM_BYTES,
+  auto kernel = mode == COPY_ONLY ? grid_tail_bwd_kernel<COPY_ONLY, BF16>
+                : mode == COMPUTE_ONLY
+                    ? grid_tail_bwd_kernel<COMPUTE_ONLY, BF16>
+                    : grid_tail_bwd_kernel<FULL, BF16>;
+  using E = Elem<BF16>;
+  kernel<<<static_cast<unsigned int>(blocks), THREADS, info[0],
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xo), static_cast<const float*>(xd),
-      static_cast<const float*>(out), static_cast<const float*>(ct),
-      static_cast<const float*>(w), scale, static_cast<float*>(ct_xo),
-      static_cast<float*>(ct_xd), static_cast<float*>(ct_y),
+      static_cast<const E*>(xo), static_cast<const E*>(xd),
+      static_cast<const E*>(out), static_cast<const E*>(ct),
+      static_cast<const float*>(w), scale, static_cast<E*>(ct_xo),
+      static_cast<E*>(ct_xd), static_cast<float*>(ct_y),
       static_cast<float*>(ct_w_parts), n);
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_form(int bf16, int mode, const void* xo, const void* xd,
+                const void* out, const void* ct, const void* w, Scale scale,
+                void* ct_xo, void* ct_xd, void* ct_y, void* ct_w_parts,
+                int64_t n, int64_t blocks, void* stream) {
+  return bf16 ? launch<true>(mode, xo, xd, out, ct, w, scale, ct_xo, ct_xd,
+                             ct_y, ct_w_parts, n, blocks, stream)
+              : launch<false>(mode, xo, xd, out, ct, w, scale, ct_xo, ct_xd,
+                              ct_y, ct_w_parts, n, blocks, stream);
+}
+
 }  // namespace
+
+// The launch info of the fp32 form (bf16 0) or the bf16 form (bf16 1).
+// The wrapper sizes the ct_w partials by the grid it passes: min(blocks
+// per SM x SMs, tiles).
+extern "C" int mst_grid_tail_bwd_info(int bf16, int* info) {
+  return bf16 ? launch_info<true>(info) : launch_info<false>(info);
+}
 
 // Launches K3 on `stream` with `blocks` blocks: xo (n, 8, 30), xd (n, 7,
 // 30), out and ct (n, 56, 5), w (30, 5), the five scales by value; writes
 // ct_xo (n, 8, 30), ct_xd (n, 7, 30), ct_y (n, 56, 5) and ct_w_parts
-// (blocks, 30, 5). All fp32, contiguous and 16-byte aligned. Returns the
-// first CUDA error, or 0.
+// (blocks, 30, 5). xo, xd, out, ct, ct_xo and ct_xd are fp32, or bf16 when
+// `bf16` is not 0; w, ct_y and ct_w_parts are fp32. All contiguous and
+// 16-byte aligned. Returns the first CUDA error, or 0.
 extern "C" int mst_grid_tail_bwd(const void* xo, const void* xd,
                                  const void* out, const void* ct,
                                  const void* w, float s0, float s1, float s2,
                                  float s3, float s4, void* ct_xo, void* ct_xd,
                                  void* ct_y, void* ct_w_parts, int64_t n,
-                                 int64_t blocks, void* stream) {
-  return launch(FULL, xo, xd, out, ct, w, Scale{{s0, s1, s2, s3, s4}}, ct_xo,
-                ct_xd, ct_y, ct_w_parts, n, blocks, stream);
+                                 int64_t blocks, int bf16, void* stream) {
+  return launch_form(bf16, FULL, xo, xd, out, ct, w,
+                     Scale{{s0, s1, s2, s3, s4}}, ct_xo, ct_xd, ct_y,
+                     ct_w_parts, n, blocks, stream);
 }
 
 // The same launch in one of the measuring modes (1: copy only, 2: compute
 // only), with unit scales; the outputs then hold no result.
-extern "C" int mst_grid_tail_bwd_variant(int mode, const void* xo,
+extern "C" int mst_grid_tail_bwd_variant(int mode, int bf16, const void* xo,
                                          const void* xd, const void* out,
                                          const void* ct, const void* w,
                                          void* ct_xo, void* ct_xd, void* ct_y,
                                          void* ct_w_parts, int64_t n,
                                          int64_t blocks, void* stream) {
-  return launch(mode, xo, xd, out, ct, w, Scale{{1.0f, 1.0f, 1.0f, 1.0f, 1.0f}},
-                ct_xo, ct_xd, ct_y, ct_w_parts, n, blocks, stream);
+  return launch_form(bf16, mode, xo, xd, out, ct, w,
+                     Scale{{1.0f, 1.0f, 1.0f, 1.0f, 1.0f}}, ct_xo, ct_xd,
+                     ct_y, ct_w_parts, n, blocks, stream);
 }

@@ -7,7 +7,10 @@ sigmoid (:565-579).
 The pitched applier's note-grid tail runs through mst_torch.ops.grid_kernel
 (K2, ``csrc/grid_tail.cu``, on the card). Its melody term ``mel_c + bias``
 stays at (B, 1, R, T, F10, 56, 5): the kernel reads it per song and it is
-never expanded over the channel axis.
+never expanded over the channel axis. Under a bf16 storage dtype the tail's
+embeddings ``xo``/``xd`` and both appliers' outputs are stored as bf16
+(mst_tpu/models/appliers.py:79-89,122-123); the tail then runs its bf16
+form, which writes its output at bf16 itself.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 
 from mst_torch.models.layers import (ConcatDense, Dense, DenseParams,
                                      leaky_relu, mean_size)
+from mst_torch.ops import precision
 from mst_torch.ops.grid_kernel import grid_tail
 
 N_OCTAVES = 8
@@ -63,9 +67,9 @@ class PitchedStyleApplier(nn.Module):
         # the octave/degree linears distribute over the implicit concat of
         # (x1, x2, x3): the channel-independent parts never expand over C
         parts = [x1, x2, x3]
-        xo = self.octave_linear(parts)
+        xo = precision.cast_storage(self.octave_linear(parts))
         xo = xo.reshape(tuple(xo.shape[:-1]) + (N_OCTAVES, lo))
-        xd = self.scale_degree_linear(parts)
+        xd = precision.cast_storage(self.scale_degree_linear(parts))
         xd = xd.reshape(tuple(xd.shape[:-1]) + (N_SCALE_DEGREES, lo))
 
         mel = leaky_relu(self.melody_linear(melody))    # (B,R,T,F10,56,20)
@@ -75,7 +79,9 @@ class PitchedStyleApplier(nn.Module):
         # its 5-feature output meets the channel axis, inside the kernel
         weight, bias = self.linear()
         kernel = weight.t()                             # (50, 5)
-        mel_c = torch.matmul(mel, kernel[lo:])[:, None]
+        mel_c = precision.matmul(mel, kernel[lo:])[:, None]
+        # the tail's output comes at xo's dtype: its bf16 form stores the
+        # output as bf16 itself (appliers.py:89's cast_storage, fused)
         return grid_tail(xo, xd, kernel[:lo], mel_c + bias,
                          (MAX_DURATION, 1.0, 1.0, 1.0, 1.0))
 
@@ -112,4 +118,5 @@ class UnpitchedStyleApplier(nn.Module):
         # duration = 6*sigmoid, velocity = sigmoid — one fused scale
         scale = torch.tensor([MAX_DURATION, 1.0], dtype=x.dtype,
                              device=x.device)
-        return (torch.sigmoid(x) * scale)[:, None]       # (B,1,R,T,F10,47,2)
+        x = precision.cast_storage(torch.sigmoid(x) * scale)
+        return x[:, None]                                # (B,1,R,T,F10,47,2)

@@ -9,6 +9,9 @@ from a state_dict (mst_torch.weights); a fresh model for training comes from
 ``reset_parameters(generator)``, which draws the JAX package's torch-default
 init, U(+-1/sqrt(fan_in)) for weight and bias (mst_tpu/models/layers.py:
 26-122).
+
+The products run through mst_torch.ops.precision (the compute dtype), and
+``leaky_relu`` is where the storage dtype takes hold.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mst_torch.ops import precision
 from mst_torch.ops.init import uniform_
+
+_SLOPE = 0.01
 
 
 def mean_size(*values, factor: float = 1.0) -> int:
@@ -49,7 +55,7 @@ class Dense(nn.Module):
         _reset_uniform(self, self.weight.shape[1], generator)
 
     def forward(self, x):
-        return torch.matmul(x, self.weight.t()) + self.bias
+        return precision.matmul(x, self.weight.t()) + self.bias
 
 
 class ConcatDense(nn.Module):
@@ -74,7 +80,7 @@ class ConcatDense(nn.Module):
         total = None
         offset = 0
         for part, d in zip(parts, self.part_features):
-            y = torch.matmul(part, self.weight[:, offset:offset + d].t())
+            y = precision.matmul(part, self.weight[:, offset:offset + d].t())
             offset += d
             total = y if total is None else total + y
         return total + self.bias
@@ -115,11 +121,19 @@ class Conv1d(nn.Module):
                        generator)
 
     def forward(self, x):
-        out = F.conv1d(x, self.weight, stride=self.stride,
-                       padding=self.padding)
+        out = precision.conv1d(x, self.weight, stride=self.stride,
+                               padding=self.padding)
         return out + self.bias[None, :, None]
 
 
 def leaky_relu(x):
-    """torch F.leaky_relu default slope 0.01 (used everywhere in model.py)."""
-    return F.leaky_relu(x, 0.01)
+    """torch F.leaky_relu default slope 0.01 (used everywhere in model.py).
+
+    Every grid-scale activation of the model passes through here, so this
+    is the storage dtype's chokepoint (mst_tpu/models/layers.py:132-139):
+    an fp32 input's output is stored at the storage dtype. A bf16 input
+    (the sum of two stored activations) stays bf16 and is computed as JAX
+    computes it: ``x >= 0 ? x : bf16(bf16(0.01) * x)``."""
+    if x.dtype == precision.BF16:
+        return torch.where(x >= 0, x, x * precision.bf16_value(_SLOPE))
+    return precision.cast_storage(F.leaky_relu(x, _SLOPE))

@@ -12,8 +12,9 @@ The host preparation (``encode_notes``, ``concat_and_pad`` with the sentinel
 row 2**30 and the ``_pad_to`` note buckets) is a copy of the JAX package's,
 so both frameworks see the same records. ``device_rasterize_song`` and
 ``device_rasterize_batch`` are the trainer's entry points: one K1 launch per
-note family for a whole batch, in float32 (the JAX package's bf16 raster
-and its born-sharded batch are not ported yet).
+note family for a whole batch. Each takes ``out_dtype``: float32, or
+bfloat16 for the bf16 storage policy, which K1 then writes directly (the
+JAX package's born-sharded batch is not ported yet).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from mst_torch.ops import raster_kernel
+from mst_torch.ops.precision import FP32
 from mst_torch.ops.rasterize import QNotes, Rasterizer
 
 SENTINEL_ROW = raster_kernel.SENTINEL_ROW
@@ -123,28 +125,32 @@ def concat_and_pad(parts, pad_len: Optional[int] = None) -> DeviceNotes:
 
 
 def segment_rasterize(row, note_idx, acc, duration, velocity, valid,
-                      n_rows: int, n_notes: int, n_feat: int):
-    """Scatter-max rasterization -> (n_rows, n_notes * n_feat) fp32.
+                      n_rows: int, n_notes: int, n_feat: int,
+                      out_dtype=FP32):
+    """Scatter-max rasterization -> (n_rows, n_notes * n_feat) at
+    ``out_dtype`` (float32 or bfloat16).
 
     Semantics of the host Rasterizer.rasterize scatter
     (midi_conversion.py:490-516) and of mst_tpu's segment_rasterize: zero
     base, elementwise max on collision, accidental one-hot for pitched
-    (n_feat == 5). CUDA tensors run K1; CPU tensors its plain version."""
+    (n_feat == 5); a bf16 raster is the bf16 cast of the fp32 one. CUDA
+    tensors run K1; CPU tensors its plain version."""
     return raster_kernel.rasterize(row, note_idx, acc, duration, velocity,
-                                   valid, n_rows, n_notes, n_feat)
+                                   valid, n_rows, n_notes, n_feat, out_dtype)
 
 
 def _rasterize_records(dn: DeviceNotes, device, n_rows: int, n_notes: int,
-                       n_feat: int, out_shape: tuple) -> torch.Tensor:
-    return segment_rasterize(*dn.to(device), n_rows, n_notes,
-                             n_feat).reshape(out_shape)
+                       n_feat: int, out_shape: tuple,
+                       out_dtype) -> torch.Tensor:
+    return segment_rasterize(*dn.to(device), n_rows, n_notes, n_feat,
+                             out_dtype).reshape(out_shape)
 
 
 def device_rasterize_song(rasterizer: Rasterizer, note_arrays, pitched: bool,
                           n_channels: int, n_bars: Optional[int] = None,
                           valid_bars: Optional[int] = None,
-                          fuse_nf: bool = False,
-                          device="cuda") -> torch.Tensor:
+                          fuse_nf: bool = False, device="cuda",
+                          out_dtype=FP32) -> torch.Tensor:
     """Device rasterization of one song's channels (mst_tpu's
     device_rasterize_song). ``note_arrays``: one NoteArray per channel.
     Returns (C, n_bars, T, F10, n_notes, F) on ``device``, or with
@@ -163,13 +169,13 @@ def device_rasterize_song(rasterizer: Rasterizer, note_arrays, pitched: bool,
     tail = (n_notes * n_feat,) if fuse_nf else (n_notes, n_feat)
     return _rasterize_records(concat_and_pad(parts), device,
                               n_channels * n_bars * T * F10, n_notes, n_feat,
-                              (n_channels, n_bars, T, F10) + tail)
+                              (n_channels, n_bars, T, F10) + tail, out_dtype)
 
 
 def device_rasterize_batch(rasterizers, note_arrays_per_song, pitched: bool,
                            n_channels: int, n_bars: int, valid_bars,
-                           fuse_nf: bool = False,
-                           device="cuda") -> torch.Tensor:
+                           fuse_nf: bool = False, device="cuda",
+                           out_dtype=FP32) -> torch.Tensor:
     """B songs' channels in one K1 launch (mst_tpu's device_rasterize_batch).
 
     Each song keeps its own Rasterizer (its own tick grid and scale); batch
@@ -195,4 +201,5 @@ def device_rasterize_batch(rasterizers, note_arrays_per_song, pitched: bool,
     tail = (n_notes * n_feat,) if fuse_nf else (n_notes, n_feat)
     return _rasterize_records(concat_and_pad(parts), device,
                               B * n_channels * n_bars * T * F10, n_notes,
-                              n_feat, (B, n_channels, n_bars, T, F10) + tail)
+                              n_feat, (B, n_channels, n_bars, T, F10) + tail,
+                              out_dtype)

@@ -33,6 +33,22 @@ launches. Both kernels are built without FMA contraction, so on the card
 they agree with their plain versions bit for bit, apart from ct_w, a sum
 over every row taken in another order (``chip_smoke.py`` states each
 tolerance).
+
+Each kernel has two forms, chosen by the dtype of ``xo`` and ``xd``:
+
+- fp32: every input and output fp32 (the fp32 storage policy);
+- bf16 (the bf16 storage policy, mst_torch.ops.precision): ``xo``, ``xd``,
+  the output, its cotangent ``ct`` and ``ct_xo``/``ct_xd`` are bf16; ``w``,
+  ``rest``, ``ct_y`` (d rest) and ``ct_w`` stay fp32. JAX runs its jnp tail
+  under that policy (pallas_grid.py:454-467); the bf16 form rounds where
+  the jaxpr of ``_tail_jnp`` and of its gradient on bf16 inputs rounds
+  (``grid_tail_plain`` and ``grid_tail_bwd_plain`` list the points). Its
+  forward also writes the output as bf16, the ``cast_storage`` of
+  appliers.py:89 fused.
+
+Any other dtype raises: nothing is converted behind the caller's back.
+``launches`` counts the fp32 form's launches, ``launches_bf16`` the bf16
+form's.
 """
 
 from __future__ import annotations
@@ -46,12 +62,14 @@ import torch
 import torch.nn.functional as F
 
 from mst_torch.ops import cuda_build
+from mst_torch.ops.precision import BF16, FP32, bf16_value
 
 N_OCTAVES = 8
 N_SCALE_DEGREES = 7
 GRID_DEPTH = 30
 N_FEATURES = 5
 _SLOPE = 0.01
+_SLOPE_BF16 = bf16_value(_SLOPE)    # 0.010009765625
 
 
 _SCALES = [ctypes.c_float] * 5
@@ -63,28 +81,33 @@ def _entry():
     fn = cuda_build.load("grid_tail").mst_grid_tail
     fn.argtypes = [ctypes.c_void_p] * 4 + _SCALES + [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
 def _bwd_entry():
-    """(C entry point, launch info) of csrc/grid_tail_bwd.cu, built and
-    bound once. The info is (dynamic shared memory bytes, threads per
-    block, resident blocks per SM, rows per tile)."""
+    """(C entry point, launch info by form) of csrc/grid_tail_bwd.cu, built
+    and bound once. The info of the fp32 and the bf16 form (keyed by
+    dtype) is (dynamic shared memory bytes, threads per block, resident
+    blocks per SM, rows per tile)."""
     lib = cuda_build.load("grid_tail_bwd")
     fn = lib.mst_grid_tail_bwd
     fn.argtypes = [ctypes.c_void_p] * 5 + _SCALES + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.mst_grid_tail_bwd_info.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.mst_grid_tail_bwd_info.argtypes = [ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)]
     lib.mst_grid_tail_bwd_info.restype = ctypes.c_int
-    info = (ctypes.c_int * 4)()
-    rc = lib.mst_grid_tail_bwd_info(info)
-    if rc != 0:
-        raise RuntimeError(f"grid tail backward kernel: CUDA error {rc}")
-    return fn, tuple(info)
+    infos = {}
+    for form in (FP32, BF16):
+        info = (ctypes.c_int * 4)()
+        rc = lib.mst_grid_tail_bwd_info(int(form == BF16), info)
+        if rc != 0:
+            raise RuntimeError(f"grid tail backward kernel: CUDA error {rc}")
+        infos[form] = tuple(info)
+    return fn, infos
 
 
 @functools.cache
@@ -99,33 +122,49 @@ def bwd_grid(n: int, blocks_per_sm: int, sms: int, rows_per_tile: int) -> int:
     return min(blocks_per_sm * sms, -(-n // rows_per_tile))
 
 
+def _slope(dtype):
+    return _SLOPE_BF16 if dtype == BF16 else _SLOPE
+
+
 def _leaky(x):
+    """LR at x's dtype: a bf16 x gives ``bf16(bf16(0.01) * x)`` below 0."""
+    if x.dtype == BF16:
+        return torch.where(x > 0, x, x * _SLOPE_BF16)
     return F.leaky_relu(x, _SLOPE)
 
 
 def _dleaky_mul(x, ct):
-    """dLR(x) * ct without forming the derivative (pallas_grid._dleaky_mul)."""
-    return torch.where(x >= 0, ct, _SLOPE * ct)
+    """dLR(x) * ct without forming the derivative (pallas_grid._dleaky_mul),
+    at ct's dtype."""
+    return torch.where(x >= 0, ct, ct * _slope(ct.dtype))
 
 
 def grid_tail_plain(xo, xd, w, rest, scale: Sequence[float]):
     """Plain torch version. ``xo``: (*L, O, K), ``xd``: (*L, D, K), ``w``:
     (K, F), ``rest``: broadcastable to (*L, O*D, F), ``scale``: F floats.
-    Returns (*L, O*D, F). Each output sums its K terms in ascending k, one
-    rounded multiply and one rounded add per term, and only (*L, O, D, F)
-    sums are ever held — the grid itself is formed one k-slice at a time."""
+    Returns (*L, O*D, F) at xo's dtype. Each output sums its K terms in
+    ascending k, one rounded multiply and one rounded add per term, and
+    only (*L, O, D, F) sums are ever held — the grid itself is formed one
+    k-slice at a time.
+
+    The bf16 form (bf16 ``xo``/``xd``, fp32 ``w``/``rest``) rounds where
+    jax.make_jaxpr of ``_tail_jnp`` on bf16 inputs does: LR(xo), LR(xd),
+    their sum and its LR are bf16 (each operation rounded once, the slope
+    bf16(0.01)); the grid converts to fp32 for ``grid * w`` and the K-sum,
+    the sigmoid and the scale are fp32; the output rounds once to bf16
+    (the applier's cast_storage)."""
     *lead, O, K = xo.shape
     D = xd.shape[-2]
     n_feat = w.shape[-1]
     a_o = _leaky(xo)
     a_d = _leaky(xd)
-    y = torch.zeros(*lead, O, D, n_feat, dtype=xo.dtype, device=xo.device)
+    y = torch.zeros(*lead, O, D, n_feat, dtype=w.dtype, device=xo.device)
     for k in range(K):
         g = _leaky(a_o[..., :, None, k] + a_d[..., None, :, k])
-        y = y + g[..., None] * w[k]
+        y = y + g.to(w.dtype)[..., None] * w[k]
     y = y.reshape(*lead, O * D, n_feat)
     sc = torch.tensor(list(scale), dtype=y.dtype, device=y.device)
-    return torch.sigmoid(y + rest) * sc
+    return (torch.sigmoid(y + rest) * sc).to(xo.dtype)
 
 
 def grid_tail_bwd_plain(xo, xd, out, ct, w, scale: Sequence[float]):
@@ -135,14 +174,26 @@ def grid_tail_bwd_plain(xo, xd, out, ct, w, scale: Sequence[float]):
     ct_w): ct_y (*L, O*D, F) is the cotangent of ``rest`` at full shape.
     ct_G sums its F terms in ascending f, ct_xo its D terms in ascending d
     and ct_xd its O terms in ascending o, one rounded operation at a time,
-    as the kernel does; ct_w, a sum over every row, is one matrix product."""
+    as the kernel does; ct_w, a sum over every row, is one matrix product.
+
+    The bf16 form (bf16 ``xo``, ``xd``, ``out`` and ``ct``) returns ct_xo
+    and ct_xd as bf16 and ct_y and ct_w as fp32, JAX's dtypes. It rounds
+    where the jaxpr of ``jax.grad`` of ``_tail_jnp`` on bf16 inputs does:
+    gp and LR(gp) as in the forward; ct_G (an fp32 sum over f) to bf16;
+    dLR(gp) * ct_G and dLR(x) * sum at bf16 (the slope bf16(0.01)); the sums
+    over d and over o, bf16 reduce_sums in the jaxpr, accumulate in fp32 and
+    round once. One choice differs from JAX: JAX's checkpointed backward
+    recomputes the fp32 output for the sigmoid's derivative, while this
+    form takes s from the saved bf16 output (s = out * (1 / scale)), so
+    s * (1 - s) carries the output's bf16 rounding
+    (tests/test_torch_kernels.py measures what that costs against JAX)."""
     *lead, O, K = xo.shape
     D = xd.shape[-2]
     n_feat = w.shape[-1]
     n = math.prod(lead)
-    sc = torch.tensor(list(scale), dtype=out.dtype, device=out.device)
-    s = out * (1.0 / sc)
-    ct_y = ct * (sc * s * (1.0 - s))                  # d sigmoid
+    sc = torch.tensor(list(scale), dtype=w.dtype, device=out.device)
+    s = out.to(w.dtype) * (1.0 / sc)
+    ct_y = ct.to(w.dtype) * (sc * s * (1.0 - s))      # d sigmoid
     ct_y4 = ct_y.reshape(n, O, D, n_feat)
     xo3 = xo.reshape(n, O, K)
     xd3 = xd.reshape(n, D, K)
@@ -150,16 +201,17 @@ def grid_tail_bwd_plain(xo, xd, out, ct, w, scale: Sequence[float]):
     ct_g = ct_y4[..., 0:1] * w[:, 0]                  # (n, O, D, K)
     for f in range(1, n_feat):
         ct_g = ct_g + ct_y4[..., f:f + 1] * w[:, f]
-    ct_gp = _dleaky_mul(gp, ct_g)
+    ct_gp = _dleaky_mul(gp, ct_g.to(xo.dtype)).to(w.dtype)
     sum_d = ct_gp[:, :, 0]
     for d in range(1, D):
         sum_d = sum_d + ct_gp[:, :, d]
     sum_o = ct_gp[:, 0]
     for o in range(1, O):
         sum_o = sum_o + ct_gp[:, o]
-    ct_xo = _dleaky_mul(xo3, sum_d)
-    ct_xd = _dleaky_mul(xd3, sum_o)
-    ct_w = _leaky(gp).reshape(-1, K).t() @ ct_y4.reshape(-1, n_feat)
+    ct_xo = _dleaky_mul(xo3, sum_d.to(xo.dtype))
+    ct_xd = _dleaky_mul(xd3, sum_o.to(xo.dtype))
+    ct_w = _leaky(gp).to(w.dtype).reshape(-1, K).t() \
+        @ ct_y4.reshape(-1, n_feat)
     return (ct_xo.reshape(xo.shape), ct_xd.reshape(xd.shape), ct_y, ct_w)
 
 
@@ -193,20 +245,40 @@ def _check_widths(xo, xd, w, scale):
     return tuple(lead)
 
 
+def _check_dtypes(xo, xd, w, rest=None, saved=()):
+    """The form these inputs take, fp32 or bf16: ``xo``, ``xd`` and the
+    ``saved`` tensors (the output and its cotangent) at one of the two,
+    ``w`` and ``rest`` fp32. Any other dtype raises."""
+    form = xo.dtype
+    if form not in (FP32, BF16):
+        raise ValueError(f"grid_tail: xo is {form}; the kernel takes "
+                         f"float32 or bfloat16")
+    for name, t, want in ((("xd", xd, form), ("w", w, FP32))
+                          + ((("rest", rest, FP32),) if rest is not None
+                             else ())
+                          + tuple((n, t, form) for n, t in saved)):
+        if t.dtype != want:
+            raise ValueError(f"grid_tail: {name} is {t.dtype}; with xo "
+                             f"{form} it must be {want}")
+    return form
+
+
 def _aligned(t):
-    """``t`` as contiguous fp32 starting on a 16-byte boundary, as the bulk
+    """``t`` contiguous and starting on a 16-byte boundary, as the bulk
     copies of K2 and K3 need (a view into a larger tensor may start
-    elsewhere)."""
-    t = t.to(torch.float32).contiguous()
+    elsewhere). Its dtype is checked before and kept."""
+    t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def grid_tail_fwd(xo, xd, w, rest, scale: Sequence[float]):
     """The K2 wrapper: (*L, 8, 30), (*L, 7, 30), (30, 5) and rest of shape
-    (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) fp32. CPU tensors
-    run ``grid_tail_plain``; CUDA tensors run K2 on the current stream,
-    without waiting for the device. Records no gradient."""
+    (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) at xo's dtype
+    (the fp32 or the bf16 form). CPU tensors run ``grid_tail_plain``; CUDA
+    tensors run K2 on the current stream, without waiting for the device.
+    Records no gradient."""
     lead = _check_widths(xo, xd, w, scale)
+    form = _check_dtypes(xo, xd, w, rest)
     if xo.device.type == "cpu":
         return grid_tail_plain(xo, xd, w, rest, scale)
     launch = _entry()
@@ -216,23 +288,29 @@ def grid_tail_fwd(xo, xd, w, rest, scale: Sequence[float]):
     ins = [_aligned(t) for t in (xo, xd, w, rest)]
     n = math.prod(lead)
     out = torch.empty(*lead, N_OCTAVES * N_SCALE_DEGREES, N_FEATURES,
-                      dtype=torch.float32, device=xo.device)
+                      dtype=form, device=xo.device)
     if n == 0:
         return out
     stream = torch.cuda.current_stream(xo.device).cuda_stream
     rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
-                out.data_ptr(), n, rest_rep, rest_inner, stream)
+                out.data_ptr(), n, rest_rep, rest_inner, int(form == BF16),
+                stream)
     if rc != 0:
         raise RuntimeError(f"grid tail kernel launch failed: CUDA error {rc}")
-    grid_tail.launches += 1
+    if form == BF16:
+        grid_tail.launches_bf16 += 1
+    else:
+        grid_tail.launches += 1
     return out
 
 
 def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
     """The K3 wrapper: the cotangents (ct_xo, ct_xd, ct_y, ct_w) of the tail
     from its inputs ``xo``, ``xd``, ``w``, its output ``out`` and the
-    output's cotangent ``ct``. CPU tensors run ``grid_tail_bwd_plain``;
-    CUDA tensors run K3 on the current stream (``bwd_grid`` blocks), whose
+    output's cotangent ``ct``, in the fp32 form or the bf16 form (bf16
+    ``xo``, ``xd``, ``out`` and ``ct``; ct_xo and ct_xd come back bf16,
+    ct_y and ct_w fp32). CPU tensors run ``grid_tail_bwd_plain``; CUDA
+    tensors run K3 on the current stream (``bwd_grid`` blocks), whose
     per-block ct_w partials are summed here, without waiting for the
     device."""
     lead = _check_widths(xo, xd, w, scale)
@@ -241,15 +319,18 @@ def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
         if tuple(t.shape) != want:
             raise ValueError(f"grid_tail_bwd: {name} {tuple(t.shape)} must "
                              f"be {want}")
+    form = _check_dtypes(xo, xd, w, saved=(("out", out), ("ct", ct)))
     if xo.device.type == "cpu":
         return grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
-    launch, (_, _, per_sm, rows_per_tile) = _bwd_entry()
+    launch, infos = _bwd_entry()
+    _, _, per_sm, rows_per_tile = infos[form]
     if not xo.is_cuda:
         raise ValueError(f"grid_tail_bwd: unsupported device {xo.device}")
     dev = xo.device
     ins = [_aligned(t) for t in (xo, xd, out, ct, w)]
     n = math.prod(lead)
-    ct_xo, ct_xd, ct_y = (torch.empty_like(t) for t in ins[:3])
+    ct_xo, ct_xd = (torch.empty_like(t) for t in ins[:2])
+    ct_y = torch.empty(want, dtype=FP32, device=dev)
     if n == 0:
         return ct_xo, ct_xd, ct_y, torch.zeros(GRID_DEPTH, N_FEATURES,
                                                device=dev)
@@ -259,20 +340,24 @@ def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
                 ct_xo.data_ptr(), ct_xd.data_ptr(), ct_y.data_ptr(),
-                parts.data_ptr(), n, blocks, stream)
+                parts.data_ptr(), n, blocks, int(form == BF16), stream)
     if rc != 0:
         raise RuntimeError(f"grid tail backward kernel launch failed: "
                            f"CUDA error {rc}")
-    grid_tail_bwd.launches += 1
+    if form == BF16:
+        grid_tail_bwd.launches_bf16 += 1
+    else:
+        grid_tail_bwd.launches += 1
     return ct_xo, ct_xd, ct_y, parts.sum(dim=0)
 
 
 class GridTail(torch.autograd.Function):
     """The tail with its gradient: K2 forward, K3 backward (their plain
-    versions on the CPU). It saves (xo, xd, out, w), the residuals of the
-    JAX custom VJP (pallas_grid.py:231). ``rest`` of shape (L0, 1, …) gets
-    ct_y summed over the channel axis, as autodiff of ``broadcast_to`` does
-    in the JAX package (:470)."""
+    versions on the CPU), both in the form of xo's dtype. It saves (xo, xd,
+    out, w), the residuals of the JAX custom VJP (pallas_grid.py:231); in
+    the bf16 form ``out`` is the bf16 output. ``rest`` of shape (L0, 1, …)
+    gets ct_y summed over the channel axis, as autodiff of ``broadcast_to``
+    does in the JAX package (:470)."""
 
     @staticmethod
     def forward(ctx, xo, xd, w, rest, scale):
@@ -296,7 +381,8 @@ class GridTail(torch.autograd.Function):
 
 def grid_tail(xo, xd, w, rest, scale: Sequence[float]):
     """The note-grid tail: (*L, 8, 30), (*L, 7, 30), (30, 5) and rest of
-    shape (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) fp32. When
+    shape (*L, 56, 5) or (L0, 1, *L[2:], 56, 5) -> (*L, 56, 5) at xo's
+    dtype (fp32, or bf16 under the bf16 storage policy). When
     autograd records, the output's gradient runs K3 (``GridTail``);
     otherwise K2 runs alone on CUDA tensors, ``grid_tail_plain`` on CPU
     tensors."""
@@ -307,4 +393,6 @@ def grid_tail(xo, xd, w, rest, scale: Sequence[float]):
 
 
 grid_tail.launches = 0
+grid_tail.launches_bf16 = 0
 grid_tail_bwd.launches = 0
+grid_tail_bwd.launches_bf16 = 0

@@ -8,6 +8,9 @@ backward direction — and gate order (i, f, g, o). The arithmetic follows the
 JAX scan step for step: ``x @ W_ih^T + (b_ih + b_hh)`` for every step at
 once, then per step ``gates = gx + h @ W_hh^T``. The JAX package has no
 Pallas kernel here; the recurrence is a Python loop of plain tensor ops.
+Both products run under the compute dtype (mst_torch.ops.precision), with
+W_hh cast once before the loop; the carries stay fp32 even when ``x``
+arrives at a bf16 storage dtype (mst_tpu/ops/lstm.py:91-127,180-184).
 
 A fresh module draws every leaf from U(+-1/sqrt(H)), torch.nn.LSTM's init
 and mst_tpu's (ops/lstm.py:53-75), through ``reset_parameters``.
@@ -25,6 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mst_torch.ops import precision
 from mst_torch.ops.init import uniform_
 from mst_torch.ops.shapes import masked_flip, masked_last
 
@@ -54,7 +58,7 @@ def _projected(module: nn.Module, suffix: str, x):
     w_ih = getattr(module, f"weight_ih_l0{suffix}")
     b = (getattr(module, f"bias_ih_l0{suffix}")
          + getattr(module, f"bias_hh_l0{suffix}"))
-    return torch.matmul(x, w_ih.t()) + b
+    return precision.matmul(x, w_ih.t()) + b
 
 
 def _recur(gates_x, w_hh_t):
@@ -62,11 +66,13 @@ def _recur(gates_x, w_hh_t):
     directions, ``w_hh_t``: (K, H, 4H). Returns outputs (K, N, T, H)."""
     k, n, t, _ = gates_x.shape
     h_dim = w_hh_t.shape[1]
+    # the carries follow the gates' dtype: fp32 under either policy
     h = gates_x.new_zeros(k, n, h_dim)
     c = gates_x.new_zeros(k, n, h_dim)
+    w_hh_t = precision.cast_operand(w_hh_t)
     outs = []
     for step in range(t):
-        gates = gates_x[:, :, step] + torch.bmm(h, w_hh_t)
+        gates = gates_x[:, :, step] + precision.matmul(h, w_hh_t)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)

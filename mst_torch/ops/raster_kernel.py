@@ -8,10 +8,18 @@ zero-fills the raster and then applies one note per thread with an
 int-bit ``atomicMax`` that is exact for every fp32 value (NaN wins,
 negatives and -0.0 lose to the zero base), so any valid input is taken.
 
+The raster comes in fp32 or, for the bf16 storage policy, in bf16
+(``out_dtype``, as ``_pallas_call``'s, pallas_raster.py:85-90). The bf16
+form is the bf16 cast of the fp32 raster: rounding to nearest is monotone,
+so the cast commutes with the max (mst_tpu/ops/device_raster.py:128-133).
+The kernel writes the bf16 raster directly, once: the same int-bit max on
+the 16-bit pattern, through a 16-bit compare-and-swap.
+
 ``rasterize`` is the wrapper: a tensor on the CPU takes the plain version
 ``segment_rasterize_plain``; a tensor anywhere else launches the kernel or
 raises. It checks dtypes and shapes only and never waits for the device.
-``rasterize.launches`` counts kernel launches.
+``rasterize.launches`` counts the fp32 form's launches,
+``rasterize.launches_bf16`` the bf16 form's.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import functools
 import torch
 
 from mst_torch.ops import cuda_build
+from mst_torch.ops.precision import BF16, FP32
 
 SENTINEL_ROW = 2 ** 30
 
@@ -32,7 +41,7 @@ def _entry():
     fn = cuda_build.load("raster").mst_raster
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -50,15 +59,24 @@ def _check_records(row, note_idx, acc, duration, velocity, valid):
                              f"{tuple(t.shape)} {t.dtype}")
 
 
+def _check_out_dtype(out_dtype):
+    if out_dtype not in (FP32, BF16):
+        raise ValueError(f"rasterize: out_dtype {out_dtype}; the kernel "
+                         f"writes float32 or bfloat16")
+
+
 def segment_rasterize_plain(row, note_idx, acc, duration, velocity, valid,
-                            n_rows: int, n_notes: int, n_feat: int):
-    """Plain torch scatter-max -> (n_rows, n_notes * n_feat) fp32 on a zero
+                            n_rows: int, n_notes: int, n_feat: int,
+                            out_dtype=FP32):
+    """Plain torch scatter-max -> (n_rows, n_notes * n_feat) on a zero
     base: the semantics of mst_tpu.ops.device_raster.segment_rasterize
     (``.at[].max``) through ``scatter_reduce_(..., "amax")``. Notes that are
     invalid, or whose row or lane lies outside the raster, are skipped.
     -0.0 becomes +0.0 before the scatter: on the CPU torch's max keeps the
     zero base against it, on CUDA its atomic would store -0.0, and JAX and
-    K1 keep +0.0. NaN of either sign propagates."""
+    K1 keep +0.0. NaN of either sign propagates. The max is taken in fp32
+    and the raster cast once to ``out_dtype``."""
+    _check_out_dtype(out_dtype)
     lanes = n_notes * n_feat
     out = torch.zeros(n_rows * lanes, dtype=torch.float32,
                       device=row.device)
@@ -77,37 +95,43 @@ def segment_rasterize_plain(row, note_idx, acc, duration, velocity, valid,
     inside = (col >= 0) & (col < lanes)
     idx = torch.cat([r] * len(cols))[inside] + col[inside]
     out.scatter_reduce_(0, idx, val[inside], "amax", include_self=True)
-    return out.view(n_rows, lanes)
+    return out.view(n_rows, lanes).to(out_dtype)
 
 
 def rasterize(row, note_idx, acc, duration, velocity, valid,
-              n_rows: int, n_notes: int, n_feat: int):
+              n_rows: int, n_notes: int, n_feat: int, out_dtype=FP32):
     """Scatter-max rasterization of (N,) note records -> (n_rows,
-    n_notes * n_feat) fp32. CPU tensors run the plain version; CUDA tensors
-    run K1, one launch that writes the whole raster, on the current stream
-    and without waiting for the device."""
+    n_notes * n_feat) at ``out_dtype`` (fp32 or bf16). CPU tensors run the
+    plain version; CUDA tensors run K1, one launch that writes the whole
+    raster, on the current stream and without waiting for the device."""
     _check_records(row, note_idx, acc, duration, velocity, valid)
+    _check_out_dtype(out_dtype)
     if row.device.type == "cpu":
         return segment_rasterize_plain(row, note_idx, acc, duration,
                                        velocity, valid, n_rows, n_notes,
-                                       n_feat)
+                                       n_feat, out_dtype)
     launch = _entry()
     if not row.is_cuda:
         raise ValueError(f"rasterize: unsupported device {row.device}")
     ins = [t.contiguous() for t in (row, note_idx, acc, duration, velocity,
                                     valid)]
-    out = torch.empty((n_rows, n_notes * n_feat), dtype=torch.float32,
+    out = torch.empty((n_rows, n_notes * n_feat), dtype=out_dtype,
                       device=row.device)
     if out.numel() == 0:
         return out
     n = ins[0].shape[0]
     stream = torch.cuda.current_stream(row.device).cuda_stream
+    bf16 = out_dtype == BF16
     rc = launch(*(t.data_ptr() for t in ins), n, n_rows, n_notes, n_feat,
-                out.data_ptr(), stream)
+                int(bf16), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error {rc}")
-    rasterize.launches += 1
+    if bf16:
+        rasterize.launches_bf16 += 1
+    else:
+        rasterize.launches += 1
     return out
 
 
 rasterize.launches = 0
+rasterize.launches_bf16 = 0

@@ -25,6 +25,13 @@ returned, to keep the JAX package's call shape.
 On the card each batch's rasters are built by K1 (``device_batch_from_songs``)
 and the pitched applier's note-grid tail runs forward through K2 and
 backward through K3 (mst_torch.ops.grid_kernel.GridTail).
+
+The step runs under the model config's numeric policy
+(``ModelConfig.compute_dtype`` and ``storage_dtype``,
+mst_torch.ops.precision): with bf16 storage the rasters are built at bf16
+(``raster_dtype``), the grid-scale activations are stored at bf16 and the
+tail runs the bf16 forms of K2 and K3. Parameters, gradients, the
+accumulated gradient and the Adam state stay fp32.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from torch.optim.lr_scheduler import StepLR
 from mst_torch.config import Config
 from mst_torch.data.pipeline import Song, get_used_instruments, prepare_input
 from mst_torch.models import StyleTransferModel
+from mst_torch.ops import precision
 from mst_torch.ops.losses import LossDict, total_loss
 from mst_torch.ops.shapes import split_note_features
 from mst_torch.transfer import strict_fp32
@@ -158,14 +166,23 @@ def _make_step_fn(config: Config, has_unpitched: bool):
 
     def step(state: TrainState, batch: Batch):
         model = state.model
-        if config.train.remat:
-            # recompute the forward during backward instead of saving
-            # activations
-            losses = torch.utils.checkpoint.checkpoint(
-                loss_fn, model, batch, has_unpitched, use_reentrant=False)
-        else:
-            losses = loss_fn(model, batch, has_unpitched)
-        losses.total.backward()
+        # the config's numeric policy, for the forward and (through the
+        # dtypes it leaves on the saved tensors) the backward
+        with precision.precision(config.model.compute_dtype,
+                                 storage=config.model.storage_dtype):
+            batch = batch._replace(
+                pitched=precision.cast_storage(batch.pitched),
+                unpitched=(None if batch.unpitched is None else
+                           precision.cast_storage(batch.unpitched)))
+            if config.train.remat:
+                # recompute the forward during backward instead of saving
+                # activations
+                losses = torch.utils.checkpoint.checkpoint(
+                    loss_fn, model, batch, has_unpitched,
+                    use_reentrant=False)
+            else:
+                losses = loss_fn(model, batch, has_unpitched)
+            losses.total.backward()
         state.micro_step += 1
         if state.micro_step % iter_size == 0:
             apply_updates(state)
@@ -347,24 +364,29 @@ def _song_labels(songs, channel_counts, max_channels, max_uchannels, has_u):
 
 
 def device_batch_from_song(song: Song, max_channels: int, max_bars: int,
-                           bar_cap: Optional[int] = None,
-                           device="cuda") -> Optional[Batch]:
+                           bar_cap: Optional[int] = None, device="cuda",
+                           raster_dtype="float32") -> Optional[Batch]:
     """Bucket-padded batch of one whose rasters are built on the device by
     K1 from the song's note records. None for a silent song."""
     if song.pitched_empty:
         return None
     return device_batch_from_songs([song], max_channels, max_bars,
-                                   bar_cap=bar_cap, device=device)
+                                   bar_cap=bar_cap, device=device,
+                                   raster_dtype=raster_dtype)
 
 
 def device_batch_from_songs(songs, max_channels: int, max_bars: int,
                             bar_cap=None, max_uchannels: int = 1,
-                            device="cuda") -> Batch:
+                            device="cuda", raster_dtype="float32") -> Batch:
     """Collate N songs into one fixed-shape Batch whose rasters are built on
     the device: one K1 launch per note family for the whole batch, so only
     the note records cross to the device. Masks and labels equal
     pad_batch's; the songs must share beats-per-bar. The rasters stay
-    NF-fused (…, N*F); ``loss_fn`` splits them."""
+    NF-fused (…, N*F); ``loss_fn`` splits them.
+
+    ``raster_dtype``: K1 writes the rasters at this dtype (pass the
+    config's storage_dtype: a bf16-storage step then never holds the fp32
+    raster, and its cast_storage of the batch is a no-op)."""
     from mst_torch.ops.device_raster import device_rasterize_batch
     from mst_torch.ops.rasterize import Rasterizer
 
@@ -381,17 +403,20 @@ def device_batch_from_songs(songs, max_channels: int, max_bars: int,
         valid_bars.append(R)
         channel_counts.append(min(song.n_channels, max_channels))
 
+    out_dtype = precision.as_dtype(raster_dtype)
     pitched = device_rasterize_batch(
         rasterizers, [s.pitched_notes[:c] for s, c in
                       zip(songs, channel_counts)], True, max_channels,
-        max_bars, valid_bars, fuse_nf=True, device=device)
+        max_bars, valid_bars, fuse_nf=True, device=device,
+        out_dtype=out_dtype)
     has_u = [s.has_unpitched for s in songs]
     unpitched = None
     if any(has_u):
         unpitched = device_rasterize_batch(
             rasterizers, [(s.unpitched_notes[:max_uchannels] if h else [])
                           for s, h in zip(songs, has_u)], False,
-            max_uchannels, max_bars, valid_bars, fuse_nf=True, device=device)
+            max_uchannels, max_bars, valid_bars, fuse_nf=True, device=device,
+            out_dtype=out_dtype)
 
     instf, cmask, umask, mode, bpm, used = _song_labels(
         songs, channel_counts, max_channels, max_uchannels, has_u)

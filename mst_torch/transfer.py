@@ -24,6 +24,13 @@ bar buckets are kept, so shapes and masks match the JAX program one to one.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``ModelBundle(device=None)`` resolves to ``cuda`` and raises without it.
+
+Every stage runs under the model config's compute dtype
+(mst_torch.ops.precision). The extraction stage may store its activations
+at bf16 (``ModelBundle.extract_storage_dtype``; K1 then writes its raster
+at bf16); the apply stage always runs at fp32 storage, whatever policy the
+process has set, so its packed outputs stay those of the fp32 path
+(mst_tpu/transfer.py:285-345,490-494,520-580).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from mst_torch.exceptions import MidiFormatError
 from mst_torch.io import create_midi, load_midi_from_file, native
 from mst_torch.io.midi import bpm2tempo
 from mst_torch.models import StyleTransferModel
+from mst_torch.ops import precision
 from mst_torch.ops.device_raster import (
     concat_and_pad, encode_notes, segment_rasterize)
 from mst_torch.ops.events import SongInfo, read_midi
@@ -85,31 +93,48 @@ def strict_fp32() -> None:
 
 @dataclasses.dataclass
 class ModelBundle:
-    """The model on its device. ``device=None`` resolves to ``cuda``."""
+    """The model on its device. ``device=None`` resolves to ``cuda``.
+    ``extract_storage_dtype``: the activation storage dtype of the
+    extraction stage alone ("bfloat16" or None, which means float32)."""
 
     model: StyleTransferModel
     device: Optional[object] = None
+    extract_storage_dtype: Optional[str] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.extract_storage_dtype is not None:
+            precision.as_dtype(self.extract_storage_dtype)
         self.model = self.model.to(self.device).eval()
         self._feature_table = torch.as_tensor(
             category_feature_table(), dtype=torch.float32).to(self.device)
 
+    def policy(self, storage=None):
+        """The numeric policy of one stage: the model config's compute dtype
+        and ``storage``, where None pins float32 storage and never inherits
+        the process's (mst_tpu's ModelBundle._wrap_precision)."""
+        return precision.precision(self.model.config.compute_dtype,
+                                   storage=storage or "float32")
+
     @classmethod
     def from_npz(cls, path: str = weights.SNAPSHOT_NPZ, device=None,
-                 config: ModelConfig = ModelConfig()) -> "ModelBundle":
+                 config: ModelConfig = ModelConfig(),
+                 extract_storage_dtype: Optional[str] = None
+                 ) -> "ModelBundle":
         """A bundle with the params of an npz export (default: the committed
         ``snapshots/4900`` export)."""
         device = resolve_device(device)
         model = StyleTransferModel(config)
         model.load_state_dict(weights.state_dict_from_flax(
             weights.load_npz(path)))
-        return cls(model=model, device=device)
+        return cls(model=model, device=device,
+                   extract_storage_dtype=extract_storage_dtype)
 
     @classmethod
     def from_checkpoint(cls, directory: str, device=None,
-                        config: ModelConfig = ModelConfig()) -> "ModelBundle":
+                        config: ModelConfig = ModelConfig(),
+                        extract_storage_dtype: Optional[str] = None
+                        ) -> "ModelBundle":
         """A bundle with the params of the latest checkpoint that the port's
         trainer (``train-model-torch.py``) wrote under ``directory``
         (mst_tpu's load_trained_params)."""
@@ -121,7 +146,8 @@ class ModelBundle:
             raise FileNotFoundError(f"no checkpoint in {directory}")
         model = StyleTransferModel(config)
         model.load_state_dict(state_dict)
-        return cls(model=model, device=device)
+        return cls(model=model, device=device,
+                   extract_storage_dtype=extract_storage_dtype)
 
 
 def _pack_word(x, ticks_per_beat):
@@ -285,12 +311,14 @@ def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
                             Cb, Rb, T):
     """On-device rasterization of both note families (K1) + the latent
     extractor for a batch of B songs (mst_tpu's _raster_extract_latents).
-    The raster stays NF-fused, (…, 56*5); the model splits it."""
-    flat_p = segment_rasterize(*p_notes, B * Cb * Rb * T * 10, 56, 5)
+    K1 writes the rasters at the storage dtype in force. The raster stays
+    NF-fused, (…, 56*5); the model splits it."""
+    store = precision.storage_dtype()
+    flat_p = segment_rasterize(*p_notes, B * Cb * Rb * T * 10, 56, 5, store)
     pitched = flat_p.reshape(B, Cb, Rb, T, 10, 56 * 5)
     unpitched = None
     if u_notes is not None:
-        flat_u = segment_rasterize(*u_notes, B * Rb * T * 10, 47, 2)
+        flat_u = segment_rasterize(*u_notes, B * Rb * T * 10, 47, 2, store)
         unpitched = flat_u.reshape(B, 1, Rb, T, 10, 47 * 2)
     return model.extract_style(mode, bpm, pitched, instf, unpitched,
                                bar_lengths=lengths, channel_mask=cmask,
@@ -315,8 +343,9 @@ def extract_styles(bundle: ModelBundle, songs: Sequence[Song]):
     for (T, has_unpitched), members in zip(group_keys, group_members):
         inputs, Rs = _extract_inputs(bundle, [songs[i] for i in members], T,
                                      has_unpitched)
-        style, melody, rhythm = _raster_extract_latents(bundle.model,
-                                                        **inputs)
+        with bundle.policy(bundle.extract_storage_dtype):
+            style, melody, rhythm = _raster_extract_latents(bundle.model,
+                                                            **inputs)
         for row, i in enumerate(members):
             locators[i] = (len(batches), row)
         batches.append(LatentBatch(style=style, melody=melody, rhythm=rhythm,
@@ -335,7 +364,15 @@ def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
     mst_tpu's header fields (transfer.py:108) [bpm, mode, n_picked,
     has_unpitched, count_p, count_u] without its TPU routing counts,
     picked (Cb,) int32, rec_p (count_p, 2) uint32, rec_u (count_u, 2)
-    uint32)`` and the apply channel bucket Cb."""
+    uint32)`` and the apply channel bucket Cb. Runs at fp32 storage."""
+    with bundle.policy():
+        return _apply_jobs(bundle, infos, style_mat, melody_mat, rhythm_mat,
+                           style_idx, comp_idx, n_instruments_list,
+                           n_bars_list, host_work)
+
+
+def _apply_jobs(bundle, infos, style_mat, melody_mat, rhythm_mat, style_idx,
+                comp_idx, n_instruments_list, n_bars_list, host_work):
     dev = bundle.device
     model = bundle.model
     B = len(infos)

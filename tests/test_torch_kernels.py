@@ -25,6 +25,12 @@ kernels replace:
   interpret=True)``) and autodiff of ``_tail_jnp`` within
   tests/test_fused_tails.py's tolerance, and autograd through ``GridTail``
   must match autograd of ``grid_tail_plain``.
+- The bf16 forms (the bf16 storage policy): K1's bf16 raster must be the
+  fp32 raster cast to bf16 and mst_tpu's ``segment_rasterize(out_dtype=
+  bfloat16)`` and Pallas raster, bit for bit, and a numpy model of the
+  kernel's 16-bit rule on edge values; the bf16 tail's plain forward and
+  backward must track ``_tail_jnp`` and its gradients on bf16 inputs, in
+  JAX's dtypes, within the tolerances stated there.
 """
 
 import jax
@@ -37,6 +43,7 @@ from mst_tpu.ops import device_raster as jdr
 from mst_tpu.ops.pallas_grid import _tail_unrolled, fused_grid_tail
 from mst_tpu.ops.pallas_raster import pallas_rasterize
 from mst_torch.ops import device_raster, grid_kernel, raster_kernel
+from mst_torch.ops.precision import BF16
 
 SCALE = (6.0, 1.0, 1.0, 1.0, 1.0)
 K2_ATOL = 1e-6
@@ -556,3 +563,222 @@ def test_grid_tail_bwd_ct_w_order_matches_plain_and_pallas(lead, grid):
                           ct_y.numpy().reshape(n, 56, 5), grid)
     _assert_grad_close(got, want_plain.numpy(), "plain")
     _assert_grad_close(got, want_pallas, "pallas")
+
+
+# ------------------------------------------------- the bf16 forms
+
+def _jax_records(dn):
+    return tuple(jnp.asarray(a) for a in (dn.row, dn.note_idx, dn.acc,
+                                          dn.duration, dn.velocity, dn.valid))
+
+
+def _bf16_bits(x):
+    """The 16-bit patterns of a bf16 array or tensor, as int16."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy()
+    return np.asarray(x).view(np.int16)
+
+
+@pytest.mark.parametrize("n_notes,n_feat", [(56, 5), (47, 2)])
+@pytest.mark.parametrize("n,n_rows", [(300, 40), (900, 1100)])
+def test_raster_bf16_plain_is_the_cast_and_matches_jax(n, n_rows, n_notes,
+                                                       n_feat):
+    """K1's bf16 plain version is its fp32 plain version cast to bf16, and
+    mst_tpu's segment_rasterize and Pallas raster at out_dtype=bfloat16
+    (tests/test_device_raster.py:108-127), bit for bit; on the CPU it
+    launches nothing."""
+    rng = np.random.default_rng(n + n_rows + n_feat + 1)
+    dn = _records(rng, n, n_rows, n_notes, n_feat, spill_rows=n_rows // 8)
+    before = raster_kernel.rasterize.launches_bf16
+    got = raster_kernel.rasterize(*_torch_args(dn), n_rows, n_notes, n_feat,
+                                  out_dtype=BF16)
+    assert raster_kernel.rasterize.launches_bf16 == before
+    assert got.dtype == BF16 and tuple(got.shape) == (n_rows,
+                                                      n_notes * n_feat)
+    cast = raster_kernel.segment_rasterize_plain(
+        *_torch_args(dn), n_rows, n_notes, n_feat).to(BF16)
+    want_jnp = jdr.segment_rasterize(*_jax_records(dn), n_rows, n_notes,
+                                     n_feat, out_dtype=jnp.bfloat16)
+    row = np.where(dn.valid, dn.row, 2 ** 30).astype(np.int32)
+    order = np.argsort(row, kind="stable")
+    sorted_dn = jdr.DeviceNotes(row[order], *(a[order] for a in (
+        dn.note_idx, dn.acc, dn.duration, dn.velocity, dn.valid)))
+    want_pallas = pallas_rasterize(sorted_dn, n_rows, n_notes, n_feat,
+                                   interpret=True, out_dtype=jnp.bfloat16)
+    for want in (_bf16_bits(cast), _bf16_bits(want_jnp),
+                 _bf16_bits(want_pallas)):
+        np.testing.assert_array_equal(_bf16_bits(got), want)
+
+
+def _kernel_rule_bf16(dn, n_rows, n_notes, n_feat):
+    """K1's bf16 rule in numpy: each value rounded to bf16 (round to
+    nearest even; a NaN becomes the canonical 0x7FC0), then a signed 16-bit
+    max of the patterns on a zero base."""
+    lanes = n_notes * n_feat
+    out = np.zeros(n_rows * lanes, np.int16)
+    keep = dn.valid & (dn.row >= 0) & (dn.row < n_rows)
+    base = dn.row[keep].astype(np.int64) * lanes
+    lane0 = dn.note_idx[keep].astype(np.int64) * n_feat
+    pairs = [(lane0, dn.duration[keep]), (lane0 + 1, dn.velocity[keep])]
+    if n_feat == 5:
+        pairs.append((lane0 + 2 + dn.acc[keep],
+                      np.ones(int(keep.sum()), np.float32)))
+    for lane, value in pairs:
+        u = value.view(np.uint32).astype(np.uint64)
+        rounded = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+        bits = np.where(np.isnan(value), np.int16(0x7FC0),
+                        rounded.view(np.int16))
+        inside = (lane >= 0) & (lane < lanes)
+        np.maximum.at(out, base[inside] + lane[inside], bits[inside])
+    return out.reshape(n_rows, lanes)
+
+
+@pytest.mark.parametrize("n,n_rows", [(2000, 30), (400, 300)])
+def test_raster_bf16_edge_values_match_the_kernel_rule(n, n_rows):
+    """On edge values (negatives, +-0.0, NaN of both signs, +-inf) the
+    bf16 plain version, mst_tpu's bf16 segment_rasterize and the numpy
+    model of K1's 16-bit compare-and-swap rule agree: NaN in the same
+    cells, the same bits elsewhere."""
+    rng = np.random.default_rng(n + n_rows + 2)
+    dn = _edge_records(rng, n, n_rows, 56)
+    got = _bf16_bits(raster_kernel.segment_rasterize_plain(
+        *_torch_args(dn), n_rows, 56, 5, out_dtype=BF16))
+    want_jax = _bf16_bits(jdr.segment_rasterize(
+        *_jax_records(dn), n_rows, 56, 5, out_dtype=jnp.bfloat16))
+    rule = _kernel_rule_bf16(dn, n_rows, 56, 5)
+
+    def nan(bits):
+        return ((bits & 0x7F80) == 0x7F80) & ((bits & 0x7F) != 0)
+
+    for want in (want_jax, rule):
+        np.testing.assert_array_equal(nan(got), nan(want))
+        np.testing.assert_array_equal(got[~nan(want)], want[~nan(want)])
+    assert nan(rule).any() and (rule == 0x7F80).any()
+    assert not ((rule < 0) & ~nan(rule)).any()
+
+
+def _bf16_tail_case(lead, full_rest):
+    """Tail inputs with bf16 xo and xd, for both frameworks, and a bf16
+    cotangent of the (bf16-stored) output."""
+    rng = np.random.default_rng(sum(lead) + full_rest + 20)
+    xo, xd, w, rest = _tail_inputs(rng, lead, full_rest)
+    ct = rng.normal(size=lead + (56, 5)).astype(np.float32)
+    j = (jnp.asarray(xo, jnp.bfloat16), jnp.asarray(xd, jnp.bfloat16),
+         jnp.asarray(w), jnp.asarray(rest))
+    t = tuple(torch.from_numpy(np.array(a.astype(jnp.float32))).to(d)
+              for a, d in zip(j, (BF16, BF16, torch.float32, torch.float32)))
+    j_ct = jnp.asarray(ct, jnp.bfloat16)
+    t_ct = torch.from_numpy(np.array(j_ct.astype(jnp.float32))).to(BF16)
+    return j, t, j_ct, t_ct
+
+
+@pytest.mark.parametrize("lead,full_rest", [
+    ((2, 3, 4, 2, 5), False),
+    ((1, 3, 7, 3, 1), False),
+    ((2, 2, 3, 1, 4), True),
+], ids=["broadcast", "63-rows", "full"])
+def test_bf16_tail_plain_tracks_jax_tail_and_its_gradients(lead, full_rest):
+    """The bf16 form against mst_tpu's tail under bf16 storage: its jnp
+    tail on bf16 xo/xd with the output cast to bf16 (appliers.py:85-89) and
+    jax.grad of that (tests/test_fused_tails.py:130-145).
+
+    - Forward: within one bf16 rounding of JAX's output (|diff| <= 2**-8
+      |want|): the two K-sums are fp32 sums in other orders, which may
+      land on the two sides of a rounding boundary (0 values differed when
+      this test was written).
+    - Dtypes: ct_xo and ct_xd bf16, ct_w and ct_rest fp32.
+    - Gradients: within 2e-2 of each cotangent's largest |value|. Two
+      effects, measured when this test was written: the bf16 sums over d
+      and o, which XLA's CPU backend rounds elsewhere than the kernel's
+      fp32 accumulation (ct_xo, ct_xd 0.5-1.1% of the largest value,
+      whatever the saved output); and the saved output, which the bf16
+      form takes at bf16 where JAX recomputes it at fp32 (ct_w, ct_rest:
+      0.4-1.2% with the bf16 output, under 2e-5 with JAX's fp32 output, as
+      the last check shows)."""
+    from mst_tpu.ops.pallas_grid import _tail_jnp
+
+    j, t, j_ct, t_ct = _bf16_tail_case(lead, full_rest)
+
+    def j_out(*a):
+        return _tail_jnp(*a, SCALE).astype(jnp.bfloat16)
+
+    want = np.asarray(j_out(*j).astype(jnp.float32))
+    out = grid_kernel.grid_tail_plain(*t, SCALE)
+    assert out.dtype == BF16
+    got = out.float().numpy()
+    assert (np.abs(got - want) <= 2.0 ** -8 * np.abs(want)).all()
+
+    want_g = jax.grad(lambda *a: (j_out(*a).astype(jnp.float32)
+                                  * j_ct.astype(jnp.float32)).sum(),
+                      argnums=(0, 1, 2, 3))(*j)
+    assert [str(g.dtype) for g in want_g] == ["bfloat16", "bfloat16",
+                                              "float32", "float32"]
+
+    def grads(saved_out):
+        ct_xo, ct_xd, ct_y, ct_w = grid_kernel.grid_tail_bwd_plain(
+            t[0], t[1], saved_out, t_ct, t[2], SCALE)
+        ct_rest = ct_y if full_rest else ct_y.sum(dim=1, keepdim=True)
+        return ct_xo, ct_xd, ct_w, ct_rest
+
+    got_g = grads(out)
+    assert [g.dtype for g in got_g] == [BF16, BF16, torch.float32,
+                                        torch.float32]
+    for name, g, w in zip(("xo", "xd", "w", "rest"), got_g, want_g):
+        g = g.float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.shape == w.shape, name
+        assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
+    # the cost of saving the bf16 output: with JAX's fp32 output the
+    # parameter cotangents agree to fp32 reassociation
+    out32 = torch.from_numpy(np.array(_tail_jnp(*j, SCALE)))
+    for name, g, w in zip(("w", "rest"), grads(out32)[2:], want_g[2:]):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 2e-5 * np.abs(w).max(), name
+
+
+def test_grid_tail_bf16_autograd_dtypes_and_plain_cotangents():
+    """GridTail in its bf16 form on the CPU: a bf16 output, and a backward
+    that returns grid_tail_bwd_plain's cotangents in the inputs' dtypes,
+    counting no launch."""
+    _, t, _, t_ct = _bf16_tail_case((2, 3, 2, 2, 5), False)
+    leaves = [a.clone().requires_grad_(True) for a in t]
+    before = (grid_kernel.grid_tail.launches_bf16,
+              grid_kernel.grid_tail_bwd.launches_bf16)
+    out = grid_kernel.grid_tail(*leaves, SCALE)
+    assert out.dtype == BF16
+    got = torch.autograd.grad(out, leaves, t_ct)
+    assert [g.dtype for g in got] == [a.dtype for a in t]
+    ct_xo, ct_xd, ct_y, ct_w = grid_kernel.grid_tail_bwd_plain(
+        t[0], t[1], out.detach(), t_ct, t[2], SCALE)
+    for g, w in zip(got, (ct_xo, ct_xd, ct_w,
+                          ct_y.sum(dim=1, keepdim=True))):
+        assert torch.equal(g, w)
+    assert (grid_kernel.grid_tail.launches_bf16,
+            grid_kernel.grid_tail_bwd.launches_bf16) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_tail_wrappers_reject_dtypes_the_kernels_do_not_take(dtype):
+    """A dtype that no kernel form takes raises; nothing is converted."""
+    rng = np.random.default_rng(6)
+    xo, xd, w, rest = (torch.from_numpy(a)
+                       for a in _tail_inputs(rng, (1, 1, 1, 1, 10)))
+    out = grid_kernel.grid_tail_plain(xo, xd, w, rest, SCALE)
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail(xo.to(dtype), xd.to(dtype), w, rest, SCALE)
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail_bwd(xo.to(dtype), xd.to(dtype), out, out, w,
+                                  SCALE)
+    # a mixed form is no form either: bf16 xo with fp32 xd, bf16 w, or an
+    # fp32 output and cotangent against bf16 embeddings
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail(xo.to(BF16), xd, w, rest, SCALE)
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail(xo, xd, w.to(BF16), rest, SCALE)
+    with pytest.raises(ValueError):
+        grid_kernel.grid_tail_bwd(xo.to(BF16), xd.to(BF16), out, out, w,
+                                  SCALE)
+    with pytest.raises(ValueError):
+        raster_kernel.rasterize(*(torch.zeros(1, dtype=d) for d in (
+            torch.int32, torch.int32, torch.int32, torch.float32,
+            torch.float32, torch.bool)), 1, 56, 5, out_dtype=dtype)

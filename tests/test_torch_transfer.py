@@ -179,3 +179,54 @@ def test_committed_npz_equals_snapshot():
         assert committed[key].dtype == np.float32
         np.testing.assert_array_equal(committed[key], value, err_msg=key)
     assert sum(v.size for v in committed.values()) == 980325
+
+
+def test_bf16_extraction_latents_match_mst_tpu(bundles, tmp_path):
+    """With extract_storage_dtype="bfloat16" the port's latents track
+    mst_tpu's under the same setting: rtol 1e-2, atol 1e-3, the bf16
+    policy's tolerance in tests/test_torch_precision.py (the two store the
+    same activations at bf16; fp32 sums in other orders can land on the
+    two sides of a bf16 rounding boundary). The latents stay fp32, and
+    the setting does take effect: they differ from the fp32 extraction's."""
+    j_fp32, _ = bundles
+    j_bundle = jt.ModelBundle(model=JModel(), params=j_fp32.params,
+                              extract_storage_dtype="bfloat16")
+    t_bundle = tt.ModelBundle.from_npz(device="cpu",
+                                       extract_storage_dtype="bfloat16")
+    t_fp32 = bundles[1]
+    paths = _write_songs(tmp_path, (0, 245, 250))
+    j_songs = [jt.get_model_input(p)[1] for p in paths]
+    t_songs = [tt.get_model_input(p)[1] for p in paths]
+    want, want_loc = jt.extract_styles(j_bundle, j_songs)
+    with torch.inference_mode():
+        got, got_loc = tt.extract_styles(t_bundle, t_songs)
+        fp32, _ = tt.extract_styles(t_fp32, t_songs)
+    assert got_loc == want_loc and len(got) == len(want) == 2
+    for g, w, f in zip(got, want, fp32):
+        assert g.n_bars == w.n_bars
+        for name in ("style", "melody", "rhythm"):
+            a, b = getattr(g, name), getattr(w, name)
+            assert a.dtype == torch.float32, name
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-2,
+                                       atol=1e-3, err_msg=name)
+        assert not torch.equal(g.melody, f.melody)
+
+
+def test_apply_stage_keeps_fp32_storage_under_a_process_policy(bundles,
+                                                              tmp_path):
+    """A bf16 storage policy set around a request reaches neither stage:
+    the apply stage is pinned to fp32 storage and the extraction stage to
+    the bundle's own setting, so the files are byte-equal to a request
+    made without it."""
+    from mst_torch.ops import precision
+
+    _, t_bundle = bundles
+    comps = _write_songs(tmp_path, (0,))
+    styles = _write_songs(tmp_path, (235,))
+    want = tt.transfer_styles(t_bundle, comps, styles, str(tmp_path / "a"))
+    with precision.precision("float32", storage="bfloat16"):
+        got = tt.transfer_styles(t_bundle, comps, styles,
+                                 str(tmp_path / "b"))
+    for a, b in zip(want, got):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), os.path.basename(a)

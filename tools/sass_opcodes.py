@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Count the SASS instructions of a CUDA kernel of mst_torch, by opcode.
 
-    python tools/sass_opcodes.py grid_tail --function grid_tail_kernelILi0E \\
+    python tools/sass_opcodes.py grid_tail --function grid_tail_kernelILi0ELb0E \\
         --span "BAR.SYNC.DEFER_BLOCKING 0x1" MUFU.EX2
     python tools/sass_opcodes.py grid_tail_bwd \\
-        --function grid_tail_bwd_kernelILi0E --loops
+        --function grid_tail_bwd_kernelILi0ELb0E --loops
 
 Builds ``mst_torch/csrc/<name>.cu`` as the port builds it
 (``mst_torch.ops.cuda_build``), disassembles the library with

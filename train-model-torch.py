@@ -11,16 +11,24 @@ K2 and backward through K3.
 
     python train-model-torch.py --data corpus/ --iters 5000
     python train-model-torch.py --data corpus/ --device cpu --iters 4
+    python train-model-torch.py --data corpus/ --storage-dtype bfloat16 \
+        --compute-dtype bfloat16
+
+``--storage-dtype bfloat16`` stores the raster and the grid-scale
+activations as bf16 (K1 writes the bf16 raster; the tail runs the bf16
+forms of K2 and K3); ``--compute-dtype bfloat16`` rounds every matmul and
+conv operand to bf16 with fp32 accumulation. Parameters, gradients and the
+Adam state stay fp32 under both.
 
 Snapshots go to ``torch_snapshots/`` and the loss log to
 ``torch_training.csv`` by default (``snapshots/`` and ``training.csv`` hold
 the JAX package's run); ``mst_torch.transfer.ModelBundle.from_checkpoint``
-loads a snapshot for style transfer. Not offered yet:
-sequence parallelism and device meshes, and the bf16 compute and storage
-dtypes.
+loads a snapshot for style transfer. Not offered yet: sequence
+parallelism and device meshes.
 """
 
 import argparse
+import dataclasses
 import glob
 import os
 
@@ -53,6 +61,18 @@ def parse_args(argv=None):
     parser.add_argument("--remat", action="store_true",
                         help="recompute the forward in backward "
                              "(torch.utils.checkpoint)")
+    parser.add_argument("--compute-dtype", default=None,
+                        choices=("float32", "bfloat16"),
+                        help="matmul and conv operand dtype (parameters and "
+                             "gradients stay float32). Default: "
+                             "ModelConfig.compute_dtype")
+    parser.add_argument("--storage-dtype", default=None,
+                        choices=("float32", "bfloat16"),
+                        help="activation storage dtype: bfloat16 stores the "
+                             "raster and the grid-scale activations at half "
+                             "width (parameters, gradients, the optimizer "
+                             "and the loss reductions stay float32). "
+                             "Default: ModelConfig.storage_dtype")
     parser.add_argument("--steps-per-dispatch", type=int, default=1,
                         help="stack this many consecutive same-bucket steps "
                              "into one raster build and one loss fetch")
@@ -101,6 +121,11 @@ def main(argv=None):
     config = Config(train=TrainConfig(n_iterations=args.iters, seed=args.seed,
                                       save_interval=args.save_interval,
                                       remat=args.remat))
+    if args.compute_dtype or args.storage_dtype:
+        config = dataclasses.replace(config, model=dataclasses.replace(
+            config.model,
+            compute_dtype=args.compute_dtype or config.model.compute_dtype,
+            storage_dtype=args.storage_dtype or config.model.storage_dtype))
     t = config.train
     print(f"Using {device}" + (f": {torch.cuda.get_device_name(device)}"
                                if device.type == "cuda" else ""))
@@ -210,9 +235,10 @@ def main(argv=None):
                     batch = tr.pad_batch(songs_flat, Cb, Rb, bar_cap=caps,
                                          device=device)
             else:
-                batch = tr.device_batch_from_songs(songs_flat, Cb, Rb,
-                                                   bar_cap=caps,
-                                                   device=device)
+                # K1 writes the rasters at the storage dtype
+                batch = tr.device_batch_from_songs(
+                    songs_flat, Cb, Rb, bar_cap=caps, device=device,
+                    raster_dtype=config.model.storage_dtype)
             yield cursor, (len(groups), batch)
 
     batches = prefetch_iterator(build_stream(), depth=t.prefetch_depth)
