@@ -77,7 +77,14 @@ Phases (any failure exits non-zero):
    launch and no fp32 tail kernel may; every loss finite; the first step
    against the CPU's within ``TRAIN_BF16_LOSS_TOL`` and
    ``TRAIN_BF16_GRAD_TOL``; ms per step, device-busy share and peak memory
-   beside the fp32 run's.
+   beside the fp32 run's. The bf16 forms of K2 and K3 must give their
+   plain versions' bits (0 values differ; ct_w within ``K3_W_RTOL``), also
+   on an edge-value case (``bf16_edge_values``: sums on bf16 rounding
+   ties, bf16 subnormals, +-0, 1e30), where the sign of every zero counts.
+   One bf16 micro-step with ``TrainConfig(remat=True)`` must give the
+   same step's losses and gradients without remat bit for bit. Each tail
+   form prints its share of its bound, and each bf16 form its time against
+   the fp32 form's in this call.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -470,9 +477,9 @@ def phase_k2(torch):
             err = (got.float() - want.float()).abs().max().item()
             n_diff = int((got != want).sum())
             max_err = max(max_err, err)
-            if not err <= K2_ATOL:
+            if not err <= K2_ATOL or (bf16 and n_diff):
                 raise AssertionError(f"{label} {case}: max |err| {err} > "
-                                     f"{K2_ATOL}")
+                                     f"{K2_ATOL} or {n_diff} values differ")
             log(f"{label} {case} ({xo.numel() // 240} rows, "
                 f"{'full' if full else 'per-song'} rest): max |err| {err} "
                 f"(tolerance {K2_ATOL}), {n_diff} of {got.numel()} values "
@@ -492,10 +499,11 @@ def phase_k2(torch):
         rows = args[0].numel() // 240
         b6_ms = cuda_ms(lambda: gk.grid_tail(*args, scale), 50)
         b6_bound, _ = tail_bound_ms(rows, args[3].numel() // 280, bf16)
-        log(f"{label} at {n} rows: {ms:.4f} ms (bound {b_ms:.4f} ms); at "
-            f"the batch-6 step's {rows} rows: {b6_ms:.4f} ms (bound "
-            f"{b6_bound:.4f} ms)")
-        detail = {f"ms_{rows}_rows": b6_ms, f"bound_ms_{rows}_rows": b6_bound}
+        log(f"{label} at {n} rows: {ms:.4f} ms (bound {b_ms:.4f} ms: "
+            f"{b_ms / ms:.1%} of the bound); at the batch-6 step's {rows} "
+            f"rows: {b6_ms:.4f} ms (bound {b6_bound:.4f} ms)")
+        detail = {"share_of_bound": b_ms / ms, f"ms_{rows}_rows": b6_ms,
+                  f"bound_ms_{rows}_rows": b6_bound}
         detail.update(tail_variant_ms(torch, xo, xd, w, rest, L))
         log(f"{label} split at {n} rows: copy only "
             f"{detail['copy_only_ms']:.4f} ms, compute only "
@@ -631,13 +639,15 @@ def phase_k3(torch, L=(8, 8, 128, 4, 10)):
                 err = (a.float() - c.float()).abs().max().item()
                 largest = c.abs().max().item()
                 tol = (K3_W_RTOL if name == "ct_w" else K3_RTOL) * largest
-                if not err <= tol:
+                n_diff = int((a != c).sum())
+                if not err <= tol or (bf16 and name != "ct_w" and n_diff):
                     raise AssertionError(f"{label} {case} {name}: max |err| "
-                                         f"{err} > {tol}")
+                                         f"{err} > {tol} or {n_diff} values "
+                                         f"differ")
                 max_err = max(max_err, err)
                 log(f"{label} {case} ({n} rows) {name} ({a.dtype}): max "
                     f"|err| {err} (largest |value| {largest:.6g}, tolerance "
-                    f"{tol:.3g}), {int((a != c).sum())} of {a.numel()} "
+                    f"{tol:.3g}), {n_diff} of {a.numel()} "
                     f"values differ; two runs bit-equal")
             del got, again, want
 
@@ -695,11 +705,12 @@ def phase_k3(torch, L=(8, 8, 128, 4, 10)):
             xo, xd, out, ct, w, scale), 3, warmup=1)
         b_ms, b_by = k3_bound_ms(n, bf16)
         modes = k3_kernel_ms(torch, (xo, xd, out, ct, w), (0, 1, 2))
-        detail = {"kernel_only_ms": modes[0], "copy_only_ms": modes[1],
-                  "compute_only_ms": modes[2]}
+        detail = {"share_of_bound": b_ms / ms, "kernel_only_ms": modes[0],
+                  "copy_only_ms": modes[1], "compute_only_ms": modes[2]}
         log(f"{label} at {n} rows: {ms:.4f} ms with the ct_w sum (bound "
-            f"{b_ms:.4f} ms by {b_by}); kernel alone {modes[0]:.4f} ms, copy "
-            f"only {modes[1]:.4f} ms, compute only {modes[2]:.4f} ms")
+            f"{b_ms:.4f} ms by {b_by}: {b_ms / ms:.1%} of the bound); "
+            f"kernel alone {modes[0]:.4f} ms, copy only {modes[1]:.4f} ms, "
+            f"compute only {modes[2]:.4f} ms")
         del xo, xd, out, ct, w, rest
         torch.cuda.empty_cache()
         # the training step's shapes: batch-1 with 2 and 4 channels, batch-6
@@ -721,6 +732,96 @@ def phase_k3(torch, L=(8, 8, 128, 4, 10)):
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, detail=detail))
     return entries
+
+
+def bf16_edge_values(torch, shape, g, large=True):
+    """bf16 values of ``shape`` (rows on the first axis): half from a list
+    of edge cases (+-0, bf16 subnormals, the smallest normal, and values
+    whose sums fall exactly halfway between two bf16 values: 1 + 2**-8 and
+    1 + 3 * 2**-8), half random normals scaled by powers of two from 2**-140
+    to 4 (their products with bf16(0.01) round, some on ties). With
+    ``large``, every eighth row draws from +-1e30, +-100 and normals scaled
+    up to 2**40 instead (its outputs saturate, so the others are kept
+    small)."""
+    t = 2.0 ** -8
+    edges = torch.tensor([0.0, -0.0, 2.0 ** -133, -2.0 ** -133,
+                          3 * 2.0 ** -133, -5 * 2.0 ** -133, 2.0 ** -127,
+                          2.0 ** -126, -2.0 ** -126, 0.5, -0.5, 1.0, -1.0,
+                          t, -t, 3 * t, -3 * t, 1 + 2 ** -7])
+    big = torch.tensor([1e30, -1e30, 100.0, -100.0])
+    pick = edges[torch.randint(0, len(edges), shape, generator=g)]
+    scaled = torch.randn(shape, generator=g) * torch.exp2(
+        torch.randint(-140, 3, shape, generator=g).float())
+    x = torch.where(torch.rand(shape, generator=g) < 0.5, pick, scaled)
+    if large:
+        rows = x.reshape(-1, *shape[-2:])
+        huge = torch.where(
+            torch.rand(rows[::8].shape, generator=g) < 0.5,
+            big[torch.randint(0, len(big), rows[::8].shape, generator=g)],
+            torch.randn(rows[::8].shape, generator=g) * torch.exp2(
+                torch.randint(0, 41, rows[::8].shape, generator=g).float()))
+        rows[::8] = huge
+    return x.to(torch.bfloat16)
+
+
+def phase_tail_edges(torch):
+    """The bf16 forms of K2 and K3 on edge values (``bf16_edge_values``),
+    bit for bit against their plain versions (K3's ct_w within
+    ``K3_W_RTOL``). Inputs and outputs hold no NaN, so bits decide, the
+    sign of every zero included."""
+    from mst_torch.ops import grid_kernel as gk
+
+    g = torch.Generator().manual_seed(6)
+    lead = (1, 4, 16, 4, 10)
+    n = 4 * 16 * 4 * 10
+    xo = bf16_edge_values(torch, lead + (8, 30), g).cuda()
+    xd = bf16_edge_values(torch, lead + (7, 30), g).cuda()
+    w = (torch.randn(30, 5, generator=g) * 0.3).cuda()
+    rest = torch.randn(1, 1, 16, 4, 10, 56, 5, generator=g).cuda()
+    ct = bf16_edge_values(torch, lead + (56, 5), g, large=False).cuda()
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    out = gk.grid_tail_fwd(xo, xd, w, rest, K3_SCALE)
+    want = gk.grid_tail_plain(xo, xd, w, rest, K3_SCALE)
+    torch.cuda.synchronize()
+    n_diff = int((bits(out) != bits(want)).sum())
+    n_zero = int((xo == 0).sum() + (xd == 0).sum())
+    n_sub = int(((xo != 0) & (xo.abs() < 2.0 ** -126)).sum()
+                + ((xd != 0) & (xd.abs() < 2.0 ** -126)).sum())
+    # the grid's sums LR(xo) + LR(xd) whose fp32 value falls exactly
+    # halfway between two bf16 values
+    gp = (gk._leaky(xo).float()[..., :, None, :]
+          + gk._leaky(xd).float()[..., None, :, :])
+    n_ties = int(((gp.view(torch.int32) & 0xFFFF) == 0x8000).sum())
+    del gp
+    log(f"K2 bf16 edge values ({n} rows; {n_zero} zero and {n_sub} subnormal "
+        f"embedding values, {n_ties} grid sums on a bf16 tie): {n_diff} of "
+        f"{out.numel()} output bits differ")
+    if n_diff or torch.isnan(want).any():
+        raise AssertionError("K2 bf16 edge values: not bit-equal")
+    got = gk.grid_tail_bwd(xo, xd, out, ct, w, K3_SCALE)
+    want = gk.grid_tail_bwd_plain(xo, xd, out, ct, w, K3_SCALE)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ct_xo", "ct_xd", "ct_y", "ct_w"), got, want):
+        if not torch.isfinite(b).all():
+            raise AssertionError(f"K3 bf16 edge values {name}: not finite")
+        if name == "ct_w":
+            err = (a - b).abs().max().item()
+            tol = K3_W_RTOL * b.abs().max().item()
+            log(f"K3 bf16 edge values ct_w: max |err| {err:.3g} (tolerance "
+                f"{tol:.3g})")
+            if not err <= tol:
+                raise AssertionError("K3 bf16 edge values ct_w beyond the "
+                                     "tolerance")
+            continue
+        n_diff = int((bits(a) != bits(b)).sum())
+        log(f"K3 bf16 edge values {name}: {n_diff} of {a.numel()} value bits "
+            f"differ ({int((b == 0).sum())} zeros)")
+        if n_diff:
+            raise AssertionError(f"K3 bf16 edge values {name}: not bit-equal")
 
 
 def check_outputs(written, label):
@@ -1046,6 +1147,63 @@ def phase_train(torch, paths, tmp, bf16=False):
     return launches, summary
 
 
+def phase_remat(torch, paths):
+    """One bf16 micro-step (bf16 storage and compute) with ``remat``
+    against the same step without, from the same seed on the same song:
+    the CUDA autograd engine runs the recompute on its device thread, which
+    must enter the step's policy itself. Losses and gradients must be
+    bit-equal (the recompute runs the same kernels on the same inputs; cuDNN
+    is deterministic). The remat step runs with the launch counters at 0
+    first; returns its launches."""
+    from mst_torch.config import Config, ModelConfig, TrainConfig
+    from mst_torch.runtime import train as tr
+    from mst_torch.transfer import get_model_input
+
+    song = get_model_input(paths[0])[1]
+    model = ModelConfig(storage_dtype="bfloat16", compute_dtype="bfloat16")
+    results = {}
+    for remat in (False, True):
+        config = Config(model=model, train=TrainConfig(remat=remat))
+        t = config.train
+        state = tr.create_train_state(config, device="cuda", seed=108)
+        torch.cuda.synchronize()
+        reset_launches()
+        cap = t.max_total_bars // song.n_channels
+        Rb = tr.bucket_shape(min(song.n_bars, cap), t.bar_buckets)
+        batch = tr.device_batch_from_songs(
+            [song], tr.bucket_shape(song.n_channels, t.channel_buckets), Rb,
+            bar_cap=[min(cap, Rb)], device="cuda", raster_dtype="bfloat16")
+        has_u = batch.unpitched is not None
+        _, vec = tr.make_train_step(config, has_u)(state, batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        results[remat] = (vec, grads, launches)
+    (vec_a, grads_a, _), (vec_b, grads_b, launches) = (results[False],
+                                                       results[True])
+    # the bf16 tails launch (K2 twice: the forward and its recompute); no
+    # fp32 form does
+    for name, count in launches.items():
+        bad = count == 0 if name.endswith("_bf16") else count != 0
+        if bad:
+            raise AssertionError(f"bf16 remat step launched {name} {count} "
+                                 f"times")
+    same_losses = torch.equal(vec_a.view(torch.int32),
+                              vec_b.view(torch.int32))
+    differ = [n for n in grads_a if n not in grads_b
+              or not torch.equal(grads_a[n], grads_b[n])]
+    log(f"bf16 remat step (launches {launches}): losses "
+        f"{'bit-equal' if same_losses else 'differ'} to the step without "
+        f"remat, {len(grads_a) - len(differ)} of {len(grads_a)} gradient "
+        f"leaves bit-equal")
+    if not same_losses or differ or grads_a.keys() != grads_b.keys():
+        raise AssertionError(f"bf16 remat step differs from the plain step "
+                             f"(leaves {differ[:5]})")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1075,10 +1233,12 @@ def main():
         del bundle
         torch.cuda.empty_cache()
         kernels += phase_k3(torch)
+        phase_tail_edges(torch)
         torch.cuda.empty_cache()
         train, fp32 = phase_train(torch, comps + styles, tmp)
         torch.cuda.empty_cache()
         train_bf16, bf16 = phase_train(torch, comps + styles, tmp, bf16=True)
+        remat = phase_remat(torch, comps + styles)
     log(f"training, bf16 storage and compute against fp32 (one call): "
         f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
         f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "
@@ -1090,12 +1250,18 @@ def main():
         by_path = {"transfer request": serve[name],
                    "transfer request, bf16 extraction": serve_bf16[name],
                    "10 training micro-steps": train[name],
-                   "10 bf16-storage training micro-steps": train_bf16[name]}
+                   "10 bf16-storage training micro-steps": train_bf16[name],
+                   "bf16 remat micro-step": remat[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}), launches {by_path}")
+    ms = {k["name"]: k["ms"] for k in kernels}
+    for label, name in (("K2", "grid_tail"), ("K3", "grid_tail_bwd")):
+        log(f"{label} bf16 against fp32 (one call): "
+            f"{ms[name + '_bf16']:.4f} ms against {ms[name]:.4f} ms "
+            f"({ms[name + '_bf16'] / ms[name]:.3f}x)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "detail")

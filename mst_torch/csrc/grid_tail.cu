@@ -55,17 +55,36 @@
 // where JAX's jnp tail rounds on bf16 inputs (pallas_grid.py:264-273, its
 // jaxpr; grid_kernel.grid_tail_plain lists the points): LR(xo), LR(xd),
 // their sum gp and LR(gp) are bf16 values, the slope is bf16(0.01) and
-// each product or sum rounds once (fp32 arithmetic, then
-// __float2bfloat16_rn; the fp32 product of two bf16 values is exact);
-// grid * w, the K-sum, the sigmoid and the scale are fp32; the output
-// rounds once to bf16 (appliers.py:89's cast_storage, fused). Per row it
-// moves 480 + 420 B of embeddings, 1,120 B of rest and 560 B of output:
-// 1.27 GB at 491,520 rows (0.78 GB with rest read once per song, a bound
-// of 0.23 ms). Each rounding is a cvt.rn.bf16.f32 and a shift back, four
-// of them a term, so this form is bound by issue: on an NVIDIA H100 80GB
-// HBM3 at 700 W (chip_smoke.py) the launch takes 1.11 ms at 491,520 rows,
-// 1.12 ms computing alone and 0.30 ms moving its bytes alone. Its tile
-// keeps the output in a slot of its own (4,480 B), so a stage is 20,640 B.
+// each product or sum rounds once; grid * w, the K-sum, the sigmoid and
+// the scale are fp32; the output rounds once to bf16 (appliers.py:89's
+// cast_storage, fused). Per row it moves 480 + 420 B of embeddings, 1,120
+// B of rest and 560 B of output: a bound of 0.235 ms at 491,520 rows.
+// Those bytes leave it bound by issue, and its design spends as few
+// instructions on the bf16 roundings as the bits allow. The bf16 work is
+// packed two lanes to an instruction (bf16x2.cuh): add.rn.bf16x2,
+// mul.rn.bf16x2 and max.bf16x2 each round both halves once and correctly,
+// which is what the fp32 operation rounded to bf16 gives. One pass per
+// tile writes LR(xo) and LR(xd) (a mul and a max per pair) into padded
+// rows of 80 B in shared memory, so a thread reads 8 k of an operand with
+// one 16-byte load, without bank conflicts. Each of 224 consumer threads
+// owns two cells, (2p, d) and (2p + 1, d) of a row, which share LR(xd)
+// and the weights' loads; per pair of k it forms both cells' gp with
+// add.rn.bf16x2 and LR(gp) with a mul and a max, then unpacks each bf16
+// with one shift or mask for the fp32 terms. The output goes as bf16 over
+// the first half of the tile's rest slot (each thread reads its 10 rest
+// values first), so a stage is 16,160 B and three blocks fit on an SM.
+// What bounds it now: issue, at ~14 SASS instructions a term (one scalar
+// cvt and shift per rounding took ~23), 10 of them the fp32 multiplies and
+// adds that the bits require (no FMA, no tensor cores: either would round
+// otherwise), and the IEEE sigmoid of each output, ~35 instructions, about
+// a third of the work. On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py) it takes 0.72 ms at 491,520 rows, 0.71 ms computing
+// alone and 0.31 ms moving its bytes alone. A fast sigmoid (__expf,
+// __fdividef) with an exact fallback near bf16 rounding midpoints kept the
+// bits (a sweep of all 2**32 z agreed) but was slower end to end: with 32
+// lanes of 10 outputs, a sizable share of warps needs a fallback at any
+// safe margin, which puts an exact epilogue on nearly every tile's path to
+// its barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +92,7 @@
 
 #include <type_traits>
 
+#include "bf16x2.cuh"
 #include "tile_ring.cuh"
 
 namespace {
@@ -86,29 +106,35 @@ constexpr int F = 5;    // output features
 constexpr int M = O * D;
 constexpr int OUT = M * F;            // 280 floats per row
 constexpr int ROWS = 8;               // rows per tile
-constexpr int CONSUMERS = ROWS * M;   // 448: one thread per (row, o, d)
-constexpr int THREADS = CONSUMERS + 32;   // + one producer warp
 constexpr int STAGES = 4;
-constexpr float SLOPE_BF16 = 0.010009765625f;  // bf16(0.01)
+constexpr int LR_ROWS = O + D;        // bf16 form: LR rows per tile row
+constexpr int LR_PAIRS = 20;          // bf16 pairs per padded LR row (80 B)
 
-// The element type of xo, xd and the output, and a pair of them, by form.
+// The element type of xo, xd and the output, by form.
 template <bool BF16>
 using Elem = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-template <bool BF16>
-using Pair = typename std::conditional<BF16, __nv_bfloat162, float2>::type;
 
-// The tile's layout in one stage of the ring, by form: xo, xd, rest and,
-// for bf16, the output (the fp32 form writes its output over rest).
+// The consumers by form: the fp32 form runs one thread per (row, o, d),
+// the bf16 form one per (row, octave pair, d).
+template <bool BF16>
+struct Shape {
+  static constexpr int CONSUMERS = BF16 ? ROWS * (O / 2) * D : ROWS * M;
+  static constexpr int THREADS = CONSUMERS + 32;   // + one producer warp
+  static constexpr int MIN_BLOCKS = BF16 ? 3 : 2;  // per SM
+};
+
+// The tile's layout in one stage of the ring (xo, xd, rest; both forms
+// write the output over rest), then, for bf16, the LR rows of the block.
 template <bool BF16>
 struct Layout {
   static constexpr int E = sizeof(Elem<BF16>);
   static constexpr int XO_BYTES = ROWS * O * K * E;     // 7,680 / 3,840
   static constexpr int XD_BYTES = ROWS * D * K * E;     // 6,720 / 3,360
   static constexpr int REST_BYTES = ROWS * OUT * 4;     // 8,960
-  static constexpr int OUT_BYTES = BF16 ? ROWS * OUT * E : 0;  // 0 / 4,480
-  static constexpr int STAGE_BYTES =
-      XO_BYTES + XD_BYTES + REST_BYTES + OUT_BYTES;
-  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static constexpr int STAGE_BYTES = XO_BYTES + XD_BYTES + REST_BYTES;
+  static constexpr int LR_BYTES = BF16 ? ROWS * LR_ROWS * LR_PAIRS * 4 : 0;
+  static constexpr int SMEM_BYTES =
+      STAGES * STAGE_BYTES + LR_BYTES + 2 * STAGES * 8;
   static_assert(STAGE_BYTES % 16 == 0, "stages start on 16 bytes");
 };
 
@@ -118,40 +144,30 @@ struct Scale {
   float v[F];
 };
 
-// x rounded to bf16, as a float
-__device__ __forceinline__ float rbf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  return BF16 ? rbf(x) : x;
-}
-
-template <bool BF16>
 __device__ __forceinline__ float leaky(float x) {
-  // the same bits as x >= 0 ? x : 0.01f * x for every x, +-0 and NaN; in
-  // the bf16 form the product is bf16(0.01) * x, rounded to bf16
-  return BF16 ? fmaxf(x, rbf(SLOPE_BF16 * x)) : fmaxf(x, 0.01f * x);
+  // the same bits as x >= 0 ? x : 0.01f * x for every x, +-0 and NaN
+  return fmaxf(x, 0.01f * x);
 }
 
-__device__ __forceinline__ float2 to_float2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
+// sigmoid(z) * scale: torch's sigmoid, 1 / (1 + exp(-z)), in IEEE fp32
+__device__ __forceinline__ float sigmoid_scaled(float z, float scale) {
+  return (1.0f / (1.0f + expf(-z))) * scale;
 }
 
-// the leaky of a pair, stored back at the pair's type (exact: the result
-// is a value of that type)
-__device__ __forceinline__ float2 leaky_pair(float2 v) {
-  return make_float2(leaky<false>(v.x), leaky<false>(v.y));
-}
-__device__ __forceinline__ __nv_bfloat162 leaky_pair(__nv_bfloat162 v) {
-  const float2 f = __bfloat1622float2(v);
-  return __floats2bfloat162_rn(leaky<true>(f.x), leaky<true>(f.y));
-}
+// one term: y[f] += g * w[k, f], one rounded multiply and add each
+#define MST_TERM(y, k, g)                        \
+  {                                              \
+    const float g_ = (g);                        \
+    y[0] = y[0] + g_ * c_w[(k) * F + 0];         \
+    y[1] = y[1] + g_ * c_w[(k) * F + 1];         \
+    y[2] = y[2] + g_ * c_w[(k) * F + 2];         \
+    y[3] = y[3] + g_ * c_w[(k) * F + 3];         \
+    y[4] = y[4] + g_ * c_w[(k) * F + 4];         \
+  }
 
+template <bool BF16>
 __device__ __forceinline__ void consumers_sync() {
-  named_sync<CONSUMERS>();
+  named_sync<Shape<BF16>::CONSUMERS>();
 }
 
 // the rest row of output row r: the channel index dropped
@@ -160,60 +176,118 @@ __device__ __forceinline__ int64_t rest_row(int64_t r, int64_t rest_rep,
   return (r / (rest_rep * rest_inner)) * rest_inner + r % rest_inner;
 }
 
-// one term: y[f] += LR(gp) * w[k, f], one rounded multiply and add each
-#define MST_TERM(k, gp)                          \
-  {                                              \
-    const float g_ = leaky<BF16>(gp);            \
-    y0 = y0 + g_ * c_w[(k) * F + 0];             \
-    y1 = y1 + g_ * c_w[(k) * F + 1];             \
-    y2 = y2 + g_ * c_w[(k) * F + 2];             \
-    y3 = y3 + g_ * c_w[(k) * F + 3];             \
-    y4 = y4 + g_ * c_w[(k) * F + 4];             \
-  }
-
-// The consumers' work on one tile in the ring: the leaky in place, then
-// thread (r, o, d) sums its 30 terms for its 5 features and writes its 5
-// outputs: over its rest values (fp32 form) or into the output slot (bf16).
-template <bool BF16>
-__device__ __forceinline__ void compute_tile(Elem<BF16>* s_xo,
-                                             Elem<BF16>* s_xd,
-                                             float* s_rest, Elem<BF16>* s_out,
-                                             int rows, int tid, int r, int mm,
-                                             int o, int d,
+// The fp32 consumers' work on one tile in the ring: the leaky in place,
+// then thread (r, o, d) sums its 30 terms for its 5 features and writes
+// its 5 outputs over its rest values.
+__device__ __forceinline__ void compute_tile(float* s_xo, float* s_xd,
+                                             float* s_rest, int rows, int tid,
+                                             int r, int mm, int o, int d,
                                              const Scale& scale) {
   // the leaky, once per element, in place (both spans are whole pairs)
-  Pair<BF16>* xo2 = reinterpret_cast<Pair<BF16>*>(s_xo);
-  Pair<BF16>* xd2 = reinterpret_cast<Pair<BF16>*>(s_xd);
-  for (int j = tid; j < rows * (O * K / 2); j += CONSUMERS) {
-    xo2[j] = leaky_pair(xo2[j]);
+  float2* xo2 = reinterpret_cast<float2*>(s_xo);
+  float2* xd2 = reinterpret_cast<float2*>(s_xd);
+  for (int j = tid; j < rows * (O * K / 2); j += Shape<false>::CONSUMERS) {
+    xo2[j] = make_float2(leaky(xo2[j].x), leaky(xo2[j].y));
   }
-  for (int j = tid; j < rows * (D * K / 2); j += CONSUMERS) {
-    xd2[j] = leaky_pair(xd2[j]);
+  for (int j = tid; j < rows * (D * K / 2); j += Shape<false>::CONSUMERS) {
+    xd2[j] = make_float2(leaky(xd2[j].x), leaky(xd2[j].y));
   }
-  consumers_sync();
+  consumers_sync<false>();
   if (r >= rows) return;
-  const Pair<BF16>* ao =
-      reinterpret_cast<const Pair<BF16>*>(s_xo + r * (O * K) + o * K);
-  const Pair<BF16>* ad =
-      reinterpret_cast<const Pair<BF16>*>(s_xd + r * (D * K) + d * K);
-  float y0 = 0.0f, y1 = 0.0f, y2 = 0.0f, y3 = 0.0f, y4 = 0.0f;
+  const float2* ao = reinterpret_cast<const float2*>(s_xo + r * (O * K) +
+                                                     o * K);
+  const float2* ad = reinterpret_cast<const float2*>(s_xd + r * (D * K) +
+                                                     d * K);
+  float y[F] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int kk = 0; kk < K / 2; ++kk) {
-    const float2 a = to_float2(ao[kk]);
-    const float2 b = to_float2(ad[kk]);
-    MST_TERM(2 * kk, rnd<BF16>(a.x + b.x));
-    MST_TERM(2 * kk + 1, rnd<BF16>(a.y + b.y));
+    const float2 a = ao[kk];
+    const float2 b = ad[kk];
+    MST_TERM(y, 2 * kk, leaky(a.x + b.x));
+    MST_TERM(y, 2 * kk + 1, leaky(a.y + b.y));
   }
   float* o_ = s_rest + r * OUT + mm * F;
-  const float y[F] = {y0, y1, y2, y3, y4};
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    const float z = y[f] + o_[f];
-    const float v = (1.0f / (1.0f + expf(-z))) * scale.v[f];
-    if constexpr (BF16) {
-      s_out[r * OUT + mm * F + f] = __float2bfloat16_rn(v);
-    } else {
-      o_[f] = v;
+    o_[f] = sigmoid_scaled(y[f] + o_[f], scale.v[f]);
+  }
+}
+
+// The bf16 consumers' work on one tile: thread (r, p, d) owns the cells
+// (2p, d) and (2p + 1, d) of row r. The tile's xo and xd stay as they
+// came; their LR goes into the block's padded LR rows `lr` (pairs: tile
+// row r, LR row e < 8 for octave e, 8 + d for degree d, 20 pairs each).
+// The outputs go as bf16 over the first half of the rest slot.
+__device__ __forceinline__ void compute_tile_bf16(
+    const __nv_bfloat16* s_xo, const __nv_bfloat16* s_xd, float* s_rest,
+    uint32_t* lr, int rows, int tid, int r, int p, int d,
+    const Scale& scale) {
+  constexpr int CONSUMERS = Shape<true>::CONSUMERS;
+  // this thread's rest values, read before any thread writes an output
+  float rest[2][F];
+  if (r < rows) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        rest[c][f] = s_rest[r * OUT + ((2 * p + c) * D + d) * F + f];
+      }
+    }
+  }
+  // LR of each (row, LR row, chunk of 8 k): three or four pairs of the
+  // unpadded span (4-byte aligned) into one 16-byte store
+  for (int j = tid; j < rows * LR_ROWS * 4; j += CONSUMERS) {
+    const int c = j & 3;
+    const int re = j >> 2;                  // r * LR_ROWS + e
+    const int rr = re / LR_ROWS;
+    const int e = re - rr * LR_ROWS;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(
+                              e < O ? s_xo + rr * (O * K) + e * K
+                                    : s_xd + rr * (D * K) + (e - O) * K) +
+                          4 * c;
+    uint4 v;
+    v.x = bf16x2::leaky(src[0]);
+    v.y = bf16x2::leaky(src[1]);
+    v.z = bf16x2::leaky(src[2]);
+    v.w = c < 3 ? bf16x2::leaky(src[3]) : 0u;    // k 30, 31: padding
+    reinterpret_cast<uint4*>(lr)[re * (LR_PAIRS / 4) + c] = v;
+  }
+  consumers_sync<true>();
+  if (r >= rows) return;
+  const uint4* a0 =
+      reinterpret_cast<const uint4*>(lr) + (r * LR_ROWS + 2 * p) * 5;
+  const uint4* a1 = a0 + 5;
+  const uint4* ad =
+      reinterpret_cast<const uint4*>(lr) + (r * LR_ROWS + O + d) * 5;
+  float y[2][F] = {{0.0f, 0.0f, 0.0f, 0.0f, 0.0f},
+                   {0.0f, 0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint4 A = a0[c], B = a1[c], X = ad[c];
+    const uint32_t av[4] = {A.x, A.y, A.z, A.w};
+    const uint32_t bv[4] = {B.x, B.y, B.z, B.w};
+    const uint32_t xv[4] = {X.x, X.y, X.z, X.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 8 * c + 2 * q;
+      if (k < K) {
+        // LR(gp) of both cells at k and k + 1, each rounded once
+        const uint32_t g0 = bf16x2::leaky(bf16x2::add(av[q], xv[q]));
+        const uint32_t g1 = bf16x2::leaky(bf16x2::add(bv[q], xv[q]));
+        MST_TERM(y[0], k, bf16x2::lo(g0));
+        MST_TERM(y[1], k, bf16x2::lo(g1));
+        MST_TERM(y[0], k + 1, bf16x2::hi(g0));
+        MST_TERM(y[1], k + 1, bf16x2::hi(g1));
+      }
+    }
+  }
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(s_rest) + r * OUT;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      out[((2 * p + c) * D + d) * F + f] = __float2bfloat16_rn(
+          sigmoid_scaled(y[c][f] + rest[c][f], scale.v[f]));
     }
   }
 }
@@ -226,7 +300,8 @@ __device__ __forceinline__ void compute_tile(Elem<BF16>* s_xo,
 enum Mode { FULL = 0, COPY_ONLY = 1, COMPUTE_ONLY = 2 };
 
 template <int MODE, bool BF16>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Shape<BF16>::THREADS,
+                                  Shape<BF16>::MIN_BLOCKS)
 grid_tail_kernel(const Elem<BF16>* __restrict__ xo,
                  const Elem<BF16>* __restrict__ xd,
                  const float* __restrict__ rest, Elem<BF16>* __restrict__ out,
@@ -234,9 +309,11 @@ grid_tail_kernel(const Elem<BF16>* __restrict__ xo,
                  Scale scale) {
   using L = Layout<BF16>;
   using E = Elem<BF16>;
+  constexpr int CONSUMERS = Shape<BF16>::CONSUMERS;
+  constexpr int THREADS = Shape<BF16>::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + STAGES * L::STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * L::STAGE_BYTES +
+                                               L::LR_BYTES);
   uint64_t* empty = full + STAGES;
   const int tid = threadIdx.x;
   const int64_t n_tiles = (n + ROWS - 1) / ROWS;
@@ -319,11 +396,13 @@ grid_tail_kernel(const Elem<BF16>* __restrict__ xo,
     return;
   }
 
-  // ---- consumers: thread (r, o, d) ----
-  const int r = tid / M;
-  const int mm = tid % M;
-  const int o = mm / D;
+  // ---- consumers: thread (r, o, d) (fp32) or (r, octave pair, d) ----
+  constexpr int PER_ROW = CONSUMERS / ROWS;
+  const int r = tid / PER_ROW;
+  const int mm = tid % PER_ROW;
+  const int o = mm / D;       // the octave (fp32) or octave pair (bf16)
   const int d = mm % D;
+  uint32_t* lr = reinterpret_cast<uint32_t*>(smem + STAGES * L::STAGE_BYTES);
   int i = 0;
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
     const int s = i % STAGES;
@@ -332,25 +411,23 @@ grid_tail_kernel(const Elem<BF16>* __restrict__ xo,
     E* s_xd = reinterpret_cast<E*>(st + L::XO_BYTES);
     float* s_rest =
         reinterpret_cast<float*>(st + L::XO_BYTES + L::XD_BYTES);
-    E* s_out = reinterpret_cast<E*>(st + L::XO_BYTES + L::XD_BYTES +
-                                    L::REST_BYTES);
     const int64_t r0 = t * ROWS;
     const int rows = static_cast<int>(n - r0 < ROWS ? n - r0 : ROWS);
     mbar_wait(&full[s], (i / STAGES) & 1);
     if (MODE != COPY_ONLY) {
-      compute_tile<BF16>(s_xo, s_xd, s_rest, s_out, rows, tid, r, mm, o, d,
-                         scale);
+      if constexpr (BF16) {
+        compute_tile_bf16(s_xo, s_xd, s_rest, lr, rows, tid, r, o, d, scale);
+      } else {
+        compute_tile(s_xo, s_xd, s_rest, rows, tid, r, mm, o, d, scale);
+      }
     }
     fence_async_smem();
-    consumers_sync();
+    consumers_sync<BF16>();
 
     if (tid == 0) {
       if (MODE != COMPUTE_ONLY) {
-        // the fp32 form's outputs overwrote rest; the bf16 form's have a
-        // slot (in copy-only mode it holds no result)
-        const void* src = BF16 ? static_cast<const void*>(s_out)
-                               : static_cast<const void*>(s_rest);
-        bulk_store(out + r0 * OUT, src,
+        // the outputs overwrote rest (in copy-only mode, rest itself)
+        bulk_store(out + r0 * OUT, s_rest,
                    static_cast<uint32_t>(rows) * OUT * sizeof(E));
         bulk_commit();
       }
@@ -371,6 +448,7 @@ template <bool BF16>
 int launch_info(int* info) {
   static int per_sm = 0;
   constexpr int smem = Layout<BF16>::SMEM_BYTES;
+  constexpr int threads = Shape<BF16>::THREADS;
   cudaError_t err = cudaSuccess;
   if (per_sm == 0) {
     const void* kernels[] = {
@@ -382,14 +460,20 @@ int launch_info(int* info) {
         err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       }
+      if (BF16 && err == cudaSuccess) {
+        // three blocks of the bf16 form need the whole carve-out
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+      }
     }
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, grid_tail_kernel<FULL, BF16>, THREADS, smem);
+          &per_sm, grid_tail_kernel<FULL, BF16>, threads, smem);
     }
   }
   info[0] = smem;
-  info[1] = THREADS;
+  info[1] = threads;
   info[2] = per_sm;
   return static_cast<int>(err);
 }
@@ -422,7 +506,7 @@ int launch(int mode, const void* xo, const void* xd, const void* w,
                     ? grid_tail_kernel<COMPUTE_ONLY, BF16>
                     : grid_tail_kernel<FULL, BF16>;
   using E = Elem<BF16>;
-  kernel<<<static_cast<unsigned int>(blocks), THREADS, info[0], st>>>(
+  kernel<<<static_cast<unsigned int>(blocks), info[1], info[0], st>>>(
       static_cast<const E*>(xo), static_cast<const E*>(xd),
       static_cast<const float*>(rest), static_cast<E*>(out), n, rest_rep,
       rest_inner, scale);

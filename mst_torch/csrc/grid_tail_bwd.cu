@@ -83,12 +83,24 @@
 // output's rounding (JAX recomputes the fp32 output; the plain version's
 // docstring says why and the CPU tests measure the cost). Per row it reads
 // 480 + 420 + 560 + 560 B and writes 480 + 420 + 1,120 B: 4,040 B, 1.32 GB
-// at 327,680 rows, a bound of 0.40 ms. The roundings add instructions to
-// a term's ~24, so the arithmetic no longer hides behind the copies: this
-// form is bound by issue, not bytes. On an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py) it takes 0.99 ms at 327,680 rows, 0.93 ms computing
-// alone and 0.46 ms moving its bytes alone. Its tile keeps ct_y in a slot
-// of its own (8,960 B), so a stage is 25,120 B.
+// at 327,680 rows, a bound of 0.40 ms. Half the bytes of the fp32 form
+// leave this form bound by issue, so its pass spends as few instructions
+// on the bf16 roundings as the bits allow (bf16_pass): a lane takes two
+// octaves a step, o and o + 1 in the halves of one bf16 pair, and every
+// rounding is one packed instruction for both (bf16x2.cuh): gp is one
+// add.rn.bf16x2 of LR(xo) for the two octaves and LR(xd[d]) in both
+// halves; the two fp32 sums of ct_G round with one cvt.rn.bf16x2.f32;
+// dLR(gp) is a pair of 1.0 or bf16(0.01) from one set.ge.u32.bf16x2 (so -0
+// counts as >= 0) and a select, and dLR(gp) * ct_G and LR(gp) are one
+// mul.rn.bf16x2 each. What remains of a term is its fp32 work: 9 operations
+// of ct_G, the two sums and 5 FFMA of ct_w, with one unpack (a shift or a
+// mask) per bf16 value: ~26 SASS instructions a term (scalar roundings
+// took ~33). What bounds it now: still issue, not bytes. On an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) it takes 0.74 ms at
+// 327,680 rows, 0.69 ms computing alone and 0.46 ms moving its bytes
+// alone. The 5 FFMA of ct_w are the part that need not stay on the FP32
+// pipe (ct_w is held to a tolerance, not to bits). Its tile keeps ct_y in a
+// slot of its own (8,960 B), so a stage is 25,120 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +108,7 @@
 
 #include <type_traits>
 
+#include "bf16x2.cuh"
 #include "tile_ring.cuh"
 
 namespace {
@@ -116,7 +129,6 @@ constexpr int STAGES = 3;
 constexpr int CTY_PAD = 8;                   // floats per (o, d), padded
 constexpr int CTY_BYTES = ROWS * M * CTY_PAD * 4;                 // 14,336
 static_assert(ROWS * KF * 4 <= CTY_BYTES, "ct_w scratch reuses the cty copy");
-constexpr float SLOPE_BF16 = 0.010009765625f;  // bf16(0.01)
 
 // The element type of xo, xd, out, ct, ct_xo and ct_xd, by form.
 template <bool BF16>
@@ -143,42 +155,19 @@ struct Scale {
   float v[F];
 };
 
-// x rounded to bf16 in the bf16 form, x itself in the fp32 form
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float slope() {
-  return BF16 ? SLOPE_BF16 : 0.01f;
-}
-
-// torch's leaky_relu: x > 0 ? x : x * 0.01 (bf16: rounded, slope bf16(0.01))
-template <bool BF16>
+// torch's leaky_relu: x > 0 ? x : x * 0.01
 __device__ __forceinline__ float leaky(float x) {
-  return x > 0.0f ? x : rnd<BF16>(slope<BF16>() * x);
+  return x > 0.0f ? x : 0.01f * x;
 }
 
 // dLR(x) * c, without forming the derivative
-template <bool BF16>
 __device__ __forceinline__ float dleaky_mul(float x, float c) {
-  return x >= 0.0f ? c : rnd<BF16>(slope<BF16>() * c);
+  return x >= 0.0f ? c : 0.01f * c;
 }
 
 __device__ __forceinline__ float ld(float v) { return v; }
 __device__ __forceinline__ float ld(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// v (already a value of T) as a T
-template <typename T>
-__device__ __forceinline__ T to_elem(float v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else {
-    return __float2bfloat16_rn(v);
-  }
 }
 
 __device__ __forceinline__ void consumers_sync() {
@@ -204,6 +193,99 @@ __device__ __forceinline__ Stage<BF16> stage(unsigned char* smem, int s) {
           reinterpret_cast<E*>(p + L::XO_BYTES + L::XD_BYTES),
           reinterpret_cast<E*>(ct),
           reinterpret_cast<float*>(BF16 ? ct + L::OUT_BYTES : ct)};
+}
+
+// The bf16 form's pass over row r of a tile for lane k < K: two octaves a
+// step, o and o + 1 in the halves of one pair, packed arithmetic for every
+// bf16 rounding (bf16x2.cuh). ct_G of both octaves is two fp32 sums over f
+// in ascending order, rounded by one pack; dLR(gp) * ct_G and LR(gp) are
+// each one mul by dLR(gp) as a pair (1.0 or bf16(0.01)). acc_o of the two
+// octaves stay apart and acc_d[d] adds o, then o + 1, so every sum keeps
+// the plain version's ascending order. ct_xo and ct_xd overwrite xo and xd
+// in place; the ct_w terms of the row go into `run`. `release` runs once,
+// after the first half of the octaves.
+template <typename Release>
+__device__ __forceinline__ void bf16_pass(__nv_bfloat16* s_xo,
+                                          __nv_bfloat16* s_xd,
+                                          const float* cy, int r, int k,
+                                          const float (&wk)[F],
+                                          float (&run)[F], Release release) {
+  unsigned short* px =
+      reinterpret_cast<unsigned short*>(s_xo) + r * (O * K) + k;
+  unsigned short* pd =
+      reinterpret_cast<unsigned short*>(s_xd) + r * (D * K) + k;
+  uint32_t xd_[D], ad[D];
+  float acc_d[D], part[F];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    xd_[d] = pd[d * K];
+    ad[d] = bf16x2::leaky(xd_[d] | (xd_[d] << 16));   // LR(xd) in both
+    acc_d[d] = -0.0f;
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) part[f] = -0.0f;
+#pragma unroll 1
+  for (int op = 0; op < O / 2; ++op) {
+    const int o = 2 * op;
+    const uint32_t x = px[o * K] | (static_cast<uint32_t>(px[(o + 1) * K])
+                                    << 16);
+    const uint32_t ao = bf16x2::leaky(x);
+    float acc0 = -0.0f, acc1 = -0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float* ca = cy + (o * D + d) * CTY_PAD;
+      const float* cb = ca + D * CTY_PAD;              // (o + 1, d)
+      const float4 a4 = *reinterpret_cast<const float4*>(ca);
+      const float a5 = ca[4];
+      const float4 b4 = *reinterpret_cast<const float4*>(cb);
+      const float b5 = cb[4];
+      const uint32_t gp = bf16x2::add(ao, ad[d]);
+      float ga = a4.x * wk[0];
+      ga = ga + a4.y * wk[1];
+      ga = ga + a4.z * wk[2];
+      ga = ga + a4.w * wk[3];
+      ga = ga + a5 * wk[4];
+      float gb = b4.x * wk[0];
+      gb = gb + b4.y * wk[1];
+      gb = gb + b4.z * wk[2];
+      gb = gb + b4.w * wk[3];
+      gb = gb + b5 * wk[4];
+      const uint32_t dl = bf16x2::dleaky(gp);
+      const uint32_t cg = bf16x2::mul(bf16x2::pack(ga, gb), dl);
+      const uint32_t lr = bf16x2::mul(gp, dl);
+      const float cga = bf16x2::lo(cg), cgb = bf16x2::hi(cg);
+      acc0 = acc0 + cga;
+      acc1 = acc1 + cgb;
+      acc_d[d] = acc_d[d] + cga;
+      acc_d[d] = acc_d[d] + cgb;
+      const float la = bf16x2::lo(lr), lb = bf16x2::hi(lr);
+      part[0] = __fmaf_rn(la, a4.x, part[0]);
+      part[1] = __fmaf_rn(la, a4.y, part[1]);
+      part[2] = __fmaf_rn(la, a4.z, part[2]);
+      part[3] = __fmaf_rn(la, a4.w, part[3]);
+      part[4] = __fmaf_rn(la, a5, part[4]);
+      part[0] = __fmaf_rn(lb, b4.x, part[0]);
+      part[1] = __fmaf_rn(lb, b4.y, part[1]);
+      part[2] = __fmaf_rn(lb, b4.z, part[2]);
+      part[3] = __fmaf_rn(lb, b4.w, part[3]);
+      part[4] = __fmaf_rn(lb, b5, part[4]);
+    }
+    const uint32_t g = bf16x2::mul(bf16x2::pack(acc0, acc1),
+                                   bf16x2::dleaky(x));
+    px[o * K] = static_cast<unsigned short>(g);
+    px[(o + 1) * K] = static_cast<unsigned short>(g >> 16);
+    if (op == O / 4 - 1) release();
+  }
+#pragma unroll
+  for (int d = 0; d < D; d += 2) {
+    const int d1 = d + 1 < D ? d + 1 : d;
+    const uint32_t g = bf16x2::mul(bf16x2::pack(acc_d[d], acc_d[d1]),
+                                   bf16x2::dleaky(xd_[d] | (xd_[d1] << 16)));
+    pd[d * K] = static_cast<unsigned short>(g);
+    if (d1 != d) pd[d1 * K] = static_cast<unsigned short>(g >> 16);
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) run[f] = run[f] + part[f];
 }
 
 // What a launch does. FULL is K3. The other two exist to measure it
@@ -335,37 +417,42 @@ grid_tail_bwd_kernel(const Elem<BF16>* __restrict__ xo,
       }
       __syncwarp();
       // 2. the pass over the row's (o, d) for this lane's k
-      if (lane < K) {
-        E* px = st.xo + r * (O * K) + lane;
-        E* pd = st.xd + r * (D * K) + lane;
+      if constexpr (BF16) {
+        if (lane < K) {
+          bf16_pass(st.xo, st.xd, cy, r, lane, wk, run,
+                    [&]() { if (tid == 0) release_previous(); });
+        }
+      } else if (lane < K) {
+        float* px = st.xo + r * (O * K) + lane;
+        float* pd = st.xd + r * (D * K) + lane;
         float ad[D], acc_d[D], part[F];
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          ad[d] = leaky<BF16>(ld(pd[d * K]));
+          ad[d] = leaky(pd[d * K]);
           acc_d[d] = -0.0f;
         }
 #pragma unroll
         for (int f = 0; f < F; ++f) part[f] = -0.0f;
 #pragma unroll 2
         for (int o = 0; o < O; ++o) {
-          const float x = ld(px[o * K]);
-          const float ao = leaky<BF16>(x);
+          const float x = px[o * K];
+          const float ao = leaky(x);
           float acc_o = -0.0f;
 #pragma unroll
           for (int d = 0; d < D; ++d) {
             const float* c = cy + (o * D + d) * CTY_PAD;
             const float4 c4 = *reinterpret_cast<const float4*>(c);
             const float c5 = c[4];
-            const float gp = rnd<BF16>(ao + ad[d]);
+            const float gp = ao + ad[d];
             float g = c4.x * wk[0];
             g = g + c4.y * wk[1];
             g = g + c4.z * wk[2];
             g = g + c4.w * wk[3];
-            g = rnd<BF16>(g + c5 * wk[4]);
+            g = g + c5 * wk[4];
             const bool pos = gp >= 0.0f;
             // dLR(gp) * ct_G and LR(gp)
-            const float cg = pos ? g : rnd<BF16>(slope<BF16>() * g);
-            const float lr = pos ? gp : rnd<BF16>(slope<BF16>() * gp);
+            const float cg = pos ? g : 0.01f * g;
+            const float lr = pos ? gp : 0.01f * gp;
             acc_o = acc_o + cg;
             acc_d[d] = acc_d[d] + cg;
             part[0] = __fmaf_rn(lr, c4.x, part[0]);
@@ -374,13 +461,12 @@ grid_tail_bwd_kernel(const Elem<BF16>* __restrict__ xo,
             part[3] = __fmaf_rn(lr, c4.w, part[3]);
             part[4] = __fmaf_rn(lr, c5, part[4]);
           }
-          px[o * K] = to_elem<E>(dleaky_mul<BF16>(x, rnd<BF16>(acc_o)));
+          px[o * K] = dleaky_mul(x, acc_o);
           if (o == O / 2 - 1 && tid == 0) release_previous();
         }
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          pd[d * K] = to_elem<E>(dleaky_mul<BF16>(ld(pd[d * K]),
-                                                  rnd<BF16>(acc_d[d])));
+          pd[d * K] = dleaky_mul(pd[d * K], acc_d[d]);
         }
 #pragma unroll
         for (int f = 0; f < F; ++f) run[f] = run[f] + part[f];

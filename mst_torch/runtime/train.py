@@ -36,6 +36,7 @@ accumulated gradient and the Adam state stay fp32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import NamedTuple, Optional
@@ -164,22 +165,28 @@ def _make_step_fn(config: Config, has_unpitched: bool):
     """The micro-step shared by make_train_step and make_multi_train_step."""
     iter_size = config.train.iter_size
 
+    compute, storage = config.model.compute_dtype, config.model.storage_dtype
+
     def step(state: TrainState, batch: Batch):
         model = state.model
         # the config's numeric policy, for the forward and (through the
         # dtypes it leaves on the saved tensors) the backward
-        with precision.precision(config.model.compute_dtype,
-                                 storage=config.model.storage_dtype):
+        with precision.precision(compute, storage=storage):
             batch = batch._replace(
                 pitched=precision.cast_storage(batch.pitched),
                 unpitched=(None if batch.unpitched is None else
                            precision.cast_storage(batch.unpitched)))
             if config.train.remat:
                 # recompute the forward during backward instead of saving
-                # activations
+                # activations. The recompute enters the policy itself: the
+                # CUDA autograd engine runs it on its own device thread,
+                # which does not see this thread's context variables.
                 losses = torch.utils.checkpoint.checkpoint(
                     loss_fn, model, batch, has_unpitched,
-                    use_reentrant=False)
+                    use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        precision.precision(compute,
+                                                            storage)))
             else:
                 losses = loss_fn(model, batch, has_unpitched)
             losses.total.backward()

@@ -8,6 +8,7 @@ forward: its losses and gradients must be bit-equal too.
 import io
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -150,19 +151,49 @@ def test_profiler_trace(tmp_path):
     assert (tmp_path / "prof" / "kernels.txt").exists()
 
 
-def test_remat_step_equals_plain_step(corpus):
+def _backward_on_fresh_thread(backward):
+    """``Tensor.backward`` run on a new thread, which starts without the
+    caller's context variables, as the CUDA autograd engine's device thread
+    does."""
+    def run(self, *args, **kwargs):
+        failed = []
+
+        def target():
+            try:
+                backward(self, *args, **kwargs)
+            except BaseException as e:      # re-raised on the caller
+                failed.append(e)
+
+        thread = threading.Thread(target=target)
+        thread.start()
+        thread.join()
+        if failed:
+            raise failed[0]
+    return run
+
+
+@pytest.mark.parametrize("compute,storage", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "float32"), ("bfloat16", "bfloat16")])
+def test_remat_step_equals_plain_step(corpus, monkeypatch, compute, storage):
     """The train step with remat (torch.utils.checkpoint) gives the plain
-    step's losses and gradients, bit for bit."""
+    step's losses and gradients, bit for bit, under each numeric policy,
+    with every backward() on a fresh thread (the recompute must enter the
+    policy itself)."""
     from mst_torch.config import Config, ModelConfig, TrainConfig
     from mst_torch.runtime import train as tr
     from tests.test_torch_model import NARROW
 
+    monkeypatch.setattr(torch.Tensor, "backward",
+                        _backward_on_fresh_thread(torch.Tensor.backward))
     song = _take(corpus[:1], 1)[0][1]
-    batch = tr.device_batch_from_songs([song], 2, 8, bar_cap=6, device="cpu")
+    batch = tr.device_batch_from_songs([song], 2, 8, bar_cap=6, device="cpu",
+                                       raster_dtype=storage)
     has_u = batch.unpitched is not None
     out = []
     for remat in (False, True):
-        config = Config(model=ModelConfig(**NARROW),
+        config = Config(model=ModelConfig(**NARROW, compute_dtype=compute,
+                                          storage_dtype=storage),
                         train=TrainConfig(remat=remat))
         state = tr.create_train_state(config, device="cpu", seed=2)
         _, vec = tr.make_train_step(config, has_u)(

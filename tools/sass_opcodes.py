@@ -13,11 +13,13 @@ contains ``--function``, its instruction count by opcode. Each ``--span
 START STOP`` also counts the instructions from the first one that contains
 START to the first one after it that contains STOP (STOP excluded): for
 K2's FULL instance, the span above is the consumers' 30-term loop, and
-``--span MUFU.EX2 "BAR.SYNC.DEFER_BLOCKING 0x1"`` its epilogue. ``--loops``
+``--span MUFU.EX2 "BAR.SYNC.DEFER_BLOCKING 0x1"`` its epilogue of 5
+outputs; in the bf16 instance (``Lb1E``) a thread owns two cells, so the
+loop has 60 terms and the epilogue 10 outputs. ``--loops``
 counts the body of every loop (from a backward branch's target to the
-branch), shortest first: for K3's FULL instance, the loop that holds the
-FFMAs is the pass over octaves, two octaves of 7 (o, d) terms a trip (the
-shorter ones are barrier waits). Needs the
+branch), shortest first: for K3's FULL instance, in either form, the loop
+that holds the 70 FFMAs is the pass over octaves, two octaves of 7 (o, d)
+terms a trip (the shorter ones are barrier waits). Needs the
 CUDA toolkit (``nvcc``, ``cuobjdump``): run it on the machine with the card.
 """
 
