@@ -85,6 +85,23 @@ Phases (any failure exits non-zero):
    same step's losses and gradients without remat bit for bit. Each tail
    form prints its share of its bound, and each bf16 form its time against
    the fp32 form's in this call.
+9. Serving and eval (run after phase 5, on its request):
+   ``batch-style-transfer-torch.py --weights <the committed npz> --device
+   cuda`` on the 3 x 3 smoke request in a process of its own must exit 0,
+   print the set of paths the in-process request of phase 5 wrote, and
+   write byte-equal files; run again without weights (``demo_params(seed
+   0)``) it must exit 0 and write files that parse. ``extract_style`` of
+   one composition and one style, then ``apply_styles`` of that job, with
+   the launch counters at 0 first, must launch K1 and K2 and write the
+   file of that job of phase 5's 1 x 1 request byte for byte (and the
+   12-job request's under the fp32-boundary rule: it buckets the latents
+   at 128 bars, not 96). ``transfer_and_evaluate``
+   of one composition and the three styles, counters at 0 first, must
+   launch K1 and K2; its keys are the generated files, every score lies
+   in [-1, 1] (or is None for a silent file, on the CPU too), and each is
+   within ``EVAL_ATOL`` of ``spectral_similarity_midi(..., device="cpu")``
+   on the same files. It prints the CLI's wall time, the eval's wall time
+   and the share its scoring took, and the largest card-CPU gap.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -130,6 +147,9 @@ RESUME_RTOL = 1e-6
 # to the leaf's largest |grad|.
 TRAIN_BF16_LOSS_TOL = (1e-2, 1e-3)
 TRAIN_BF16_GRAD_TOL = 5e-2
+# transfer_and_evaluate's scores on the card against the same files scored
+# on the CPU: cuFFT against the CPU's FFT and sums in other orders, in fp32
+EVAL_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -824,17 +844,20 @@ def phase_tail_edges(torch):
             raise AssertionError(f"K3 bf16 edge values {name}: not bit-equal")
 
 
-def check_outputs(written, label):
+def check_outputs(written, label, styled_notes=True):
+    """Every file parses; with ``styled_notes`` every styled one has notes
+    (demo params may write silent ones)."""
     from mst_torch.io import smf
     for path in written:
         with open(path, "rb") as fh:
             data = smf.parse_midi_bytes(fh.read())
         styled = "style).mid" in os.path.basename(path)
         n_on = sum(int((t.type == smf.EV_NOTE_ON).sum()) for t in data.tracks)
-        if styled and n_on == 0:
+        if styled_notes and styled and n_on == 0:
             raise AssertionError(f"{label}: styled output has no notes: "
                                  f"{path}")
-    log(f"{label}: {len(written)} files parse; every styled output has notes")
+    log(f"{label}: {len(written)} files parse"
+        + ("; every styled output has notes" if styled_notes else ""))
 
 
 def note_on_events(path):
@@ -953,6 +976,188 @@ def phase_main(torch, bundle, comps, styles, tmp):
         f"({differ / max(total, 1):.2%})")
     del bf16
     return launches, launches_bf16
+
+
+def mid_files(root):
+    """Every .mid under ``root``, by its path relative to ``root``."""
+    return sorted(os.path.relpath(os.path.join(d, n), root)
+                  for d, _, names in os.walk(root) for n in names
+                  if n.endswith(".mid"))
+
+
+def run_batch_cli(comps, styles, out, *source):
+    """``batch-style-transfer-torch.py`` on the card in a process of its
+    own. Returns (its printed paths, its wall time in s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "batch-style-transfer-torch.py"),
+         "--compositions", *comps, "--styles", *styles, "--out", out,
+         "--device", "cuda", *source], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"batch CLI {source or '(demo params)'} exited "
+                             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    return proc.stdout.splitlines(), wall
+
+
+def phase_serve_eval(torch, bundle, comps, styles, tmp):
+    """Phase 9: the batch CLI against the in-process request of phase 5,
+    extract_style + apply_styles against the same job of that request,
+    and transfer_and_evaluate on the card against CPU scoring. Returns
+    the launches of the apply and the eval runs."""
+    from mst_torch import audio, weights
+    from mst_torch.exceptions import MidiFormatError
+    from mst_torch.io import load_midi_from_file
+    from mst_torch.parity import midi_differences
+    from mst_torch.transfer import (
+        apply_styles, combine_info, extract_style, get_model_input,
+        transfer_and_evaluate)
+
+    request = os.path.join(tmp, "gpu")      # phase 5's 12-job request
+    want = mid_files(request)
+
+    def same_bytes(a, b):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+
+    out = os.path.join(tmp, "cli")
+    printed, wall = run_batch_cli(comps, styles, out, "--weights",
+                                  weights.SNAPSHOT_NPZ)
+    got = sorted(os.path.relpath(p, out) for p in printed)
+    if got != want or mid_files(out) != want:
+        raise AssertionError(f"batch CLI wrote {got}, the request {want}")
+    differ = [p for p in want if not same_bytes(os.path.join(out, p),
+                                                os.path.join(request, p))]
+    log(f"batch CLI (--weights, {len(comps)} x {len(styles)}): {wall:.3f} s "
+        f"wall in its own process; {len(printed)} paths, the request's set; "
+        f"{len(want) - len(differ)} of {len(want)} files byte-equal")
+    if differ:
+        raise AssertionError(f"batch CLI files differ from the request: "
+                             f"{differ}")
+    demo = os.path.join(tmp, "cli_demo")
+    printed, wall = run_batch_cli(comps, styles, demo)
+    if len(printed) != len(want):
+        raise AssertionError(f"batch CLI (demo params) wrote {printed}")
+    check_outputs(printed, "batch CLI (demo params, seed 0)",
+                  styled_notes=False)
+    log(f"batch CLI (demo params): {wall:.3f} s wall")
+
+    # one composition and one style through extract_style + apply_styles
+    comp, style = (get_model_input(p)[1] for p in (comps[0], styles[0]))
+    name = os.path.splitext(os.path.basename(comps[0]))[0]
+    style_name = os.path.splitext(os.path.basename(styles[0]))[0]
+    job = os.path.join(name, f"{name} ({style_name} style).mid")
+    path = os.path.join(tmp, "apply", job)
+    reset_launches()
+    style_c, melody, rhythm, n_bars = extract_style(bundle, comp)
+    style_s = extract_style(bundle, style)[0]
+    apply_styles(bundle, [combine_info(style_info=style.info,
+                                       melody_info=comp.info)],
+                 [style_s], [melody], [rhythm], [len(style.instruments)],
+                 [path], [n_bars])
+    apply_launches = read_launches()
+    log(f"extract_style + apply_styles ({job}): launches {apply_launches}")
+    for kernel in ("raster", "grid_tail"):
+        if apply_launches[kernel] == 0:
+            raise AssertionError(f"extract_style + apply_styles launched no "
+                                 f"{kernel} kernel")
+    # phase 5's 1 x 1 request buckets the job's latents as extract_style
+    # does (Rb 96); the 12-job request pads them to its longest song's
+    # bucket (Rb 128), which sums in other orders: held to the
+    # fp32-boundary rule
+    if not same_bytes(path, os.path.join(tmp, "pair_gpu", job)):
+        raise AssertionError(f"apply_styles: {job} differs from the 1 x 1 "
+                             f"request's")
+    with open(path, "rb") as fa, open(os.path.join(request, job), "rb") as fb:
+        equal, faults, borderline = midi_differences(fa.read(), fb.read())
+    if faults:
+        raise AssertionError(f"apply_styles against the 12-job request: "
+                             f"{faults}")
+    log(f"apply_styles: {job} byte-equal to the 1 x 1 request's; against "
+        f"the 12-job request's: "
+        + ("byte-equal" if equal else
+           f"{len(borderline)} fp32-boundary note events"))
+
+    # transfer_and_evaluate on the card, the audio stage timed apart
+    audio_s = [0.0]
+    score_on_card = audio.spectral_similarity_midi
+
+    def timed_score(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return score_on_card(*args, **kwargs)
+        finally:
+            audio_s[0] += time.perf_counter() - t0
+
+    eval_out = os.path.join(tmp, "eval")
+    reset_launches()
+    audio.spectral_similarity_midi = timed_score
+    try:
+        t0 = time.perf_counter()
+        scores = transfer_and_evaluate(bundle, comps[0], styles, eval_out)
+        wall = time.perf_counter() - t0
+    finally:
+        audio.spectral_similarity_midi = score_on_card
+    eval_launches = read_launches()
+    log(f"transfer_and_evaluate (1 x {len(styles)}): {wall:.3f} s wall, "
+        f"scoring (render on the host + log-mel on the card) "
+        f"{audio_s[0]:.3f} s ({audio_s[0] / wall:.1%}), launches "
+        f"{eval_launches}")
+    for kernel in ("raster", "grid_tail"):
+        if eval_launches[kernel] == 0:
+            raise AssertionError(f"transfer_and_evaluate launched no "
+                                 f"{kernel} kernel")
+    generated = [p for p in mid_files(eval_out)
+                 if "original" not in p.split(os.sep)[:-1]]
+    if sorted(os.path.relpath(p, eval_out) for p in scores) != generated:
+        raise AssertionError(f"scores for {sorted(scores)}, files "
+                             f"{generated}")
+    comp_data = load_midi_from_file(comps[0])
+    style_data = {os.path.splitext(os.path.basename(p))[0]:
+                  load_midi_from_file(p) for p in styles}
+    def cpu_score(a, b):
+        try:
+            return audio.spectral_similarity_midi(a, b, device="cpu")
+        except MidiFormatError:          # as transfer_and_evaluate scores
+            return None
+
+    gap = 0.0
+    for path, entry in scores.items():
+        data = load_midi_from_file(path)
+        for key, score in entry.items():
+            if key == "vs_composition":
+                ref = comp_data
+            else:
+                ref = next(d for n, d in style_data.items()
+                           if f"({n} style)" in os.path.basename(path))
+            cpu = cpu_score(ref, data)
+            if (score is None) != (cpu is None):
+                raise AssertionError(f"{path} {key}: card {score}, CPU {cpu}")
+            if score is None:
+                log(f"  {os.path.basename(path)} {key}: silent, no score")
+                continue
+            if not -1.0 <= score <= 1.0:
+                raise AssertionError(f"{path} {key}: score {score}")
+            gap = max(gap, abs(score - cpu))
+            log(f"  {os.path.basename(path)} {key}: card {score:.7f}, "
+                f"CPU {cpu:.7f}")
+    log(f"transfer_and_evaluate: {len(scores)} files scored; largest "
+        f"card-CPU gap {gap:.3e} (limit {EVAL_ATOL:.0e})")
+    if gap > EVAL_ATOL:
+        raise AssertionError(f"card scores differ from the CPU's by {gap}")
+    # one score's two stages apart: synthesis on the host, log-mel on the
+    # card
+    t0 = time.perf_counter()
+    pcm = [audio.render_midi(d) for d in (comp_data, data)]
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    audio.spectral_similarity(*pcm, device=bundle.device)   # a float
+    log(f"one score ({os.path.basename(path)} against {name}): synthesis "
+        f"{render_s:.3f} s on the host ({len(pcm[0]) + len(pcm[1])} "
+        f"samples), log-mel similarity {time.perf_counter() - t0:.4f} s "
+        f"on {bundle.device.type}")
+    return apply_launches, eval_launches
 
 
 def _loss_names(has_unpitched):
@@ -1230,6 +1435,8 @@ def main():
     kernels = phase_k1(torch, bundle, songs) + phase_k2(torch)
     with tempfile.TemporaryDirectory() as tmp:
         serve, serve_bf16 = phase_main(torch, bundle, comps, styles, tmp)
+        apply_run, eval_run = phase_serve_eval(torch, bundle, comps, styles,
+                                               tmp)
         del bundle
         torch.cuda.empty_cache()
         kernels += phase_k3(torch)
@@ -1249,6 +1456,8 @@ def main():
         name = k["name"]
         by_path = {"transfer request": serve[name],
                    "transfer request, bf16 extraction": serve_bf16[name],
+                   "extract_style + apply_styles": apply_run[name],
+                   "transfer_and_evaluate": eval_run[name],
                    "10 training micro-steps": train[name],
                    "10 bf16-storage training micro-steps": train_bf16[name],
                    "bf16 remat micro-step": remat[name]}

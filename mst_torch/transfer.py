@@ -9,6 +9,11 @@ with the same public entry points and output file layout:
        output_path/<name>/original/<style>.mid
        output_path/<name>/<name> (<style> style).mid
 
+``transfer_styles`` batches many compositions; ``extract_style`` and
+``apply_style(s)`` run the two stages apart; ``transfer_and_evaluate``
+scores a transfer's outputs through rendered audio (mst_torch.audio);
+``demo_params`` gives untrained weights for structure demos.
+
 The device side of a request: the songs' note records are rasterized on
 the device (K1, ``csrc/raster.cu``), the latents extracted, song info
 predicted and instruments picked, both appliers run (the pitched one's
@@ -43,12 +48,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mst_torch import weights
+from mst_torch import audio, weights
 from mst_torch.config import ModelConfig
 from mst_torch.data.pipeline import Song, get_input
 from mst_torch.data.taxonomy import (
     INCLUDED_INSTRUMENTS, PERCUSSION_ID, category_feature_table,
     category_instrument)
+from mst_torch.device import resolve_device, strict_fp32
 from mst_torch.exceptions import MidiFormatError
 from mst_torch.io import create_midi, load_midi_from_file, native
 from mst_torch.io.midi import bpm2tempo
@@ -71,24 +77,6 @@ def _bucket(n: int, buckets) -> int:
         if n <= b:
             return b
     return n
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; without one that is an error, never a quiet
-    fall back to the CPU. Pass ``"cpu"`` to run on the host."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: mst_torch runs on the GPU "
-                               "unless device='cpu' is passed")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def strict_fp32() -> None:
-    """Full fp32 on the card: no TF32 in matmuls or cuDNN convolutions (the
-    default would run the encoders' ``beats_conv`` in TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 @dataclasses.dataclass
@@ -148,6 +136,26 @@ class ModelBundle:
         model.load_state_dict(state_dict)
         return cls(model=model, device=device,
                    extract_storage_dtype=extract_storage_dtype)
+
+
+def sparsify_velocity_bias(state_dict: dict) -> dict:
+    """Push the appliers' final-layer velocity bias to -5 so the hard output
+    of UNTRAINED params is a realistically sparse roll (a raw init puts
+    every velocity above the 0.01 gate) (mst_tpu/transfer.py:614-623).
+    In place on the passed dict; returns it."""
+    for name in ("pitched_style_applier", "unpitched_style_applier"):
+        state_dict[f"{name}.linear.bias"][1] = -5.0
+    return state_dict
+
+
+def demo_params(config: ModelConfig = ModelConfig(), seed: int = 0) -> dict:
+    """A fresh init from ``seed`` (``StyleTransferModel.init_parameters``)
+    with the velocity bias sparsified, as a state dict for structure demos
+    without a trained snapshot (mst_tpu/transfer.py:626-640). The values
+    are not JAX's: the two packages draw from different generators."""
+    model = StyleTransferModel(config).init_parameters(seed)
+    return sparsify_velocity_bias(
+        {k: v.clone() for k, v in model.state_dict().items()})
 
 
 def _pack_word(x, ticks_per_beat):
@@ -353,6 +361,19 @@ def extract_styles(bundle: ModelBundle, songs: Sequence[Song]):
     return batches, locators
 
 
+def extract_style(bundle: ModelBundle, song: Song):
+    """One song's latents through ``extract_styles`` (mst_tpu/transfer.py:
+    683-693; parity style_transfer.py:67-74, max_n_bars = 1000 //
+    n_channels). The latents are bucket-padded (batch axis 1); latents at
+    valid cells equal an unpadded forward's. Returns (style, melody,
+    rhythm, real bar count)."""
+    strict_fp32()
+    with torch.inference_mode():
+        batches, _ = extract_styles(bundle, [song])
+    batch = batches[0]
+    return batch.style, batch.melody, batch.rhythm, batch.n_bars[0]
+
+
 def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
                style_idx, comp_idx, n_instruments_list, n_bars_list,
                host_work=None):
@@ -472,6 +493,35 @@ def save_channels(rasterizer: Rasterizer, pitched_channels, unpitched_channels,
     native.write_midi_file(save_path, mid)
 
 
+def save_packed_channels(rasterizer: Rasterizer, packed_p, packed_u,
+                         instruments: Sequence[int], save_path: str) -> None:
+    """Decode packed output, ``(dur, vel, acc)`` uint arrays of shape
+    (C, R, T, F10, N) each (``packed_u`` None or of one channel), to a
+    .mid (mst_tpu/transfer.py:870-894)."""
+    dur, vel, acc = packed_p
+    instruments_data = []
+    channel_ids = _free_channels(dur.shape[0])
+    for idx, instrument_id in zip(range(dur.shape[0]), instruments):
+        q = rasterizer.derasterize_packed(dur[idx], vel[idx], acc[idx],
+                                          pitched=True)
+        instruments_data.append({
+            "channel_id": channel_ids[idx],
+            "instrument_id": int(instrument_id),
+            "messages": rasterizer.qnotes_to_messages(q, pitched=True),
+        })
+    if packed_u is not None:
+        du, vu, au = packed_u
+        q = rasterizer.derasterize_packed(du[0], vu[0], au[0], pitched=False)
+        instruments_data.append({
+            "channel_id": 9, "instrument_id": -1,
+            "messages": rasterizer.qnotes_to_messages(q, pitched=False),
+        })
+    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+    mid = create_midi(rasterizer.info.as_create_midi_info(),
+                      *instruments_data, max_delta_time=1)
+    native.write_midi_file(save_path, mid)
+
+
 def _decode_packed_job(info: SongInfo, header: np.ndarray, picked_all,
                        rec_p: np.ndarray, rec_u: np.ndarray, Cb: int, Rb: int,
                        T: int, save_path: str) -> None:
@@ -523,6 +573,45 @@ def _decode_packed_job(info: SongInfo, header: np.ndarray, picked_all,
     mid = create_midi(rasterizer.info.as_create_midi_info(),
                       *instruments_data, max_delta_time=1)
     native.write_midi_file(save_path, mid)
+
+
+def apply_style(bundle: ModelBundle, info: SongInfo, style, melody, rhythm,
+                n_instruments: int, save_path: str,
+                n_bars: Optional[int] = None) -> None:
+    """Predict song info, pick the top instruments, decode and save one job
+    (mst_tpu/transfer.py:897-906; parity style_transfer.py:101-131, with
+    the predicted-mode scale overwrite and the percussion-only top-2
+    escalation). ``n_bars``: the real bar count when the latents are
+    bucket-padded (default: all of them)."""
+    R = rhythm.shape[1] if n_bars is None else n_bars
+    apply_styles(bundle, [info], [style], [melody], [rhythm], [n_instruments],
+                 [save_path], [R])
+
+
+def apply_styles(bundle: ModelBundle, infos: Sequence[SongInfo], styles,
+                 melodies, rhythms, n_instruments_list: Sequence[int],
+                 save_paths: Sequence[str], n_bars_list: Sequence[int]
+                 ) -> None:
+    """Batched apply_style (mst_tpu/transfer.py:909-925): B jobs whose
+    latents (each with a batch axis of 1, tensors or arrays) share one
+    (Rb, T) bucket run as one ``apply_jobs`` batch; job b is written to
+    ``save_paths[b]``. Like mst_tpu's, the decode sets each info's tempo
+    and scale to the predicted ones."""
+    strict_fp32()
+    dev = bundle.device
+
+    def batch(parts):
+        return torch.cat([torch.as_tensor(x, dtype=torch.float32, device=dev)
+                          for x in parts], dim=0)
+
+    style, melody, rhythm = batch(styles), batch(melodies), batch(rhythms)
+    idx = list(range(len(infos)))
+    with torch.inference_mode():
+        views, Cb = apply_jobs(bundle, list(infos), style, melody, rhythm,
+                               idx, idx, n_instruments_list, n_bars_list)
+    for info, view, path in zip(infos, views, save_paths):
+        _decode_packed_job(info, *view, Cb, rhythm.shape[1], rhythm.shape[2],
+                           path)
 
 
 def combine_info(style_info: SongInfo, melody_info: SongInfo) -> SongInfo:
@@ -641,3 +730,37 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     if host_work is not None:  # no apply jobs at all
         host_work()
     return [p for per_comp in written_per_comp for p in per_comp]
+
+
+def transfer_and_evaluate(bundle: ModelBundle, composition_path, style_paths,
+                          output_path) -> dict:
+    """Transfer, then score through rendered audio (mst_tpu/transfer.py:
+    1203-1235): ``transfer_style`` (K1 and K2 on the bundle's device), then
+    every written file but the originals is rendered on the host and its
+    log-mel similarity to its composition and to its style source is taken
+    on the bundle's device. Returns ``{path: {"vs_composition": s,
+    "vs_style": s}}`` (``vs_style`` only for styled files); a score is None
+    where a file has no notes to render."""
+    written = transfer_style(bundle, composition_path, style_paths,
+                             output_path)
+    comp_data = load_midi_from_file(composition_path)
+    style_data = {os.path.splitext(os.path.basename(str(p)))[0]:
+                  load_midi_from_file(p) for p in style_paths}
+
+    def score(a, b):
+        try:
+            return audio.spectral_similarity_midi(a, b, device=bundle.device)
+        except MidiFormatError:  # a silent output renders no audio
+            return None
+
+    scores = {}
+    for path in written:
+        if os.sep + "original" + os.sep in path:
+            continue
+        data = load_midi_from_file(path)
+        entry = {"vs_composition": score(comp_data, data)}
+        for name, sdata in style_data.items():
+            if f"({name} style)" in os.path.basename(path):
+                entry["vs_style"] = score(sdata, data)
+        scores[path] = entry
+    return scores

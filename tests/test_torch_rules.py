@@ -1,8 +1,8 @@
 """Ground rules of the port, checked on the CPU.
 
-- ``mst_torch``, ``chip_smoke.py`` and ``train-model-torch.py`` import
-  neither JAX, flax, optax, orbax, tqdm nor anything of ``mst_tpu``: the
-  machine with the GPU has none of them.
+- ``mst_torch``, ``chip_smoke.py`` and the port's CLIs (``*-torch.py``)
+  import neither JAX, flax, optax, orbax, tqdm nor anything of
+  ``mst_tpu``: the machine with the GPU has none of them.
 - Entry points run on the GPU unless the caller asks for the CPU, and
   raise rather than run quietly on the CPU.
 - A CUDA kernel's wrapper takes its plain version only for CPU tensors;
@@ -32,7 +32,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys; import mst_torch, mst_torch.transfer, "
             "mst_torch.weights, mst_torch.parity, mst_torch.runtime.train, "
             "mst_torch.runtime.checkpoint, mst_torch.runtime.metrics, "
-            "mst_torch.data.cache, mst_torch.data.prefetch; "
+            "mst_torch.data.cache, mst_torch.data.prefetch, "
+            "mst_torch.audio, mst_torch.audio.mp3, mst_torch.analysis, "
+            "mst_torch.utils, mst_torch.runtime.ref_checkpoint; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN_MODULES!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -47,8 +49,10 @@ def _port_sources():
         for name in files:
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
-    yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "train-model-torch.py")
+    for name in ("chip_smoke.py", "train-model-torch.py",
+                 "style-transfer-torch.py", "batch-style-transfer-torch.py",
+                 "corpus-stats-torch.py"):
+        yield os.path.join(ROOT, name)
 
 
 def test_no_source_imports_jax_or_mst_tpu():
@@ -66,7 +70,7 @@ def test_no_source_imports_jax_or_mst_tpu():
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
         checked += 1
-    assert checked > 30
+    assert checked > 40
 
 
 def test_bundle_defaults_to_cuda_and_raises_without_it(monkeypatch,
