@@ -102,6 +102,26 @@ Phases (any failure exits non-zero):
    within ``EVAL_ATOL`` of ``spectral_similarity_midi(..., device="cpu")``
    on the same files. It prints the CLI's wall time, the eval's wall time
    and the share its scoring took, and the largest card-CPU gap.
+10. Training over ranks (mst_torch.parallel), with the kernels already
+   built by phase 1 so that no rank builds them. A one-rank NCCL group:
+   one full-width data-parallel micro-step must give the plain step's
+   losses and gradients bit for bit. Then two gloo ranks in processes of
+   their own share the card (a FileStore, a timeout on the group and on
+   the join), each holding one smoke song of a global batch of two: each
+   rank's raster (K1 on its song alone) must equal its slice of the whole
+   batch's raster bit for bit, in fp32 and bf16; two full-width
+   micro-steps and one apply (iter_size 2), with the launch counters at 0
+   first, must launch K1 twice, K2 once and K3 once a micro-step on each
+   rank; rank 0's losses and accumulated gradients must match the
+   one-process batch-2 step on the card (``TRAIN_LOSS_RTOL``,
+   ``TRAIN_GRAD_TOL``), and both ranks' parameters after the apply must
+   be bit-equal. The sequence-parallel recurrence
+   (mst_torch.parallel.seq_lstm) on the two ranks, the relay at B = 1 and
+   the pipeline at B = 8 (128 bars, H = 128), forward and w_hh gradient,
+   against the dense ``_recur`` on the card: bit-equal, or within
+   ``SEQ_RTOL`` where cuBLAS picks another algorithm for B/2 rows than for
+   B (the count of differing values is printed). It prints the 2-rank
+   micro-step's wall time beside the one-process batch-2 step's.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -150,6 +170,12 @@ TRAIN_BF16_GRAD_TOL = 5e-2
 # transfer_and_evaluate's scores on the card against the same files scored
 # on the CPU: cuFFT against the CPU's FFT and sums in other orders, in fp32
 EVAL_ATOL = 1e-4
+# the sequence-parallel recurrence against the dense scan on the card,
+# relative to the largest |value|: the same operations, but the pipeline's
+# products have B/2 rows where the dense scan's have B, and cuBLAS may
+# pick another algorithm (another summation order) for them
+SEQ_RTOL = 1e-5
+RANK_TIMEOUT = 600        # seconds the phase-10 ranks may take
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -256,6 +282,7 @@ def phase_setup(torch):
                             else f"kernel {form}")
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {function}: {line.strip()}")
+    return smi
 
 
 def smoke_paths():
@@ -1177,6 +1204,21 @@ def _check_losses(vec, has_unpitched, label):
         raise AssertionError(f"{label}: non-finite losses {bad}")
 
 
+def group_batch(tr, songs, t, device, raster_dtype="float32", mesh=None):
+    """One training step's batch of ``songs``, bucketed and capped as
+    train-model-torch.py does for ``--batch-size len(songs)``."""
+    caps = [t.max_total_bars // s.n_channels for s in songs]
+    Cb = tr.bucket_shape(max(s.n_channels for s in songs), t.channel_buckets)
+    Rb = tr.bucket_shape(max(min(s.n_bars, c) for s, c in zip(songs, caps)),
+                         t.bar_buckets)
+    Rb = tr.clamp_bar_bucket(Rb, len(songs), Cb, songs[0].beats_per_bar,
+                             t.batch_cell_budget, t.bar_buckets)
+    return tr.device_batch_from_songs(songs, Cb, Rb,
+                                      bar_cap=[min(c, Rb) for c in caps],
+                                      device=device,
+                                      raster_dtype=raster_dtype, mesh=mesh)
+
+
 def phase_train(torch, paths, tmp, bf16=False):
     """The training path at full width: 8 batch-1 micro-steps, then 2
     batch-6 steps, with the launch counters at 0 first; with ``bf16``
@@ -1209,17 +1251,7 @@ def phase_train(torch, paths, tmp, bf16=False):
                                           raster_dtype=raster_dtype)
 
     def group(device):
-        caps = [t.max_total_bars // s.n_channels for s in songs]
-        Cb = tr.bucket_shape(max(s.n_channels for s in songs),
-                             t.channel_buckets)
-        Rb = tr.bucket_shape(max(min(s.n_bars, c)
-                                 for s, c in zip(songs, caps)), t.bar_buckets)
-        Rb = tr.clamp_bar_bucket(Rb, len(songs), Cb, songs[0].beats_per_bar,
-                                 t.batch_cell_budget, t.bar_buckets)
-        return tr.device_batch_from_songs(songs, Cb, Rb,
-                                          bar_cap=[min(c, Rb) for c in caps],
-                                          device=device,
-                                          raster_dtype=raster_dtype)
+        return group_batch(tr, songs, t, device, raster_dtype)
 
     plan = [("batch-1", lambda d, i=i: single(songs[i % len(songs)], d))
             for i in range(8)] + [("batch-6", group)] * 2
@@ -1409,6 +1441,263 @@ def phase_remat(torch, paths):
     return launches
 
 
+def _bit_equal(torch, got, want):
+    ints = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(torch.equal(got.view(ints), want.view(ints))))
+
+
+def _rel_err(got, want):
+    """Largest |got - want| over the largest |want|."""
+    return (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                 1e-30)
+
+
+def _first_step(torch, state, vec):
+    return vec.detach().cpu(), {n: p.grad.detach().cpu().clone()
+                                for n, p in state.model.named_parameters()
+                                if p.grad is not None}
+
+
+def _seq_cases(torch, mesh, dev):
+    """Phase 10's sequence-parallel recurrence on this rank's half of 128
+    bars, H = 128, against the dense ``_recur`` of the whole sequence on
+    the card: (largest relative error, values that differ, values) of the
+    outputs, the gates' gradient and the w_hh gradient, relay and
+    pipeline."""
+    from mst_torch.ops.lstm import _recur
+    from mst_torch.parallel.seq_lstm import seq_sharded_scan
+
+    n, T, H = mesh.shape["seq"], 128, 128
+    t_l = T // n
+    mine = slice(mesh.seq_index * t_l, (mesh.seq_index + 1) * t_l)
+    out = {}
+    for label, B in (("relay B=1", 1), ("pipeline B=8", 8)):
+        g = torch.Generator().manual_seed(B)
+        gates = torch.randn(B, T, 4 * H, generator=g).to(dev)
+        w = (torch.randn(H, 4 * H, generator=g) * 0.1).to(dev)
+        ct = torch.randn(B, T, H, generator=g).to(dev)
+        gl = gates[:, mine].clone().requires_grad_()
+        wl = w.clone().requires_grad_()
+        got = seq_sharded_scan(gl, wl, mesh)
+        (got * ct[:, mine]).sum().backward()
+        gd, wd = gates.clone().requires_grad_(), w.clone().requires_grad_()
+        want = _recur(gd[None], wd[None])[0]
+        (want * ct).sum().backward()
+        out[label] = {
+            name: (_rel_err(a, b), int((a != b).sum().item()), a.numel())
+            for name, a, b in (("outputs", got.detach(), want[:, mine]),
+                               ("gates grad", gl.grad, gd.grad[:, mine]),
+                               ("w_hh grad", wl.grad, wd.grad))}
+    return out
+
+
+def parallel_rank(rank, world, store, out, paths):
+    """One gloo rank of phase 10, in a process of its own on card 0: the
+    per-rank rasters, two data-parallel micro-steps with the launch
+    counters on, and the sequence-parallel recurrence. Saves what it
+    measured to ``out``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from mst_torch.config import Config
+    from mst_torch.parallel import (create_mesh, initialize_multihost,
+                                    make_sharded_train_step, replicate)
+    from mst_torch.runtime import train as tr
+    from mst_torch.transfer import get_model_input
+
+    os.environ["LOCAL_RANK"] = str(rank)    # as a launcher sets it
+    tr.reproducible_backends()
+    initialize_multihost("file://" + store, world, rank, backend="gloo",
+                         timeout=RANK_TIMEOUT / 2)
+    try:
+        config = Config()
+        t = config.train
+        songs = [get_model_input(p)[1] for p in paths]
+        # the trainer's way to its card: LOCAL_RANK modulo the cards, made
+        # the current device (cuda:0 for both ranks on one card)
+        mesh = create_mesh(n_data=world)
+        dev = mesh.device
+        if torch.cuda.current_device() != dev.index:
+            raise AssertionError(f"rank {rank}: current device "
+                                 f"{torch.cuda.current_device()}, mesh "
+                                 f"device {dev}")
+        rows = mesh.data_rows(len(songs))
+        rasters = {}
+        for dtype in ("float32", "bfloat16"):
+            dense = group_batch(tr, songs, t, dev, dtype)
+            mine = group_batch(tr, songs, t, dev, dtype, mesh)
+            rasters[dtype] = all(
+                _bit_equal(torch, getattr(mine, f), getattr(dense, f)[rows])
+                for f in ("pitched", "unpitched"))
+        state = replicate(tr.create_train_state(config, device=dev,
+                                                seed=108), mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        walls, losses, first = [], [], None
+        for i in range(2):
+            t0 = time.perf_counter()
+            batch = group_batch(tr, songs, t, dev, mesh=mesh)
+            step = make_sharded_train_step(config, batch.unpitched is not None,
+                                           mesh)
+            _, vec = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(vec.cpu())
+            if i == 0:
+                first = _first_step(torch, state, vec)
+        launches = read_launches()
+        params = {n: p.detach().cpu() for n, p in
+                  state.model.named_parameters()}
+        seq = _seq_cases(torch, create_mesh(n_data=1, n_seq=world,
+                                            device=dev), dev)
+        torch.save(dict(rasters=rasters, walls=walls, losses=losses,
+                        first=first, launches=launches, params=params,
+                        opt_step=state.opt_step, seq=seq),
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(torch, paths, tmp, smi):
+    """Phase 10: training over ranks (module docstring). Returns rank 0's
+    launches of the two data-parallel micro-steps."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from mst_torch.config import Config
+    from mst_torch.ops.losses import LossDict
+    from mst_torch.parallel import create_mesh, initialize_multihost
+    from mst_torch.runtime import train as tr
+    from mst_torch.transfer import get_model_input
+
+    tr.reproducible_backends()
+    config = Config()
+    t = config.train
+    songs = [get_model_input(p)[1] for p in paths]
+
+    # one rank under NCCL: the data-parallel step is the plain step
+    initialize_multihost("file://" + os.path.join(tmp, "nccl_store"), 1, 0,
+                         backend="nccl", timeout=RANK_TIMEOUT / 2)
+    try:
+        mesh = create_mesh(n_data=1, device="cuda:0")
+        runs, walls = {}, []
+        for label, m in (("plain", None), ("one-rank", mesh)):
+            state = tr.create_train_state(config, device="cuda", seed=108)
+            for i in range(2 if m is None else 1):
+                t0 = time.perf_counter()
+                batch = group_batch(tr, songs, t, "cuda", mesh=m)
+                _, vec = tr.make_train_step(
+                    config, batch.unpitched is not None, mesh=m)(state, batch)
+                torch.cuda.synchronize()
+                if m is None:
+                    walls.append(time.perf_counter() - t0)
+                if i == 0:
+                    runs[label] = _first_step(torch, state, vec)
+    finally:
+        dist.destroy_process_group()
+    (vec_a, grads_a), (vec_b, grads_b) = runs["plain"], runs["one-rank"]
+    same = _bit_equal(torch, vec_b, vec_a) and grads_a.keys() == \
+        grads_b.keys() and all(_bit_equal(torch, grads_b[n], grads_a[n])
+                               for n in grads_a)
+    log(f"phase 10: one-rank NCCL data-parallel micro-step against the "
+        f"plain step: {'bit-equal' if same else 'DIFFERS'} (losses and "
+        f"{len(grads_a)} gradient leaves)")
+    if not same:
+        raise AssertionError("the one-rank data-parallel step differs from "
+                             "the plain step")
+
+    # two gloo ranks on the card, one song each
+    out = os.path.join(tmp, "ranks")
+    os.makedirs(out)
+    spawn = multiprocessing.get_context("spawn")
+    procs = [spawn.Process(target=parallel_rank,
+                           args=(r, 2, os.path.join(tmp, "gloo_store"), out,
+                                 list(paths)))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 10 ranks: exit codes "
+                             f"{[p.exitcode for p in procs]}"
+                             f"{' (killed at the time limit)' if alive else ''}")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
+    log(f"phase 10: 2 gloo ranks ran in {time.perf_counter() - t0:.3f} s "
+        f"(process start included)")
+
+    for r, rec in enumerate(ranks):
+        for dtype, ok in rec["rasters"].items():
+            log(f"  rank {r}: its {dtype} rasters against its rows of the "
+                f"one-process rasters: {'bit-equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"rank {r}'s {dtype} raster differs")
+        want = {"raster": 4, "grid_tail": 2, "grid_tail_bwd": 2}
+        got = rec["launches"]
+        log(f"  rank {r}: launches over 2 micro-steps {got}")
+        if any(got[k] != want.get(k, 0) for k in got):
+            raise AssertionError(f"rank {r} launched {got}, want K1 2, K2 1 "
+                                 f"and K3 1 a micro-step")
+        if rec["opt_step"] != 1:
+            raise AssertionError(f"rank {r}: {rec['opt_step']} applies")
+    differ = [n for n, q in ranks[0]["params"].items()
+              if not _bit_equal(torch, ranks[1]["params"][n], q)]
+    log(f"  parameters after the apply: {len(ranks[0]['params']) - len(differ)}"
+        f" of {len(ranks[0]['params'])} leaves bit-equal across the ranks")
+    if differ:
+        raise AssertionError(f"parameters differ across ranks: {differ[:5]}")
+    for rec in ranks[1:]:
+        if not torch.equal(rec["losses"][0], ranks[0]["losses"][0]):
+            raise AssertionError("the ranks' losses differ")
+
+    # rank 0's first micro-step against the one-process batch-2 step
+    vec, grads = ranks[0]["first"]
+    finite = torch.isfinite(vec_a)
+    loss_err = ((vec - vec_a).abs()[finite]
+                / vec_a.abs()[finite].clamp(min=1e-12)).max().item()
+    worst = max((_rel_err(grads[n], grads_a[n]), n) for n in grads_a)
+    log(f"  rank 0 against the one-process batch-2 step: losses within "
+        f"{loss_err:.3g} relative (tolerance {TRAIN_LOSS_RTOL}), gradients "
+        f"within {worst[0]:.3g} of each leaf's largest |grad| (worst "
+        f"{worst[1]}, tolerance {TRAIN_GRAD_TOL}); total "
+        f"{vec[LossDict._fields.index('total')].item():.6f}")
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst[0] <= TRAIN_GRAD_TOL
+            and grads.keys() == grads_a.keys()):
+        raise AssertionError("rank 0's step is beyond the tolerance of the "
+                             "one-process step")
+
+    for label, fields in ranks[0]["seq"].items():
+        for name, (err, n_diff, n) in fields.items():
+            # each rank holds a chunk of the outputs and of the gates'
+            # gradient, and the whole w_hh gradient
+            held = ranks if name != "w_hh grad" else ranks[:1]
+            worst_err = max(rec["seq"][label][name][0] for rec in ranks)
+            diffs = sum(rec["seq"][label][name][1] for rec in held)
+            log(f"  seq_sharded_scan {label} {name} against the dense "
+                f"_recur: largest relative error {worst_err:.3g}, {diffs} of "
+                f"{n * len(held)} values differ (tolerance {SEQ_RTOL})")
+            if not worst_err <= SEQ_RTOL:
+                raise AssertionError(f"seq_sharded_scan {label} {name} "
+                                     f"beyond the tolerance")
+    walls_dp = ranks[0]["walls"]
+    log(f"phase 10 times ({smi}): 2-rank data-parallel micro-step "
+        f"(gloo, both ranks on the one card, one song each) "
+        f"{[round(w * 1e3, 3) for w in walls_dp]} ms; one-process batch-2 "
+        f"micro-step {[round(w * 1e3, 3) for w in walls]} ms")
+    return ranks[0]["launches"]
+
+
 def main():
     try:
         import torch
@@ -1425,7 +1714,7 @@ def main():
     sys.path.insert(0, ROOT)
     from mst_torch.transfer import ModelBundle, get_model_input
 
-    phase_setup(torch)
+    smi = phase_setup(torch)
     comps, styles = smoke_paths()
     t0 = time.perf_counter()
     songs = [get_model_input(p)[1] for p in comps + styles]
@@ -1446,6 +1735,8 @@ def main():
         torch.cuda.empty_cache()
         train_bf16, bf16 = phase_train(torch, comps + styles, tmp, bf16=True)
         remat = phase_remat(torch, comps + styles)
+        torch.cuda.empty_cache()
+        parallel = phase_parallel(torch, comps[:1] + styles[:1], tmp, smi)
     log(f"training, bf16 storage and compute against fp32 (one call): "
         f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
         f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "
@@ -1460,7 +1751,9 @@ def main():
                    "transfer_and_evaluate": eval_run[name],
                    "10 training micro-steps": train[name],
                    "10 bf16-storage training micro-steps": train_bf16[name],
-                   "bf16 remat micro-step": remat[name]}
+                   "bf16 remat micro-step": remat[name],
+                   "2-rank data-parallel micro-steps, rank 0":
+                       parallel[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "

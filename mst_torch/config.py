@@ -1,5 +1,5 @@
-"""Typed configuration of the representation, the model and training (the
-port's subset of mst_tpu/config.py; the mesh settings are not ported yet).
+"""Typed configuration of the representation, the model, training and the
+process mesh (a copy of mst_tpu/config.py's dataclasses).
 
 The reference scatters configuration over module-level constants
 (train-model.py:33-60, style/model.py:11-28, style/midi_conversion.py:349-369,
@@ -117,8 +117,22 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout (mst_torch.parallel.mesh). ``data`` shards the
+    song batch over ranks (the loss sums and the gradients are all-reduced
+    over it); ``seq`` shards the bar axis (the LSTM carry is handed from
+    rank to rank, mst_torch.parallel.seq_lstm). The axes are named
+    ``data`` and ``seq``; mst_tpu's ``data_axis`` and ``seq_axis`` fields,
+    which nothing reads there either, are left out."""
+
+    data_parallel: int = -1  # -1: every rank on the data axis
+    seq_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     rep: RepresentationConfig = dataclasses.field(
         default_factory=RepresentationConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)

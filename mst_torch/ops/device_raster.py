@@ -12,9 +12,11 @@ The host preparation (``encode_notes``, ``concat_and_pad`` with the sentinel
 row 2**30 and the ``_pad_to`` note buckets) is a copy of the JAX package's,
 so both frameworks see the same records. ``device_rasterize_song`` and
 ``device_rasterize_batch`` are the trainer's entry points: one K1 launch per
-note family for a whole batch. Each takes ``out_dtype``: float32, or
-bfloat16 for the bf16 storage policy, which K1 then writes directly (the
-JAX package's born-sharded batch is not ported yet).
+note family for a whole batch. ``device_rasterize_batch_sharded`` is the
+data-parallel one: each rank encodes and rasterizes only its own songs, so
+the raster is born on its rank and never crosses ranks. Each takes
+``out_dtype``: float32, or bfloat16 for the bf16 storage policy, which K1
+then writes directly.
 """
 
 from __future__ import annotations
@@ -203,3 +205,27 @@ def device_rasterize_batch(rasterizers, note_arrays_per_song, pitched: bool,
                               B * n_channels * n_bars * T * F10, n_notes,
                               n_feat, (B, n_channels, n_bars, T, F10) + tail,
                               out_dtype)
+
+
+def device_rasterize_batch_sharded(mesh, rasterizers, note_arrays_per_song,
+                                   pitched: bool, n_channels: int,
+                                   n_bars: int, valid_bars,
+                                   fuse_nf: bool = False, device=None,
+                                   out_dtype=FP32) -> torch.Tensor:
+    """This rank's rows of ``device_rasterize_batch`` over the global batch
+    (mst_tpu's device_rasterize_batch_sharded): data rank ``r`` of ``n``
+    encodes the notes of songs ``r*B_loc..(r+1)*B_loc`` alone and launches
+    K1 for them, writing the (B_loc, C, R, T, F10, ...) raster on its own
+    device (``device``, by default the mesh's). The raster is bit-equal to
+    rank r's slice of the whole batch's: a cell's max depends only on the
+    notes of its own row. Raises ``ValueError`` unless ``n`` divides the
+    batch; the songs must share beats-per-bar, as there."""
+    mine = mesh.data_rows(len(rasterizers))
+    if any(r.info.n_beats != rasterizers[0].info.n_beats
+           for r in rasterizers):
+        raise ValueError("batched songs must share beats-per-bar")
+    return device_rasterize_batch(
+        rasterizers[mine], note_arrays_per_song[mine], pitched, n_channels,
+        n_bars, list(valid_bars)[mine], fuse_nf=fuse_nf,
+        device=mesh.device if device is None else device,
+        out_dtype=out_dtype)

@@ -292,9 +292,10 @@ def grid_tail_fwd(xo, xd, w, rest, scale: Sequence[float]):
     if n == 0:
         return out
     stream = torch.cuda.current_stream(xo.device).cuda_stream
-    rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
-                out.data_ptr(), n, rest_rep, rest_inner, int(form == BF16),
-                stream)
+    with torch.cuda.device(xo.device):      # the thread's current card
+        rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
+                    out.data_ptr(), n, rest_rep, rest_inner,
+                    int(form == BF16), stream)
     if rc != 0:
         raise RuntimeError(f"grid tail kernel launch failed: CUDA error {rc}")
     if form == BF16:
@@ -338,9 +339,10 @@ def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
     parts = torch.empty(blocks, GRID_DEPTH, N_FEATURES, dtype=torch.float32,
                         device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
-                ct_xo.data_ptr(), ct_xd.data_ptr(), ct_y.data_ptr(),
-                parts.data_ptr(), n, blocks, int(form == BF16), stream)
+    with torch.cuda.device(dev):            # the thread's current card
+        rc = launch(*(t.data_ptr() for t in ins), *map(float, scale),
+                    ct_xo.data_ptr(), ct_xd.data_ptr(), ct_y.data_ptr(),
+                    parts.data_ptr(), n, blocks, int(form == BF16), stream)
     if rc != 0:
         raise RuntimeError(f"grid tail backward kernel launch failed: "
                            f"CUDA error {rc}")

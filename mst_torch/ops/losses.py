@@ -14,6 +14,17 @@ Batched generalization: the losses reduce over the whole batch jointly
 (global sums), which is identical at batch=1. ``pad_mask`` zeroes padded
 (channel, bar) cells out of every reduction, including the model's own
 predictions at padded positions.
+
+Data parallelism: with a process ``group`` (the mesh's data axis), each
+rank holds some rows of the batch, and every partial sum (tp, fp and fn,
+each masked numerator and its mask sum, each batch mean's numerator and
+count) is summed over the group before ``safe_div`` and ``get_mean``
+combine them, so every rank computes the global batch's losses; JAX's
+GSPMD inserts the same sums. That sum's backward is the identity: each
+rank backprops the global loss through its own rows only, and the
+parameter gradients are then summed over the group
+(mst_torch.runtime.train). Without a group, or with a group of one rank,
+nothing changes.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 EPSILON = 1e-7  # parity: style/model.py:11
 MAX_DURATION = 6.0
@@ -29,6 +41,45 @@ BPM_RANGE = 150.0  # max_bpm - min_bpm (style/model.py:22-25)
 
 def _zero(x):
     return x.new_zeros(())
+
+
+class _GroupSum(torch.autograd.Function):
+    """Sum over the ranks of a process group; the backward is the identity
+    (each rank's cotangent stays its own). An all-reduce whose backward
+    all-reduces the cotangent too would count the gradient once per rank
+    when every rank backprops the same global loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+def _alone(group) -> bool:
+    """No group, or a group of this rank alone: nothing to sum."""
+    return group is None or dist.get_world_size(group) == 1
+
+
+def group_sums(group, *partials):
+    """The scalar partial sums summed over ``group`` (one all-reduce for
+    all of them); alone (``_alone``), as given."""
+    if _alone(group):
+        return partials
+    return tuple(_GroupSum.apply(torch.stack(partials), group).unbind(0))
+
+
+def _mean(x, group=None):
+    """Mean of every element over the group's rows: the summed sum over the
+    summed count; alone, ``x.mean()`` itself."""
+    if _alone(group):
+        return x.mean()
+    total, count = group_sums(group, x.sum(), x.new_full((), x.numel()))
+    return total / count
 
 
 def safe_sqrt(x):
@@ -87,12 +138,12 @@ def get_accidentals(x):
     return x[..., 2:]
 
 
-def smooth_f_score(pred, target, beta: float = 1.0):
+def smooth_f_score(pred, target, beta: float = 1.0, group=None):
     """Differentiable F-score on velocity mass (parity: model.py:863-878)."""
     zero = _zero(pred)
-    tp = torch.minimum(pred, target).sum()
-    fp = torch.maximum(pred - target, zero).sum()
-    fn = torch.maximum(target - pred, zero).sum()
+    tp, fp, fn = group_sums(group, torch.minimum(pred, target).sum(),
+                            torch.maximum(pred - target, zero).sum(),
+                            torch.maximum(target - pred, zero).sum())
     precision = safe_div(tp, tp + fp)
     recall = safe_div(tp, tp + fn)
     beta2 = beta * beta
@@ -100,37 +151,43 @@ def smooth_f_score(pred, target, beta: float = 1.0):
     return f, precision, recall
 
 
-def notes_loss_fn(pred_velocity, target_velocity, beta: float = 1.0):
-    return 1.0 - smooth_f_score(pred_velocity, target_velocity, beta)[0]
+def notes_loss_fn(pred_velocity, target_velocity, beta: float = 1.0,
+                  group=None):
+    return 1.0 - smooth_f_score(pred_velocity, target_velocity, beta,
+                                group)[0]
 
 
-def velocity_loss_fn(pred, target, mask):
+def velocity_loss_fn(pred, target, mask, group=None):
     x = (target - pred) ** 2 * mask
-    return x.sum() / mask.sum()
+    total, count = group_sums(group, x.sum(), mask.sum())
+    return total / count
 
 
-def duration_loss_fn(pred, target, mask):
+def duration_loss_fn(pred, target, mask, group=None):
     capped = torch.minimum(target, target.new_full((), MAX_DURATION))
     x = ((pred - capped) / MAX_DURATION) ** 2 * mask
-    return x.sum() / mask.sum()
+    total, count = group_sums(group, x.sum(), mask.sum())
+    return total / count
 
 
-def accidentals_loss_fn(pred, target, mask):
+def accidentals_loss_fn(pred, target, mask, group=None):
     """Per-note BCE on accidental probabilities (parity: model.py:892-896)."""
     # jnp.clip is minimum(maximum(x, lo), hi): its gradient splits at a tie
     p = torch.minimum(torch.maximum(pred, pred.new_full((), EPSILON)),
                       pred.new_full((), 1.0 - EPSILON))
     bce = -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
     bce = bce * mask[..., None]
-    return bce.sum() / (mask.sum() * 3.0)
+    total, count = group_sums(group, bce.sum(), mask.sum())
+    return total / (count * 3.0)
 
 
 def channels_losses(pred, target, pitched: bool = True,
-                    pad_mask: Optional[torch.Tensor] = None):
+                    pad_mask: Optional[torch.Tensor] = None, group=None):
     """(notes, velocity, duration[, accidentals]) losses for one channel group
     (parity: model.py:909-921). ``pad_mask``: (B, C, bar) validity of each
     (channel, bar) — zeroes padded cells out of every reduction, including the
-    model's own predictions there."""
+    model's own predictions there. ``group``: the data axis the batch's
+    rows are spread over (None: all rows are here)."""
     # reductions always run in float32 (the global velocity-mass sums over
     # ~10^7 cells need the full mantissa), as in the JAX package
     pred = pred.float()
@@ -142,12 +199,13 @@ def channels_losses(pred, target, pitched: bool = True,
         target_velocity = target_velocity * m
         pred_velocity = pred_velocity * m
     mask = (target_velocity > 0).to(pred.dtype)
-    notes = notes_loss_fn(pred_velocity, target_velocity)
-    velocity = velocity_loss_fn(pred_velocity, target_velocity, mask)
-    duration = duration_loss_fn(get_duration(pred), get_duration(target), mask)
+    notes = notes_loss_fn(pred_velocity, target_velocity, group=group)
+    velocity = velocity_loss_fn(pred_velocity, target_velocity, mask, group)
+    duration = duration_loss_fn(get_duration(pred), get_duration(target),
+                                mask, group)
     if pitched:
         accidentals = accidentals_loss_fn(
-            get_accidentals(pred), get_accidentals(target), mask)
+            get_accidentals(pred), get_accidentals(target), mask, group)
         return notes, velocity, duration, accidentals
     return notes, velocity, duration
 
@@ -166,27 +224,28 @@ def combine_channel_losses(notes, velocity, duration, accidentals=None,
 
 # --- song-info losses
 
-def bce_with_logits(logits, target):
+def bce_with_logits(logits, target, group=None):
     """Mean BCE-with-logits (parity: F.binary_cross_entropy_with_logits)."""
     x = torch.maximum(logits, _zero(logits)) - logits * target + torch.log1p(
         torch.exp(-torch.abs(logits)))
-    return x.mean()
+    return _mean(x, group)
 
 
-def cross_entropy_logits(logits, target_index):
+def cross_entropy_logits(logits, target_index, group=None):
     logz = torch.log(torch.sum(torch.exp(
         logits - logits.amax(dim=-1, keepdim=True)), dim=-1)) \
         + logits.amax(dim=-1)
     picked = torch.gather(logits, -1, target_index[:, None])[:, 0]
-    return (logz - picked).mean()
+    return _mean(logz - picked, group)
 
 
 def song_info_losses(instruments_pred, instruments_target, mode_pred,
-                     mode_target, bpm_pred, bpm_target):
+                     mode_target, bpm_pred, bpm_target, group=None):
     """Parity: model.py:899-906 (mean over batch matches torch defaults)."""
-    instruments = bce_with_logits(instruments_pred, instruments_target)
-    mode = cross_entropy_logits(mode_pred, torch.argmax(mode_target, dim=1))
-    bpm = (((bpm_pred - bpm_target) / BPM_RANGE) ** 2).mean()
+    instruments = bce_with_logits(instruments_pred, instruments_target, group)
+    mode = cross_entropy_logits(mode_pred, torch.argmax(mode_target, dim=1),
+                                group)
+    bpm = _mean(((bpm_pred - bpm_target) / BPM_RANGE) ** 2, group)
     return instruments, mode, bpm
 
 
@@ -246,8 +305,11 @@ def total_loss(instruments_pred, instruments_target, mode_pred, mode_target,
                bpm_pred, bpm_target, pitched_pred, pitched_target,
                unpitched_pred=None, unpitched_target=None,
                normalize: bool = False, mean_type: str = "quadratic",
-               pitched_pad_mask=None, unpitched_pad_mask=None) -> LossDict:
+               pitched_pad_mask=None, unpitched_pad_mask=None,
+               group=None) -> LossDict:
     """The full hierarchical loss (parity: get_total_loss, model.py:935-997).
+    ``group``: the process group whose ranks hold the batch's rows; every
+    rank gets the global batch's losses.
 
     The reference's public signature takes (inst, mode, bpm) but its only call
     site passes (inst, bpm, mode) and the inner unpacking swaps them back
@@ -256,7 +318,8 @@ def total_loss(instruments_pred, instruments_target, mode_pred, mode_target,
     """
     nan = pitched_pred.new_full((), float("nan"), dtype=torch.float32)
     notes, velocity, duration, accidentals = channels_losses(
-        pitched_pred, pitched_target, pitched=True, pad_mask=pitched_pad_mask)
+        pitched_pred, pitched_target, pitched=True, pad_mask=pitched_pad_mask,
+        group=group)
     if normalize:
         accidentals = torch.tanh(accidentals)
     pitched_total = combine_channel_losses(notes, velocity, duration,
@@ -265,7 +328,7 @@ def total_loss(instruments_pred, instruments_target, mode_pred, mode_target,
     if unpitched_target is not None:
         u_notes, u_velocity, u_duration = channels_losses(
             unpitched_pred, unpitched_target, pitched=False,
-            pad_mask=unpitched_pad_mask)
+            pad_mask=unpitched_pad_mask, group=group)
         unpitched_total = combine_channel_losses(u_notes, u_velocity,
                                                  u_duration, None, mean_type)
         channels_total = get_mean([pitched_total, unpitched_total],
@@ -276,7 +339,7 @@ def total_loss(instruments_pred, instruments_target, mode_pred, mode_target,
 
     instruments, mode, bpm = song_info_losses(
         instruments_pred, instruments_target, mode_pred, mode_target,
-        bpm_pred, bpm_target)
+        bpm_pred, bpm_target, group)
     if normalize:
         instruments = torch.tanh(instruments)
         mode = torch.tanh(mode)

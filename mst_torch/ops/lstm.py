@@ -61,6 +61,17 @@ def _projected(module: nn.Module, suffix: str, x):
     return precision.matmul(x, w_ih.t()) + b
 
 
+def _lstm_step(gates_x, h, c, w_hh_t):
+    """One step of the recurrence: ``gates_x`` (K, N, 4H) of this step,
+    carries ``h``, ``c`` (K, N, H), ``w_hh_t`` (K, H, 4H) already cast by
+    ``precision.cast_operand``. Returns the new (h, c)."""
+    gates = gates_x + precision.matmul(h, w_hh_t)
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c
+
+
 def _recur(gates_x, w_hh_t):
     """Run the recurrence. ``gates_x``: (K, N, T, 4H) for K independent
     directions, ``w_hh_t``: (K, H, 4H). Returns outputs (K, N, T, H)."""
@@ -72,10 +83,7 @@ def _recur(gates_x, w_hh_t):
     w_hh_t = precision.cast_operand(w_hh_t)
     outs = []
     for step in range(t):
-        gates = gates_x[:, :, step] + precision.matmul(h, w_hh_t)
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        h, c = _lstm_step(gates_x[:, :, step], h, c, w_hh_t)
         outs.append(h)
     return torch.stack(outs, dim=2)
 

@@ -122,8 +122,11 @@ def rasterize(row, note_idx, acc, duration, velocity, valid,
     n = ins[0].shape[0]
     stream = torch.cuda.current_stream(row.device).cuda_stream
     bf16 = out_dtype == BF16
-    rc = launch(*(t.data_ptr() for t in ins), n, n_rows, n_notes, n_feat,
-                int(bf16), out.data_ptr(), stream)
+    # the C side launches on the thread's current card, which on the
+    # trainer's prefetch thread, or on a rank's, need not be row's
+    with torch.cuda.device(row.device):
+        rc = launch(*(t.data_ptr() for t in ins), n, n_rows, n_notes,
+                    n_feat, int(bf16), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error {rc}")
     if bf16:

@@ -1,0 +1,157 @@
+"""The process mesh: data-parallel and sequence-parallel training over ranks.
+
+Counterpart of mst_tpu/parallel/mesh.py. JAX lays devices out on a
+``Mesh`` and lets GSPMD insert the collectives; here one process runs per
+rank and the collectives are written out:
+
+- ``create_mesh`` lays the first ``n_data * n_seq`` ranks out as a
+  (data, seq) grid, row-major as JAX reshapes ``devices[:n]``, and forms
+  the process group of this rank's data axis (the ranks that share its seq
+  index) and of its seq axis;
+- the batch axis is sharded over ``data``: each rank builds and holds only
+  its own rows (``shard_batch``, or ``device_batch_from_songs(mesh=...)``,
+  whose rasters K1 builds on the rank itself);
+- parameters and optimizer state are replicated: ``replicate`` broadcasts
+  them from the data axis's first rank;
+- the data-parallel step (``make_sharded_train_step``) all-reduces the
+  loss's partial sums before their nonlinear combination, so every rank
+  computes the global batch's loss, and all-reduces each micro-step's
+  parameter gradients, as JAX's psum does inside the step;
+- the bar axis over ``seq``: mst_torch.parallel.seq_lstm's recurrence.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from mst_torch.config import Config
+from mst_torch.device import resolve_device
+from mst_torch.runtime.train import make_train_step
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This rank's view of the (data, seq) grid."""
+
+    shape: dict                  # {"data": n_data, "seq": n_seq}
+    data_index: int              # this rank's coordinates
+    seq_index: int
+    data_ranks: Tuple[int, ...]  # the global ranks of its data axis
+    data_group: object           # the process groups of its data axis
+    seq_group: object            # and of its seq axis
+    device: torch.device
+
+    def data_rows(self, batch: int) -> slice:
+        """This rank's rows ``r*B_loc:(r+1)*B_loc`` of a global batch of
+        ``batch`` rows (r: its data index); raises unless the data axis
+        divides the batch."""
+        n = self.shape["data"]
+        if batch % n:
+            raise ValueError(f"batch {batch} not divisible by data={n}")
+        return slice(self.data_index * (batch // n),
+                     (self.data_index + 1) * (batch // n))
+
+
+def local_device(device=None) -> torch.device:
+    """This rank's device: ``cuda`` (the default) means card ``LOCAL_RANK``
+    modulo the cards present, so ranks that outnumber the cards share them;
+    without a card that is an error. Anything else is taken as given. A
+    card becomes the calling thread's current device, where the rank's
+    collectives and the streams of its kernels live."""
+    if device is None or str(device) == "cuda":
+        resolve_device(None)
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+def create_mesh(n_data: Optional[int] = None, n_seq: int = 1,
+                device=None) -> Mesh:
+    """Lay the ranks of the default process group out as (data, seq).
+
+    ``n_data`` None or negative: every rank not needed by ``n_seq`` goes
+    on the data axis. Rank ``r < n_data * n_seq`` sits at
+    ``(r // n_seq, r % n_seq)``. Every rank of the default group must call
+    this (forming a group is collective). A rank beyond the grid raises
+    after the groups are formed. ``device``: this rank's device
+    (``local_device``)."""
+    if not dist.is_initialized():
+        raise RuntimeError("create_mesh needs a process group: call "
+                           "mst_torch.parallel.initialize_multihost first")
+    world = dist.get_world_size()
+    if n_data is None or n_data < 0:
+        n_data = world // n_seq
+    if n_data < 1 or n_seq < 1 or n_data * n_seq > world:
+        raise ValueError(f"mesh {n_data} x {n_seq} does not fit {world} "
+                         f"ranks")
+    data_axes = [tuple(i * n_seq + j for i in range(n_data))
+                 for j in range(n_seq)]
+    seq_axes = [tuple(i * n_seq + j for j in range(n_seq))
+                for i in range(n_data)]
+    # every rank forms every group, in the same order
+    data_groups = [dist.new_group(list(r)) for r in data_axes]
+    seq_groups = [dist.new_group(list(r)) for r in seq_axes]
+    rank = dist.get_rank()
+    if rank >= n_data * n_seq:
+        raise ValueError(f"rank {rank} lies outside the {n_data} x {n_seq} "
+                         f"mesh")
+    i, j = divmod(rank, n_seq)
+    return Mesh(shape={"data": n_data, "seq": n_seq}, data_index=i,
+                seq_index=j, data_ranks=data_axes[j],
+                data_group=data_groups[j], seq_group=seq_groups[i],
+                device=local_device(device))
+
+
+def shard_batch(batch, mesh: Mesh):
+    """This rank's rows of a global ``Batch`` (``Mesh.data_rows``)."""
+    rows = mesh.data_rows(batch.mode.shape[0])
+    return type(batch)(*(None if x is None else x[rows] for x in batch))
+
+
+def _state_tensors(module_or_state):
+    """The tensors ``replicate`` broadcasts, in one order on every rank:
+    parameters and buffers, then (for a TrainState) the accumulated
+    gradients and the optimizer state."""
+    module = getattr(module_or_state, "model", module_or_state)
+    tensors = list(module.parameters()) + list(module.buffers())
+    optimizer = getattr(module_or_state, "optimizer", None)
+    if optimizer is not None:
+        tensors += [p.grad for p in module.parameters()
+                    if p.grad is not None]
+        for p in module.parameters():
+            state = optimizer.state.get(p, {})
+            tensors += [state[k] for k in sorted(state)
+                        if torch.is_tensor(state[k])]
+    return tensors
+
+
+@torch.no_grad()
+def replicate(module_or_state, mesh: Mesh):
+    """Broadcast a module's parameters (and, for a TrainState, its
+    accumulated gradients and optimizer state) from the first rank of this
+    rank's data axis, in place. Every rank must hold a state of the same
+    structure. Returns its argument."""
+    for t in _state_tensors(module_or_state):
+        buf = t.to(mesh.device)
+        dist.broadcast(buf, src=mesh.data_ranks[0], group=mesh.data_group)
+        if buf is not t:
+            t.copy_(buf)
+    return module_or_state
+
+
+def make_sharded_train_step(config: Config, has_unpitched: bool,
+                            mesh: Mesh):
+    """The micro-step on this rank's rows of the global batch: the losses
+    of the global batch, gradients summed over the data axis, the same
+    Adam update on every rank. It is
+    ``mst_torch.runtime.train.make_train_step(..., mesh=mesh)`` and exists
+    only so that mst_tpu.parallel.mesh's API carries over."""
+    return make_train_step(config, has_unpitched, mesh=mesh)

@@ -26,6 +26,14 @@ On the card each batch's rasters are built by K1 (``device_batch_from_songs``)
 and the pitched applier's note-grid tail runs forward through K2 and
 backward through K3 (mst_torch.ops.grid_kernel.GridTail).
 
+Under a process mesh (mst_torch.parallel.mesh) each rank holds its rows
+of the global batch: ``device_batch_from_songs(mesh=...)`` builds them,
+K1 running on the rank; the step's loss sums run over the mesh's data
+axis, so every rank computes the global batch's losses, and each
+micro-step's parameter gradients are summed over the axis before they are
+added to the accumulated ones, as JAX's psum inside the step does. Adam
+then runs on the same values on every rank.
+
 The step runs under the model config's numeric policy
 (``ModelConfig.compute_dtype`` and ``storage_dtype``,
 mst_torch.ops.precision): with bf16 storage the rasters are built at bf16
@@ -43,6 +51,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch.optim.lr_scheduler import StepLR
 
@@ -121,8 +130,10 @@ def create_train_state(config: Config, device="cuda",
 
 
 def loss_fn(model: StyleTransferModel, batch: Batch, has_unpitched: bool,
-            mean_type: str = "quadratic") -> LossDict:
-    """The training objective of one batch (mst_tpu's loss_fn)."""
+            mean_type: str = "quadratic", group=None) -> LossDict:
+    """The training objective of one batch (mst_tpu's loss_fn). ``group``:
+    the data axis whose ranks hold the rest of the batch's rows (the
+    losses are then the global batch's)."""
     pitched = split_note_features(batch.pitched, 5)
     unpitched = split_note_features(batch.unpitched, 2)
     (inst_pred, mode_pred, bpm_pred), x_pitched, x_unpitched = model(
@@ -145,7 +156,7 @@ def loss_fn(model: StyleTransferModel, batch: Batch, has_unpitched: bool,
         x_pitched, pitched,
         x_unpitched, unpitched if has_unpitched else None,
         normalize=True, mean_type=mean_type,
-        pitched_pad_mask=p_mask, unpitched_pad_mask=u_mask)
+        pitched_pad_mask=p_mask, unpitched_pad_mask=u_mask, group=group)
 
 
 def apply_updates(state: TrainState) -> None:
@@ -161,9 +172,36 @@ def apply_updates(state: TrainState) -> None:
     state.opt_step += 1
 
 
-def _make_step_fn(config: Config, has_unpitched: bool):
+def _backward_summed(model: StyleTransferModel, total, group) -> None:
+    """``total.backward()`` with this micro-step's parameter gradients
+    summed over ``group`` (one all-reduce of them all) before they are
+    added to the accumulated ones, so the accumulation stays the same on
+    every rank. Every rank reaches the same parameters: the model's path
+    depends only on the global batch."""
+    params = list(model.parameters())
+    held = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    total.backward()
+    fresh = [p for p in params if p.grad is not None]
+    if fresh:
+        flat = torch.cat([p.grad.reshape(-1) for p in fresh])
+        dist.all_reduce(flat, group=group)
+        for p, g in zip(fresh, flat.split([p.numel() for p in fresh])):
+            p.grad = g.view_as(p)
+    for p, acc in zip(params, held):
+        if acc is not None:
+            p.grad = acc if p.grad is None else acc.add_(p.grad)
+
+
+def _make_step_fn(config: Config, has_unpitched: bool, mesh=None):
     """The micro-step shared by make_train_step and make_multi_train_step."""
     iter_size = config.train.iter_size
+    group = None if mesh is None else mesh.data_group
+    if group is not None and config.train.remat:
+        # the recompute would run the loss's collectives again on the
+        # autograd engine's thread
+        raise ValueError("remat is not offered under a process mesh")
 
     compute, storage = config.model.compute_dtype, config.model.storage_dtype
 
@@ -188,8 +226,11 @@ def _make_step_fn(config: Config, has_unpitched: bool):
                                         precision.precision(compute,
                                                             storage)))
             else:
-                losses = loss_fn(model, batch, has_unpitched)
-            losses.total.backward()
+                losses = loss_fn(model, batch, has_unpitched, group=group)
+            if group is None:
+                losses.total.backward()
+            else:
+                _backward_summed(model, losses.total, group)
         state.micro_step += 1
         if state.micro_step % iter_size == 0:
             apply_updates(state)
@@ -199,27 +240,35 @@ def _make_step_fn(config: Config, has_unpitched: bool):
     return step
 
 
-def make_train_step(config: Config, has_unpitched: bool):
+def make_train_step(config: Config, has_unpitched: bool, mesh=None):
     """One micro-step: grad, accumulate (sum), apply Adam every
     ``iter_size`` micro-steps with the decayed learning rate. Returns
     ``(state, losses)`` with the losses as one device vector in
     ``LossDict`` order (``LossDict(*vec.tolist())`` reads it), so the caller
     decides when to wait for the device: the CLI fetches each step's vector
-    one iteration later, while the next step runs."""
-    return _make_step_fn(config, has_unpitched)
+    one iteration later, while the next step runs. With ``mesh`` the batch
+    holds this rank's rows of the global batch (module docstring)."""
+    return _make_step_fn(config, has_unpitched, mesh)
 
 
-def make_multi_train_step(config: Config, has_unpitched: bool, k: int):
+def make_multi_train_step(config: Config, has_unpitched: bool, k: int,
+                          mesh=None):
     """K micro-steps per call: the input is a :class:`Batch` whose leaves
     carry a leading ``K*B`` axis laid out ``k*B + b`` (one rasterize launch
     per note family for the whole stack, ``device_batch_from_songs`` over
     K*B songs). Returns ``(state, (K, n_losses) loss matrix)``. Semantics
-    are K sequential :func:`make_train_step` calls."""
-    step = _make_step_fn(config, has_unpitched)
+    are K sequential :func:`make_train_step` calls.
+
+    With ``mesh`` the stack is laid out ``b*K + k`` (mst_tpu's
+    ``b_major``): a data rank's rows of it are then whole ``b`` blocks,
+    its own rows of every one of the K batches."""
+    step = _make_step_fn(config, has_unpitched, mesh)
 
     def split(x, i):
         if x is None:
             return None
+        if mesh is not None:
+            return x.reshape((x.shape[0] // k, k) + tuple(x.shape[1:]))[:, i]
         return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
 
     def multi(state: TrainState, kbatch: Batch):
@@ -384,7 +433,8 @@ def device_batch_from_song(song: Song, max_channels: int, max_bars: int,
 
 def device_batch_from_songs(songs, max_channels: int, max_bars: int,
                             bar_cap=None, max_uchannels: int = 1,
-                            device="cuda", raster_dtype="float32") -> Batch:
+                            device="cuda", raster_dtype="float32",
+                            mesh=None) -> Batch:
     """Collate N songs into one fixed-shape Batch whose rasters are built on
     the device: one K1 launch per note family for the whole batch, so only
     the note records cross to the device. Masks and labels equal
@@ -393,8 +443,16 @@ def device_batch_from_songs(songs, max_channels: int, max_bars: int,
 
     ``raster_dtype``: K1 writes the rasters at this dtype (pass the
     config's storage_dtype: a bf16-storage step then never holds the fp32
-    raster, and its cast_storage of the batch is a no-op)."""
-    from mst_torch.ops.device_raster import device_rasterize_batch
+    raster, and its cast_storage of the batch is a no-op).
+
+    ``mesh``: with a data axis of n > 1 ranks, ``songs`` is the global
+    batch and the result is this rank's rows of it, B/n of them (n must
+    divide B): K1 rasterizes this rank's songs alone
+    (``device_rasterize_batch_sharded``). The unpitched raster and mask
+    exist when any song of the global batch has percussion, so every rank
+    runs the same model path."""
+    from mst_torch.ops.device_raster import (
+        device_rasterize_batch, device_rasterize_batch_sharded)
     from mst_torch.ops.rasterize import Rasterizer
 
     B = len(songs)
@@ -411,22 +469,30 @@ def device_batch_from_songs(songs, max_channels: int, max_bars: int,
         channel_counts.append(min(song.n_channels, max_channels))
 
     out_dtype = precision.as_dtype(raster_dtype)
-    pitched = device_rasterize_batch(
-        rasterizers, [s.pitched_notes[:c] for s, c in
-                      zip(songs, channel_counts)], True, max_channels,
-        max_bars, valid_bars, fuse_nf=True, device=device,
-        out_dtype=out_dtype)
-    has_u = [s.has_unpitched for s in songs]
-    unpitched = None
-    if any(has_u):
-        unpitched = device_rasterize_batch(
-            rasterizers, [(s.unpitched_notes[:max_uchannels] if h else [])
-                          for s, h in zip(songs, has_u)], False,
-            max_uchannels, max_bars, valid_bars, fuse_nf=True, device=device,
-            out_dtype=out_dtype)
+    sharded = mesh is not None and mesh.shape["data"] > 1
+    mine = mesh.data_rows(B) if sharded else slice(None)
 
+    def build(note_arrays, pitched, n_ch):
+        args = (rasterizers, note_arrays, pitched, n_ch, max_bars,
+                valid_bars)
+        kwargs = dict(fuse_nf=True, device=device, out_dtype=out_dtype)
+        if sharded:
+            return device_rasterize_batch_sharded(mesh, *args, **kwargs)
+        return device_rasterize_batch(*args, **kwargs)
+
+    pitched = build([s.pitched_notes[:c] for s, c in
+                     zip(songs, channel_counts)], True, max_channels)
+    has_u = [s.has_unpitched for s in songs]
+    any_u = any(has_u)
+    unpitched = None
+    if any_u:
+        unpitched = build([(s.unpitched_notes[:max_uchannels] if h else [])
+                           for s, h in zip(songs, has_u)], False,
+                          max_uchannels)
+
+    songs, has_u = songs[mine], has_u[mine]
     instf, cmask, umask, mode, bpm, used = _song_labels(
-        songs, channel_counts, max_channels, max_uchannels, has_u)
+        songs, channel_counts[mine], max_channels, max_uchannels, has_u)
     for i, song in enumerate(songs):
         if has_u[i]:
             umask[i, :min(len(song.unpitched_notes), max_uchannels)] = 1.0
@@ -434,9 +500,10 @@ def device_batch_from_songs(songs, max_channels: int, max_bars: int,
         mode=_tensor(mode, device), bpm=_tensor(bpm, device),
         pitched=pitched, instruments_features=_tensor(instf, device),
         unpitched=unpitched, used_instruments=_tensor(used, device),
-        bar_lengths=_tensor(np.asarray(valid_bars), device, torch.int64),
+        bar_lengths=_tensor(np.asarray(valid_bars[mine]), device,
+                            torch.int64),
         channel_mask=_tensor(cmask, device),
-        uchannel_mask=_tensor(umask, device) if any(has_u) else None,
+        uchannel_mask=_tensor(umask, device) if any_u else None,
     )
 
 

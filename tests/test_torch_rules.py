@@ -34,7 +34,8 @@ def test_import_pulls_in_no_jax():
             "mst_torch.runtime.checkpoint, mst_torch.runtime.metrics, "
             "mst_torch.data.cache, mst_torch.data.prefetch, "
             "mst_torch.audio, mst_torch.audio.mp3, mst_torch.analysis, "
-            "mst_torch.utils, mst_torch.runtime.ref_checkpoint; "
+            "mst_torch.utils, mst_torch.runtime.ref_checkpoint, "
+            "mst_torch.parallel, mst_torch.parallel.seq_lstm; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN_MODULES!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")

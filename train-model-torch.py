@@ -23,8 +23,23 @@ Adam state stay fp32 under both.
 Snapshots go to ``torch_snapshots/`` and the loss log to
 ``torch_training.csv`` by default (``snapshots/`` and ``training.csv`` hold
 the JAX package's run); ``mst_torch.transfer.ModelBundle.from_checkpoint``
-loads a snapshot for style transfer. Not offered yet: sequence
-parallelism and device meshes.
+loads a snapshot for style transfer.
+
+Data-parallel training over ranks, one process each, each on card
+``LOCAL_RANK`` (modulo the cards present):
+
+    torchrun --nproc-per-node 4 train-model-torch.py --data corpus/ \
+        --batch-size 8
+    torchrun --nproc-per-node 2 train-model-torch.py --data corpus/ \
+        --device cpu --batch-size 2
+
+Every rank runs the same seeded song stream, so the global batch is the
+one-process ``--batch-size N`` batch; each rank builds and trains on its
+own N/ranks rows of it (the losses and gradients are the global batch's),
+and rank 0 alone writes the CSV and the snapshots. The collectives run
+over NCCL, or over gloo on the CPU and where ranks share a card
+(``mst_torch.parallel.default_backend``). ``--seq-parallel``
+(the bar-sharded model) is not offered yet.
 """
 
 import argparse
@@ -55,9 +70,12 @@ def parse_args(argv=None):
                         help="write a torch.profiler trace of iterations "
                              "10-15")
     parser.add_argument("--batch-size", type=int, default=1,
-                        help="songs per step on the one device (>1: padded "
+                        help="songs per step over all ranks (>1: padded "
                              "fixed-shape batch; the reference trains one "
-                             "song per step)")
+                             "song per step); the ranks must divide it")
+    parser.add_argument("--seq-parallel", type=int, default=1,
+                        help="ranks on the sequence axis; only 1 is "
+                             "offered yet")
     parser.add_argument("--remat", action="store_true",
                         help="recompute the forward in backward "
                              "(torch.utils.checkpoint)")
@@ -87,6 +105,11 @@ def parse_args(argv=None):
                         help="host-RAM budget (MB) for the cross-epoch "
                              "ingestion cache; 0 re-parses every epoch")
     args = parser.parse_args(argv)
+    if args.seq_parallel != 1:
+        raise SystemExit("--seq-parallel > 1 is not offered yet: the "
+                         "bar-sharded model (the LSTM dispatch onto "
+                         "mst_torch.parallel.seq_lstm and the cross-bar "
+                         "ops) is the next slice of the port")
     if args.steps_per_dispatch > 1 and args.exact_shapes:
         raise SystemExit("--steps-per-dispatch needs bucketed shapes "
                          "(drop --exact-shapes)")
@@ -103,10 +126,26 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    import torch.distributed as dist
+
+    from mst_torch.parallel import initialize_multihost
+
+    own_group = not dist.is_initialized()
+    if not initialize_multihost(device=args.device):
+        return train(args)
+    try:
+        return train(args, distributed=True)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def train(args, distributed=False):
     import numpy as np
     import torch
+    import torch.distributed as dist
 
-    from mst_torch.config import Config, TrainConfig
+    from mst_torch.config import Config, MeshConfig, TrainConfig
     from mst_torch.data.pipeline import iter_inputs
     from mst_torch.data.prefetch import prefetch_iterator
     from mst_torch.ops.losses import LossDict
@@ -116,27 +155,45 @@ def main(argv=None):
                                            flatten_losses, profiler_trace)
     from mst_torch.transfer import resolve_device
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
-    tr.reproducible_backends()
     config = Config(train=TrainConfig(n_iterations=args.iters, seed=args.seed,
                                       save_interval=args.save_interval,
-                                      remat=args.remat))
+                                      remat=args.remat),
+                    mesh=MeshConfig(seq_parallel=args.seq_parallel))
+    mesh = None
+    if distributed:
+        from mst_torch.parallel import create_mesh, replicate, shard_batch
+        mesh = create_mesh(config.mesh.data_parallel,
+                           config.mesh.seq_parallel, device=args.device)
+        device = mesh.device
+        if args.batch_size % mesh.shape["data"] != 0:
+            raise SystemExit(
+                f"--batch-size must be divisible by the data axis "
+                f"({mesh.shape['data']} ranks): each rank owns whole batch "
+                f"rows (of every step of a --steps-per-dispatch stack)")
+    else:
+        device = resolve_device(None if args.device == "cuda"
+                                else args.device)
+    lead = mesh is None or dist.get_rank() == 0   # logs and saves
+    say = print if lead else (lambda *a, **k: None)
+    tr.reproducible_backends()
     if args.compute_dtype or args.storage_dtype:
         config = dataclasses.replace(config, model=dataclasses.replace(
             config.model,
             compute_dtype=args.compute_dtype or config.model.compute_dtype,
             storage_dtype=args.storage_dtype or config.model.storage_dtype))
     t = config.train
-    print(f"Using {device}" + (f": {torch.cuda.get_device_name(device)}"
-                               if device.type == "cuda" else ""))
-    print("Listing data files")
+    say(f"Using {device}" + (f": {torch.cuda.get_device_name(device)}"
+                             if device.type == "cuda" else ""))
+    if mesh is not None:
+        say(f"Process mesh: {mesh.shape} ({dist.get_backend()})")
+    say("Listing data files")
     files = sorted(glob.glob(os.path.join(args.data, "**/*.mid"),
                              recursive=True))
     if not files:
         raise SystemExit(f"no .mid files under {args.data}")
-    print(f"{len(files)} files")
+    say(f"{len(files)} files")
 
-    print("Creating model")
+    say("Creating model")
     state = tr.create_train_state(config, device=device)
     checkpoints = CheckpointManager(args.snapshots)
     start_iteration = 0
@@ -147,12 +204,14 @@ def main(argv=None):
             start_iteration = latest + 1
             resume_cursor = checkpoints.load_cursor(latest) or 0
             checkpoints.restore(state, latest)
-            print(f"Resuming from snapshot {latest} "
-                  f"(data cursor {resume_cursor})")
+            say(f"Resuming from snapshot {latest} "
+                f"(data cursor {resume_cursor})")
+    if mesh is not None:
+        replicate(state, mesh)      # every rank starts from rank 0's state
 
-    print("Training")
-    logger = CsvLogger(args.csv)
-    pbar = ProgressBar(t.n_iterations - start_iteration)
+    say("Training")
+    logger = CsvLogger(args.csv) if lead else None
+    pbar = ProgressBar(t.n_iterations - start_iteration) if lead else None
     cache = None
     if args.cache_mb > 0:
         from mst_torch.data.cache import SongCache
@@ -220,8 +279,15 @@ def main(argv=None):
         the whole stack (K*B songs), so host parsing and the record upload
         of the next stack overlap the current steps."""
         for cursor, groups in stacks:
-            songs_flat = [s for g in groups for s in g[0]]
-            caps = [c for g in groups for c in g[3]]
+            if mesh is not None and len(groups) > 1:
+                # b-major stack: a rank's rows are whole b blocks
+                # (make_multi_train_step with a mesh)
+                B = len(groups[0][0])
+                songs_flat = [g[0][b] for b in range(B) for g in groups]
+                caps = [g[3][b] for b in range(B) for g in groups]
+            else:
+                songs_flat = [s for g in groups for s in g[0]]
+                caps = [c for g in groups for c in g[3]]
             _, Cb, Rb, _ = groups[0]
             if args.exact_shapes:
                 if args.batch_size == 1:
@@ -234,11 +300,14 @@ def main(argv=None):
                 else:
                     batch = tr.pad_batch(songs_flat, Cb, Rb, bar_cap=caps,
                                          device=device)
+                    if mesh is not None:
+                        batch = shard_batch(batch, mesh)
             else:
-                # K1 writes the rasters at the storage dtype
+                # K1 writes the rasters at the storage dtype; over ranks,
+                # each rank's rows alone
                 batch = tr.device_batch_from_songs(
                     songs_flat, Cb, Rb, bar_cap=caps, device=device,
-                    raster_dtype=config.model.storage_dtype)
+                    raster_dtype=config.model.storage_dtype, mesh=mesh)
             yield cursor, (len(groups), batch)
 
     batches = prefetch_iterator(build_stream(), depth=t.prefetch_depth)
@@ -246,7 +315,9 @@ def main(argv=None):
 
     def record(base_iteration, loss_vecs, has_unpitched):
         # one host fetch for the whole call: (n,) for a single step or
-        # (K, n) for a stack
+        # (K, n) for a stack; every rank holds the same global losses and
+        # checks them, so a NaN stops every rank, not rank 0 alone while
+        # the others wait in the next step's collectives
         arr = loss_vecs.cpu().numpy()
         for j, row in enumerate(arr.reshape(-1, arr.shape[-1])):
             losses = LossDict(*[float(v) for v in row])
@@ -266,6 +337,8 @@ def main(argv=None):
             # parity: train-model.py:125, widened to every component — a
             # NaN in one branch must never hide behind a zeroed mean
             assert all(np.isfinite(v) for v in values.values()), values
+            if not lead:
+                continue
             pbar.add(1, **values)
             logger.append(iteration=base_iteration + j,
                           **flatten_losses(losses))
@@ -280,10 +353,12 @@ def main(argv=None):
         key = (has_unpitched, ksteps)
         if key not in step_fns:
             step_fns[key] = (
-                tr.make_train_step(config, has_unpitched)
+                tr.make_train_step(config, has_unpitched, mesh=mesh)
                 if ksteps == 1 else
-                tr.make_multi_train_step(config, has_unpitched, ksteps))
-        if args.profile_dir and profile is None and iteration >= 10:
+                tr.make_multi_train_step(config, has_unpitched, ksteps,
+                                         mesh=mesh))
+        if (args.profile_dir and lead and profile is None
+                and iteration >= 10):
             profile = profiler_trace(args.profile_dir)
             profile.__enter__()
         state, loss_vec = step_fns[key](state, batch)
@@ -307,13 +382,15 @@ def main(argv=None):
             # component is finite, so a NaN-poisoned state is never saved
             record(*pending)
             pending = None
-            checkpoints.save(iteration - 1, state, cursor=data_cursor)
+            if lead:
+                checkpoints.save(iteration - 1, state, cursor=data_cursor)
 
     if pending is not None:
         record(*pending)
     if profile is not None:
         profile.__exit__(None, None, None)
-    pbar.close()
+    if pbar is not None:
+        pbar.close()
     return state
 
 
