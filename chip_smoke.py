@@ -122,6 +122,24 @@ Phases (any failure exits non-zero):
    ``SEQ_RTOL`` where cuBLAS picks another algorithm for B/2 rows than for
    B (the count of differing values is printed). It prints the 2-rank
    micro-step's wall time beside the one-process batch-2 step's.
+11. The bar-sharded model (``--seq-parallel``, mst_torch.ops.seq_context):
+   two gloo ranks in processes of their own share the card as a (1 data x
+   2 seq) mesh, each holding bars 0-63 or 64-127 of a global batch of
+   comp_0 (capped at 40 bars, so its last bar lies on rank 0) and style_0
+   (its last bar on rank 1), Cb 4, Rb 128 (40,960 raster rows, 20,480 a
+   rank), at full width from the seed-108 init. Each rank's fp32 and
+   bf16 rasters (K1 on the notes of its bars alone) must equal its bars
+   of the one-process rasters bit for bit; K2 and K3 on its bars of
+   random tail inputs at that shape, in both forms, must give the
+   matching rows of the one-process launch bit for bit (K2's output, K3's
+   ct_xo, ct_xd, ct_y and ct_rest), and the two ranks' ct_w partials must
+   add up to the one-process ct_w within ``K3_W_RTOL``. Two micro-steps
+   and one apply, with the launch counters at 0 first, must launch K1
+   twice, K2 once and K3 once a micro-step on each rank; rank 0's losses
+   and accumulated gradients must match the one-process batch-2 step
+   (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), both ranks must hold the
+   same losses, and their parameters after the apply must be bit-equal.
+   It prints the micro-step's wall time beside the one-process step's.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -175,7 +193,9 @@ EVAL_ATOL = 1e-4
 # products have B/2 rows where the dense scan's have B, and cuBLAS may
 # pick another algorithm (another summation order) for them
 SEQ_RTOL = 1e-5
-RANK_TIMEOUT = 600        # seconds the phase-10 ranks may take
+RANK_TIMEOUT = 600        # seconds the phase-10 and 11 ranks may take
+SEQ_CAPS = (40, 128)      # phase 11: comp_0 ends on seq rank 0, style_0 on 1
+SEQ_CB, SEQ_RB = 4, 128
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -1563,8 +1583,6 @@ def parallel_rank(rank, world, store, out, paths):
 def phase_parallel(torch, paths, tmp, smi):
     """Phase 10: training over ranks (module docstring). Returns rank 0's
     launches of the two data-parallel micro-steps."""
-    import multiprocessing
-
     import torch.distributed as dist
 
     from mst_torch.config import Config
@@ -1610,31 +1628,9 @@ def phase_parallel(torch, paths, tmp, smi):
                              "the plain step")
 
     # two gloo ranks on the card, one song each
-    out = os.path.join(tmp, "ranks")
-    os.makedirs(out)
-    spawn = multiprocessing.get_context("spawn")
-    procs = [spawn.Process(target=parallel_rank,
-                           args=(r, 2, os.path.join(tmp, "gloo_store"), out,
-                                 list(paths)))
-             for r in range(2)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + RANK_TIMEOUT
-    try:
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 1.0))
-    finally:
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-    if alive or any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"phase 10 ranks: exit codes "
-                             f"{[p.exitcode for p in procs]}"
-                             f"{' (killed at the time limit)' if alive else ''}")
-    ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
-    log(f"phase 10: 2 gloo ranks ran in {time.perf_counter() - t0:.3f} s "
+    ranks, seconds = _run_rank_processes(parallel_rank, 2, tmp, "ranks",
+                                         paths)
+    log(f"phase 10: 2 gloo ranks ran in {seconds:.3f} s "
         f"(process start included)")
 
     for r, rec in enumerate(ranks):
@@ -1698,6 +1694,229 @@ def phase_parallel(torch, paths, tmp, smi):
     return ranks[0]["launches"]
 
 
+def seq_batch(tr, songs, device, raster_dtype="float32", mesh=None):
+    """Phase 11's global batch (comp_0 and style_0 at ``SEQ_CB`` channels,
+    ``SEQ_RB`` bars, capped at ``SEQ_CAPS``), or a rank's share of it."""
+    return tr.device_batch_from_songs(songs, SEQ_CB, SEQ_RB,
+                                      bar_cap=list(SEQ_CAPS), device=device,
+                                      raster_dtype=raster_dtype, mesh=mesh)
+
+
+def _seq_tails(torch, bars):
+    """K2 and K3 on this rank's bars of random tail inputs at phase 11's
+    shape, in both forms, against the rows of the one-process launch:
+    {form: (row outputs bit-equal, this rank's ct_w partial, the
+    one-process ct_w)}."""
+    from mst_torch.ops import grid_kernel as gk
+
+    lead = (len(SEQ_CAPS), SEQ_CB, SEQ_RB, 4, 10)
+    out = {}
+    for bf16 in (False, True):
+        xo, xd, y, ct, w, rest = k3_case(torch, lead, 11, bf16=bf16)
+        full = gk.grid_tail_bwd(xo, xd, y, ct, w, K3_SCALE)
+        mine = [t[:, :, bars].contiguous() for t in (xo, xd, y, ct, rest)]
+        y_l = gk.grid_tail_fwd(mine[0], mine[1], w, mine[4], K3_SCALE)
+        local = gk.grid_tail_bwd(mine[0], mine[1], mine[2], mine[3], w,
+                                 K3_SCALE)
+        rows = [_bit_equal(torch, y_l, y[:, :, bars])]
+        rows += [_bit_equal(torch, a, b[:, :, bars])
+                 for a, b in zip(local[:3], full[:3])]
+        rows.append(_bit_equal(torch, local[2].sum(1, keepdim=True),
+                               full[2].sum(1, keepdim=True)[:, :, bars]))
+        out["bf16" if bf16 else "fp32"] = (all(rows), local[3].cpu(),
+                                           full[3].cpu())
+    return out
+
+
+def seq_rank(rank, world, store, out, paths):
+    """One gloo rank of phase 11, in a process of its own on card 0: its
+    bars' rasters and tails against the one-process ones, then two
+    bar-sharded micro-steps with the launch counters on. Saves what it
+    measured to ``out``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from mst_torch.config import Config
+    from mst_torch.parallel import (create_mesh, initialize_multihost,
+                                    make_sharded_train_step, replicate)
+    from mst_torch.runtime import train as tr
+    from mst_torch.transfer import get_model_input
+
+    os.environ["LOCAL_RANK"] = str(rank)    # as a launcher sets it
+    tr.reproducible_backends()
+    initialize_multihost("file://" + store, world, rank, backend="gloo",
+                         timeout=RANK_TIMEOUT / 2)
+    try:
+        config = Config()
+        songs = [get_model_input(p)[1] for p in paths]
+        mesh = create_mesh(n_data=1, n_seq=world)
+        dev = mesh.device
+        bars = mesh.seq_bars(SEQ_RB)
+        rasters = {}
+        for dtype in ("float32", "bfloat16"):
+            dense = seq_batch(tr, songs, dev, dtype)
+            mine = seq_batch(tr, songs, dev, dtype, mesh)
+            rasters[dtype] = all(
+                _bit_equal(torch, getattr(mine, f),
+                           getattr(dense, f)[:, :, bars])
+                for f in ("pitched", "unpitched"))
+        tails = _seq_tails(torch, bars)
+        state = replicate(tr.create_train_state(config, device=dev,
+                                                seed=108), mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        walls, losses, first = [], [], None
+        for i in range(2):
+            t0 = time.perf_counter()
+            batch = seq_batch(tr, songs, dev, mesh=mesh)
+            step = make_sharded_train_step(config, batch.unpitched is not None,
+                                           mesh)
+            _, vec = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(vec.cpu())
+            if i == 0:
+                first = _first_step(torch, state, vec)
+        launches = read_launches()
+        params = {n: p.detach().cpu() for n, p in
+                  state.model.named_parameters()}
+        torch.save(dict(rasters=rasters, tails=tails, walls=walls,
+                        losses=losses, first=first, launches=launches,
+                        params=params, opt_step=state.opt_step),
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_rank_processes(target, world, tmp, name, paths):
+    """Spawn ``world`` processes of ``target`` (rank, world, store, out,
+    paths) and wait for them under ``RANK_TIMEOUT``; returns what each
+    saved and the seconds they took."""
+    import multiprocessing
+
+    import torch
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    spawn = multiprocessing.get_context("spawn")
+    procs = [spawn.Process(target=target,
+                           args=(r, world, os.path.join(tmp, name + "_store"),
+                                 out, list(paths)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{name}: exit codes "
+                             f"{[p.exitcode for p in procs]}"
+                             f"{' (killed at the time limit)' if alive else ''}")
+    return ([torch.load(os.path.join(out, f"rank{r}.pt"))
+             for r in range(world)], time.perf_counter() - t0)
+
+
+def phase_seq(torch, paths, tmp, smi):
+    """Phase 11: the bar-sharded model over two seq ranks (module
+    docstring). Returns rank 0's launches of its two micro-steps."""
+    from mst_torch.config import Config
+    from mst_torch.ops.losses import LossDict
+    from mst_torch.runtime import train as tr
+    from mst_torch.transfer import get_model_input
+
+    tr.reproducible_backends()
+    config = Config()
+    songs = [get_model_input(p)[1] for p in paths]
+    state = tr.create_train_state(config, device="cuda", seed=108)
+    walls = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        batch = seq_batch(tr, songs, "cuda")
+        _, vec = tr.make_train_step(config, batch.unpitched is not None)(
+            state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            vec_a, grads_a = _first_step(torch, state, vec)
+    del state
+    torch.cuda.empty_cache()
+
+    ranks, seconds = _run_rank_processes(seq_rank, 2, tmp, "seq_ranks",
+                                         paths)
+    log(f"phase 11: 2 gloo seq ranks ran in {seconds:.3f} s (process start "
+        f"included)")
+    for r, rec in enumerate(ranks):
+        for dtype, ok in rec["rasters"].items():
+            log(f"  seq rank {r}: its bars of the {dtype} rasters against "
+                f"the one-process rasters: {'bit-equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"seq rank {r}'s {dtype} raster differs")
+        for form, (ok, _, _) in rec["tails"].items():
+            log(f"  seq rank {r}: {form} K2 output and K3 ct_xo, ct_xd, ct_y "
+                f"and ct_rest on its bars against the one-process launch: "
+                f"{'bit-equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"seq rank {r}'s {form} tail rows "
+                                     f"differ")
+        want = {"raster": 4, "grid_tail": 2, "grid_tail_bwd": 2}
+        got = rec["launches"]
+        log(f"  seq rank {r}: launches over 2 micro-steps {got}")
+        if any(got[k] != want.get(k, 0) for k in got):
+            raise AssertionError(f"seq rank {r} launched {got}, want K1 2, "
+                                 f"K2 1 and K3 1 a micro-step")
+        if rec["opt_step"] != 1:
+            raise AssertionError(f"seq rank {r}: {rec['opt_step']} applies")
+    for form in ("fp32", "bf16"):
+        parts = sum(rec["tails"][form][1] for rec in ranks)
+        full = ranks[0]["tails"][form][2]
+        err = _rel_err(parts, full)
+        log(f"  {form} K3 ct_w: the ranks' partials summed against the "
+            f"one-process ct_w within {err:.3g} of its largest (tolerance "
+            f"{K3_W_RTOL})")
+        if not err <= K3_W_RTOL:
+            raise AssertionError(f"{form} ct_w over seq ranks beyond "
+                                 f"K3_W_RTOL")
+    differ = [n for n, q in ranks[0]["params"].items()
+              if not _bit_equal(torch, ranks[1]["params"][n], q)]
+    log(f"  parameters after the apply: "
+        f"{len(ranks[0]['params']) - len(differ)} of "
+        f"{len(ranks[0]['params'])} leaves bit-equal across the seq ranks")
+    if differ:
+        raise AssertionError(f"parameters differ across seq ranks: "
+                             f"{differ[:5]}")
+    if not all(torch.equal(a, b) for a, b in zip(ranks[1]["losses"],
+                                                 ranks[0]["losses"])):
+        raise AssertionError("the seq ranks' losses differ")
+
+    vec, grads = ranks[0]["first"]
+    finite = torch.isfinite(vec_a)
+    loss_err = ((vec - vec_a).abs()[finite]
+                / vec_a.abs()[finite].clamp(min=1e-12)).max().item()
+    worst = max((_rel_err(grads[n], grads_a[n]), n) for n in grads_a)
+    log(f"  seq rank 0 against the one-process batch-2 step: losses within "
+        f"{loss_err:.3g} relative (tolerance {TRAIN_LOSS_RTOL}), gradients "
+        f"within {worst[0]:.3g} of each leaf's largest |grad| (worst "
+        f"{worst[1]}, tolerance {TRAIN_GRAD_TOL}); total "
+        f"{vec[LossDict._fields.index('total')].item():.6f}")
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst[0] <= TRAIN_GRAD_TOL
+            and grads.keys() == grads_a.keys()):
+        raise AssertionError("seq rank 0's step is beyond the tolerance of "
+                             "the one-process step")
+    log(f"phase 11 times ({smi}): 2-seq-rank micro-step (gloo, both ranks "
+        f"on the one card, 64 bars each) "
+        f"{[round(w * 1e3, 3) for w in ranks[0]['walls']]} ms; one-process "
+        f"batch-2 micro-step {[round(w * 1e3, 3) for w in walls]} ms")
+    return ranks[0]["launches"]
+
+
 def main():
     try:
         import torch
@@ -1737,6 +1956,8 @@ def main():
         remat = phase_remat(torch, comps + styles)
         torch.cuda.empty_cache()
         parallel = phase_parallel(torch, comps[:1] + styles[:1], tmp, smi)
+        torch.cuda.empty_cache()
+        seq = phase_seq(torch, comps[:1] + styles[:1], tmp, smi)
     log(f"training, bf16 storage and compute against fp32 (one call): "
         f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
         f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "
@@ -1753,7 +1974,8 @@ def main():
                    "10 bf16-storage training micro-steps": train_bf16[name],
                    "bf16 remat micro-step": remat[name],
                    "2-rank data-parallel micro-steps, rank 0":
-                       parallel[name]}
+                       parallel[name],
+                   "2-seq-rank bar-sharded micro-steps, rank 0": seq[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "

@@ -123,6 +123,24 @@ def second2tick(second, ticks_per_beat: int, tempo: int):
     return second / (tempo * 1e-6 / ticks_per_beat)
 
 
+def play_midi(midi_data: MidiFileData, out_path: Optional[str] = None,
+              sample_rate: int = 22050) -> str:
+    """Render a parsed MIDI file to a WAV (mst_tpu's play_midi; the
+    reference plays it live through rtmidi, style/midi.py:111-117) with
+    mst_torch.audio's synthesis, byte for byte mst_tpu's file. ``out_path``
+    defaults to ``play.wav`` in the temporary directory. Returns the
+    path."""
+    import os
+    import tempfile
+
+    from mst_torch.audio import render_midi, write_wav
+    if out_path is None:
+        out_path = os.path.join(tempfile.gettempdir(), "play.wav")
+    pcm = render_midi(midi_data, sample_rate=sample_rate)
+    write_wav(out_path, pcm, sample_rate)
+    return out_path
+
+
 def load_midi_from_file(path) -> Optional[MidiFileData]:
     """Defensive load: None on any malformed file (parity: style/midi.py:104-108).
     Uses the native C++ codec when built (byte-equivalent, ~40x faster)."""

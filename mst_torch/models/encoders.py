@@ -16,8 +16,7 @@ from torch import nn
 
 from mst_torch.models.layers import Conv1d, Dense, leaky_relu, mean_size
 from mst_torch.ops.lstm import LSTM, BiLSTM
-from mst_torch.ops.shapes import (
-    cat_with_broadcast, combine, masked_last, squash_dims)
+from mst_torch.ops.shapes import cat_with_broadcast, combine, squash_dims
 
 N_OCTAVES = 8
 N_SCALE_DEGREES = 7
@@ -55,7 +54,7 @@ class PitchedChannelsEncoder(nn.Module):
         self.instruments_linear = Dense(n_instrument_features, inst)
         self.linear = Dense(self.conv_out * N_OCTAVES + inst, beat_size)
         self.beats_lstm = LSTM(beat_size, beat_size)
-        self.bars_lstm = BiLSTM(beat_size, bar_size // 2)
+        self.bars_lstm = BiLSTM(beat_size, bar_size // 2, bar_axis=True)
 
     def forward(self, channels, instruments_features, bar_lengths=None,
                 channel_mask=None):
@@ -75,7 +74,8 @@ class PitchedChannelsEncoder(nn.Module):
         beats = _flatten_call(lambda y: self.beats_lstm(y)[0], x, keep=3)
 
         x = beats[:, :, :, -1]                        # last beat per bar
-        x = combine(x, axis=1, mask=channel_mask)      # pool channels
+        x = combine(x, axis=1, mask=channel_mask,      # pool channels
+                    over_bars=True)
         bars = self.bars_lstm(x, bar_lengths)
         return beats, bars
 
@@ -91,7 +91,7 @@ class UnpitchedChannelsEncoder(nn.Module):
             N_BEAT_FRACTIONS * N_UNPITCHED_FEATURES * N_UNPITCHED_NOTES,
             beat_size)
         self.beats_lstm = LSTM(beat_size, beat_size)
-        self.bars_lstm = BiLSTM(beat_size, bar_size // 2)
+        self.bars_lstm = BiLSTM(beat_size, bar_size // 2, bar_axis=True)
 
     def forward(self, channels, bar_lengths=None, channel_mask=None):
         B, C, R, T = channels.shape[:4]
@@ -101,7 +101,7 @@ class UnpitchedChannelsEncoder(nn.Module):
         beats = _flatten_call(lambda y: self.beats_lstm(y)[0], x, keep=3)
 
         x = beats[:, :, :, -1]
-        x = combine(x, axis=1, mask=channel_mask)
+        x = combine(x, axis=1, mask=channel_mask, over_bars=True)
         bars = self.bars_lstm(x, bar_lengths)
         return beats, bars
 
@@ -117,7 +117,7 @@ class StyleEncoder(nn.Module):
         inst = mean_size(n_instrument_features, s, factor=0.25)
         mode = mean_size(N_MODES, s, factor=0.1)
         bpm = mean_size(s, 1, factor=0.05)
-        self.bars_lstm = LSTM(bar_size, lstm)
+        self.bars_lstm = LSTM(bar_size, lstm, bar_axis=True)
         self.instruments_linear = Dense(n_instrument_features, inst)
         self.mode_linear = Dense(N_MODES, mode)
         self.bpm_linear = Dense(1, bpm)
@@ -125,9 +125,7 @@ class StyleEncoder(nn.Module):
 
     def forward(self, bars, instruments_features, mode, bpm,
                 bar_lengths=None, channel_mask=None):
-        out, _ = self.bars_lstm(bars)
-        x = out[:, -1] if bar_lengths is None else masked_last(out,
-                                                               bar_lengths)
+        _, x = self.bars_lstm(bars, bar_lengths)      # the last valid bar
         x1 = x[:, None, :]                              # (B, 1, F)
         x2 = leaky_relu(self.instruments_linear(instruments_features))
         x3 = leaky_relu(self.mode_linear(mode))[:, None, :]
@@ -181,7 +179,7 @@ class MelodyEncoder(nn.Module):
 
         x2 = leaky_relu(self.channels_linear(channels))
         x = leaky_relu(self.linear(cat_with_broadcast([x1, x2], -1)))
-        return combine(x, axis=1, mask=channel_mask)
+        return combine(x, axis=1, mask=channel_mask, over_bars=True)
 
 
 class PitchedRhythmEncoder(nn.Module):
@@ -221,7 +219,8 @@ class PitchedRhythmEncoder(nn.Module):
             x1.expand(tuple(x3.shape[:5]) + (x1.shape[-1],)),
             x2, x3, x4, x5, x6], -1)
         x = leaky_relu(self.linear(x))
-        return combine(x, axis=1, mask=channel_mask)    # (B,R,T,F10,r)
+        return combine(x, axis=1, mask=channel_mask,    # (B,R,T,F10,r)
+                       over_bars=True)
 
 
 class UnpitchedRhythmEncoder(nn.Module):
@@ -252,4 +251,4 @@ class UnpitchedRhythmEncoder(nn.Module):
             x1.expand(tuple(x3.shape[:5]) + (x1.shape[-1],)),
             x2, x3, x4], -1)
         x = leaky_relu(self.linear(x))
-        return combine(x, axis=1, mask=channel_mask)
+        return combine(x, axis=1, mask=channel_mask, over_bars=True)

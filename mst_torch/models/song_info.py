@@ -12,7 +12,7 @@ from torch import nn
 
 from mst_torch.models.layers import Dense, leaky_relu, mean_size
 from mst_torch.ops.lstm import LSTM
-from mst_torch.ops.shapes import cat_with_broadcast, masked_last, squash_dims
+from mst_torch.ops.shapes import cat_with_broadcast, squash_dims
 
 N_BEAT_FRACTIONS = 10
 N_MODES = 2
@@ -28,7 +28,7 @@ class SongInfoModel(nn.Module):
         s, r, nrf = style_size, rhythm_size, n_rhythm_features
         beats_size = mean_size(N_BEAT_FRACTIONS * r, nrf, factor=0.05)
         self.beats_lstm = LSTM(N_BEAT_FRACTIONS * r, beats_size)
-        self.bars_lstm = LSTM(beats_size, nrf)
+        self.bars_lstm = LSTM(beats_size, nrf, bar_axis=True)
         heads = {
             "instruments": (mean_size(s, n_instruments, factor=0.05),
                             mean_size(r, n_instruments, factor=0.25),
@@ -56,9 +56,7 @@ class SongInfoModel(nn.Module):
         B, R = x.shape[:2]
         out, _ = self.beats_lstm(x.reshape((B * R,) + tuple(x.shape[2:])))
         x = out.reshape((B, R) + tuple(out.shape[1:]))[:, :, -1]  # last beat
-        out, _ = self.bars_lstm(x)
-        rhythm_features = (out[:, -1] if bar_lengths is None
-                           else masked_last(out, bar_lengths))
+        _, rhythm_features = self.bars_lstm(x, bar_lengths)  # last valid bar
 
         instruments = self._head(style, rhythm_features, "instruments")
         mode = self._head(style, rhythm_features, "mode")

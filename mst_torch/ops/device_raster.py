@@ -13,8 +13,9 @@ row 2**30 and the ``_pad_to`` note buckets) is a copy of the JAX package's,
 so both frameworks see the same records. ``device_rasterize_song`` and
 ``device_rasterize_batch`` are the trainer's entry points: one K1 launch per
 note family for a whole batch. ``device_rasterize_batch_sharded`` is the
-data-parallel one: each rank encodes and rasterizes only its own songs, so
-the raster is born on its rank and never crosses ranks. Each takes
+one over ranks: each rank encodes and rasterizes only its own songs and,
+with a seq axis, only its own bars of them, so the raster is born on its
+rank and never crosses ranks. Each takes
 ``out_dtype``: float32, or bfloat16 for the bf16 storage policy, which K1
 then writes directly.
 """
@@ -67,7 +68,7 @@ def _pad_to(n: int, buckets=(512, 2048, 8192, 32768, 131072)) -> int:
 def encode_notes(rasterizer: Rasterizer, q: QNotes, channel_index: int,
                  pitched: bool, n_channels: int, n_bars: int,
                  valid_bars: Optional[int] = None,
-                 sort: bool = True) -> DeviceNotes:
+                 sort: bool = True, first_bar: int = 0) -> DeviceNotes:
     """QNotes (one channel) -> flattened device records.
 
     Cell row = ((c * n_bars + bar) * n_beats + beat) * n_fractions + frac.
@@ -75,14 +76,21 @@ def encode_notes(rasterizer: Rasterizer, q: QNotes, channel_index: int,
     bars actually written (the reference's prepare_input truncation,
     style/data.py:136-143). Out-of-range notes (the reference's ValueError
     skip, midi_conversion.py:495-498) are marked invalid.
+    ``first_bar``: the raster holds song bars ``first_bar ..
+    first_bar + n_bars`` (one seq rank's share); a note whose onset bar
+    lies outside them is marked invalid, and ``valid_bars`` still counts
+    from the song's first bar.
     """
     T = rasterizer.info.n_beats
     F10 = rasterizer.grid.n_fractions
     n_notes = rasterizer.n_notes(pitched)
     valid = (q.note_idx >= 0) & (q.note_idx < n_notes)
-    valid &= (q.bar >= 0) & (q.bar < min(n_bars, valid_bars if valid_bars
-                                         is not None else n_bars))
-    row = ((channel_index * n_bars + q.bar) * T + q.beat) * F10 + q.frac_idx
+    last = first_bar + n_bars
+    if valid_bars is not None:
+        last = min(last, valid_bars)
+    valid &= (q.bar >= first_bar) & (q.bar < last)
+    bar = q.bar - first_bar
+    row = ((channel_index * n_bars + bar) * T + q.beat) * F10 + q.frac_idx
     # invalid notes get a sentinel row: they sort to the end and lie outside
     # every raster
     row = np.where(valid, row, SENTINEL_ROW)
@@ -177,7 +185,8 @@ def device_rasterize_song(rasterizer: Rasterizer, note_arrays, pitched: bool,
 def device_rasterize_batch(rasterizers, note_arrays_per_song, pitched: bool,
                            n_channels: int, n_bars: int, valid_bars,
                            fuse_nf: bool = False, device="cuda",
-                           out_dtype=FP32) -> torch.Tensor:
+                           out_dtype=FP32, first_bar: int = 0
+                           ) -> torch.Tensor:
     """B songs' channels in one K1 launch (mst_tpu's device_rasterize_batch).
 
     Each song keeps its own Rasterizer (its own tick grid and scale); batch
@@ -199,7 +208,8 @@ def device_rasterize_batch(rasterizers, note_arrays_per_song, pitched: bool,
         for c, notes in enumerate(note_arrays[:n_channels]):
             parts.append(encode_notes(rast, rast.quantize(notes, pitched),
                                       b * n_channels + c, pitched,
-                                      B * n_channels, n_bars, valid_bars[b]))
+                                      B * n_channels, n_bars, valid_bars[b],
+                                      first_bar=first_bar))
     tail = (n_notes * n_feat,) if fuse_nf else (n_notes, n_feat)
     return _rasterize_records(concat_and_pad(parts), device,
                               B * n_channels * n_bars * T * F10, n_notes,
@@ -212,20 +222,23 @@ def device_rasterize_batch_sharded(mesh, rasterizers, note_arrays_per_song,
                                    n_bars: int, valid_bars,
                                    fuse_nf: bool = False, device=None,
                                    out_dtype=FP32) -> torch.Tensor:
-    """This rank's rows of ``device_rasterize_batch`` over the global batch
+    """This rank's share of ``device_rasterize_batch`` over the global batch
     (mst_tpu's device_rasterize_batch_sharded): data rank ``r`` of ``n``
-    encodes the notes of songs ``r*B_loc..(r+1)*B_loc`` alone and launches
-    K1 for them, writing the (B_loc, C, R, T, F10, ...) raster on its own
-    device (``device``, by default the mesh's). The raster is bit-equal to
-    rank r's slice of the whole batch's: a cell's max depends only on the
-    notes of its own row. Raises ``ValueError`` unless ``n`` divides the
-    batch; the songs must share beats-per-bar, as there."""
+    encodes the notes of songs ``r*B_loc..(r+1)*B_loc`` alone and, as seq
+    rank ``s`` of ``m``, only the notes whose onset lies in its bars
+    ``s*R/m..(s+1)*R/m``, and launches K1 for them, writing the (B_loc, C,
+    R/m, T, F10, ...) raster on its own device (``device``, by default the
+    mesh's). The raster is bit-equal to the rank's slice of the whole
+    batch's: a cell's max depends only on the notes of its own row.
+    Raises ``ValueError`` unless ``n`` divides the batch and ``m`` the bar
+    bucket; the songs must share beats-per-bar, as there."""
     mine = mesh.data_rows(len(rasterizers))
+    bars = mesh.seq_bars(n_bars)
     if any(r.info.n_beats != rasterizers[0].info.n_beats
            for r in rasterizers):
         raise ValueError("batched songs must share beats-per-bar")
     return device_rasterize_batch(
         rasterizers[mine], note_arrays_per_song[mine], pitched, n_channels,
-        n_bars, list(valid_bars)[mine], fuse_nf=fuse_nf,
+        bars.stop - bars.start, list(valid_bars)[mine], fuse_nf=fuse_nf,
         device=mesh.device if device is None else device,
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, first_bar=bars.start)

@@ -15,14 +15,16 @@ Batched generalization: the losses reduce over the whole batch jointly
 (channel, bar) cells out of every reduction, including the model's own
 predictions at padded positions.
 
-Data parallelism: with a process ``group`` (the mesh's data axis), each
-rank holds some rows of the batch, and every partial sum (tp, fp and fn,
-each masked numerator and its mask sum, each batch mean's numerator and
-count) is summed over the group before ``safe_div`` and ``get_mean``
-combine them, so every rank computes the global batch's losses; JAX's
-GSPMD inserts the same sums. That sum's backward is the identity: each
-rank backprops the global loss through its own rows only, and the
-parameter gradients are then summed over the group
+Training over ranks: with a process ``group`` (the ranks of the mesh),
+each rank holds some rows of the batch and, over a seq axis, some bars of
+them; every partial sum (tp, fp and fn, each masked numerator and its
+mask sum, each batch mean's numerator and count) is summed over the group
+before ``safe_div`` and ``get_mean`` combine them, so every rank computes
+the global batch's losses; JAX's GSPMD inserts the same sums. The
+per-song means sum over ``song_group`` instead (the data axis: the seq
+ranks of one row hold the same songs). That sum's backward is the
+identity: each rank backprops the global loss through its own cells
+only, and the parameter gradients are then summed over the mesh
 (mst_torch.runtime.train). Without a group, or with a group of one rank,
 nothing changes.
 """
@@ -306,10 +308,13 @@ def total_loss(instruments_pred, instruments_target, mode_pred, mode_target,
                unpitched_pred=None, unpitched_target=None,
                normalize: bool = False, mean_type: str = "quadratic",
                pitched_pad_mask=None, unpitched_pad_mask=None,
-               group=None) -> LossDict:
+               group=None, song_group=None) -> LossDict:
     """The full hierarchical loss (parity: get_total_loss, model.py:935-997).
-    ``group``: the process group whose ranks hold the batch's rows; every
-    rank gets the global batch's losses.
+    ``group``: the process group whose ranks hold the batch's cells; every
+    rank gets the global batch's losses. ``song_group``: the group of the
+    per-song losses (instruments, mode, bpm) when it is not ``group``:
+    ranks that hold other bars of the same songs hold the same per-song
+    values, which are summed over the data axis alone.
 
     The reference's public signature takes (inst, mode, bpm) but its only call
     site passes (inst, bpm, mode) and the inner unpacking swaps them back
@@ -339,7 +344,7 @@ def total_loss(instruments_pred, instruments_target, mode_pred, mode_target,
 
     instruments, mode, bpm = song_info_losses(
         instruments_pred, instruments_target, mode_pred, mode_target,
-        bpm_pred, bpm_target, group)
+        bpm_pred, bpm_target, group if song_group is None else song_group)
     if normalize:
         instruments = torch.tanh(instruments)
         mode = torch.tanh(mode)

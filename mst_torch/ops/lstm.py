@@ -19,6 +19,15 @@ Padded sequences: final states are read at ``lengths-1``; the bidirectional
 layer runs its backward direction over a per-row flipped valid prefix
 (masked_flip), so padding never enters the backward carry
 (mst_tpu/ops/lstm.py:255-258).
+
+Bar-sharded training (mst_torch.ops.seq_context): a module built with
+``bar_axis=True`` scans the bar axis. Under an active sequence-sharding
+context its input holds this rank's bars, the input projection stays
+local and the recurrence runs as
+``mst_torch.parallel.seq_lstm.seq_sharded_scan``, each direction of a
+BiLSTM on its own (mst_tpu/ops/lstm.py:94-104,229-244); the final-state
+read and the per-row flip cross ranks through seq_context. The beat-axis
+modules (a bar never spans ranks) always run locally.
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ from torch import nn
 
 from mst_torch.ops import precision
 from mst_torch.ops.init import uniform_
-from mst_torch.ops.shapes import masked_flip, masked_last
+from mst_torch.ops.seq_context import (count_once, current_seq_mesh,
+                                       last_step, masked_flip_bars)
+from mst_torch.ops.shapes import masked_flip
 
 
 def _direction_params(module: nn.Module, suffix: str, input_size: int,
@@ -88,12 +99,29 @@ def _recur(gates_x, w_hh_t):
     return torch.stack(outs, dim=2)
 
 
-class LSTM(nn.Module):
-    """Unidirectional batch-first LSTM returning (outputs, last valid step)."""
+def _sharded_scan(gates_x, w_hh_t, mesh, reverse: bool = False):
+    # imported here: parallel.seq_lstm imports this module
+    from mst_torch.parallel.seq_lstm import seq_sharded_scan
+    # the scan gives every seq rank the whole w_hh gradient; the step sums
+    # the gradients over the mesh, so it counts from seq rank 0 alone
+    w_hh_t, = count_once(w_hh_t)
+    return seq_sharded_scan(gates_x, w_hh_t, mesh, reverse=reverse)
 
-    def __init__(self, input_size: int, features: int):
+
+def _bar_mesh(module):
+    """The sequence-sharding mesh when ``module`` scans the bar axis."""
+    return current_seq_mesh() if module.bar_axis else None
+
+
+class LSTM(nn.Module):
+    """Unidirectional batch-first LSTM returning (outputs, last valid step).
+    ``bar_axis``: it scans the bar axis (module docstring)."""
+
+    def __init__(self, input_size: int, features: int,
+                 bar_axis: bool = False):
         super().__init__()
         self.features = features
+        self.bar_axis = bar_axis
         _direction_params(self, "", input_size, features)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -101,18 +129,24 @@ class LSTM(nn.Module):
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None):
         gates_x = _projected(self, "", x)
-        out = _recur(gates_x[None], self.weight_hh_l0.t()[None])[0]
-        last = out[:, -1] if lengths is None else masked_last(out, lengths)
-        return out, last
+        mesh = _bar_mesh(self)
+        if mesh is None:
+            out = _recur(gates_x[None], self.weight_hh_l0.t()[None])[0]
+        else:
+            out = _sharded_scan(gates_x, self.weight_hh_l0.t(), mesh)
+        return out, last_step(out, lengths)
 
 
 class BiLSTM(nn.Module):
     """Bidirectional batch-first LSTM; output feature dim = 2*features. Both
-    directions run in one loop as a batch of two (mst_tpu's merged scan)."""
+    directions run in one loop as a batch of two (mst_tpu's merged scan),
+    apart from the bar-sharded path. ``bar_axis``: as ``LSTM``'s."""
 
-    def __init__(self, input_size: int, features: int):
+    def __init__(self, input_size: int, features: int,
+                 bar_axis: bool = False):
         super().__init__()
         self.features = features
+        self.bar_axis = bar_axis
         _direction_params(self, "", input_size, features)
         _direction_params(self, "_reverse", input_size, features)
 
@@ -120,6 +154,9 @@ class BiLSTM(nn.Module):
         _reset_lstm(self, generator)
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None):
+        mesh = _bar_mesh(self)
+        if mesh is not None:
+            return self._sharded(x, lengths, mesh)
         if lengths is None:
             flipped = torch.flip(x, dims=(1,))
         else:
@@ -133,4 +170,20 @@ class BiLSTM(nn.Module):
             bwd = torch.flip(bwd_raw, dims=(1,))
         else:
             bwd = masked_flip(bwd_raw, lengths)
+        return torch.cat([fwd, bwd], dim=-1)
+
+    def _sharded(self, x, lengths, mesh):
+        """Each direction as its own seq-sharded recurrence on this rank's
+        bars: the backward one right to left from the last rank, or over
+        the flipped valid prefix of each row, which spans ranks."""
+        w_b = self.weight_hh_l0_reverse.t()
+        fwd = _sharded_scan(_projected(self, "", x), self.weight_hh_l0.t(),
+                            mesh)
+        if lengths is None:
+            bwd = _sharded_scan(_projected(self, "_reverse", x), w_b, mesh,
+                                reverse=True)
+        else:
+            flipped = masked_flip_bars(x, lengths)
+            bwd = masked_flip_bars(_sharded_scan(
+                _projected(self, "_reverse", flipped), w_b, mesh), lengths)
         return torch.cat([fwd, bwd], dim=-1)

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from mst_torch.ops import seq_context
+
 
 def squash_dims(x, dim_begin: int, dim_end: Optional[int] = None):
     """Merge dims [dim_begin, dim_end) into one (parity: utils/pytorch.py:7-16)."""
@@ -54,17 +56,23 @@ def cat_with_broadcast(tensors: Sequence, axis: int = 0):
     return torch.cat(expanded, dim=axis)
 
 
-def combine(x, axis: int = 1, mask=None, safe: bool = True):
+def combine(x, axis: int = 1, mask=None, safe: bool = True,
+            over_bars: bool = False):
     """Norm-weighted mean across ``axis`` (parity: style/model.py:796-815).
 
     Each slice along ``axis`` is weighted by ``sqrt(1 + ||slice||^2)`` (norm
     over all non-batch, non-axis dims, accumulated in fp32) and the weighted
     sum is divided by the per-batch total of the weights. ``mask``: optional
     (batch, n_axis) 0/1 array of valid slices — masked slices contribute
-    nothing, and a fully masked row yields zeros rather than 0/0."""
+    nothing, and a fully masked row yields zeros rather than 0/0.
+    ``over_bars``: the norm's dims include a bar axis, which a
+    sequence-sharding context spreads over ranks (the squared norms are
+    then summed over them, ``seq_context.seq_sum``)."""
     norm_axes = tuple(i for i in range(x.dim()) if i not in (0, axis))
     xf = x.float()
     sq = (xf * xf).sum(dim=norm_axes, keepdim=True)
+    if over_bars:
+        sq = seq_context.seq_sum(sq)
     norm = torch.sqrt(1.0 + sq) if safe else torch.sqrt(sq)
     if mask is not None:
         mask_shape = [1] * x.dim()
@@ -83,7 +91,9 @@ def combine(x, axis: int = 1, mask=None, safe: bool = True):
 def combine_pair(a, b, b_mask=None):
     """combine() of two stacked tensors (parity: model.py:796-804 with
     ``combine(t1, t2)``). ``b_mask``: optional (B,) validity of ``b`` per
-    batch row; masked rows return ``a`` exactly."""
+    batch row; masked rows return ``a`` exactly. ``a`` and ``b`` are
+    (B, R, ...) with R a bar axis: under a sequence-sharding context the
+    squared norms are summed over the seq ranks."""
     x = torch.stack([a, b])  # (2, B, ...)
     if b_mask is not None:
         b_m = b_mask.to(a.dtype)
@@ -91,7 +101,7 @@ def combine_pair(a, b, b_mask=None):
         gate = gate.reshape(tuple(gate.shape) + (1,) * (x.dim() - 2))
         x = x * gate
     norm_axes = tuple(range(2, x.dim()))
-    sq = (x * x).sum(dim=norm_axes, keepdim=True)
+    sq = seq_context.seq_sum((x * x).sum(dim=norm_axes, keepdim=True))
     norm = torch.sqrt(1.0 + sq)
     if b_mask is not None:
         norm = norm * gate

@@ -6,25 +6,31 @@ rank and the collectives are written out:
 
 - ``create_mesh`` lays the first ``n_data * n_seq`` ranks out as a
   (data, seq) grid, row-major as JAX reshapes ``devices[:n]``, and forms
-  the process group of this rank's data axis (the ranks that share its seq
-  index) and of its seq axis;
+  the process groups of this rank's data axis (the ranks that share its
+  seq index), of its seq axis (the ranks that share its data index, and
+  so its songs) and of the whole mesh;
 - the batch axis is sharded over ``data``: each rank builds and holds only
   its own rows (``shard_batch``, or ``device_batch_from_songs(mesh=...)``,
   whose rasters K1 builds on the rank itself);
+- the bar axis is sharded over ``seq``: each rank holds bars
+  ``[s*R/n, (s+1)*R/n)`` of every raster and activation (``Mesh.seq_bars``);
+  the per-song fields stay whole on every seq rank, and the model's
+  bar-axis ops cross ranks under ``mst_torch.ops.seq_context``;
 - parameters and optimizer state are replicated: ``replicate`` broadcasts
-  them from the data axis's first rank;
-- the data-parallel step (``make_sharded_train_step``) all-reduces the
-  loss's partial sums before their nonlinear combination, so every rank
+  them from the mesh's first rank;
+- the step (``make_sharded_train_step``) all-reduces the loss's partial
+  sums before their nonlinear combination (the per-cell ones over the
+  whole mesh, the per-song ones over the data axis), so every rank
   computes the global batch's loss, and all-reduces each micro-step's
-  parameter gradients, as JAX's psum does inside the step;
-- the bar axis over ``seq``: mst_torch.parallel.seq_lstm's recurrence.
+  parameter gradients over the whole mesh, as JAX's psum does inside the
+  step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -41,10 +47,10 @@ class Mesh:
     shape: dict                  # {"data": n_data, "seq": n_seq}
     data_index: int              # this rank's coordinates
     seq_index: int
-    data_ranks: Tuple[int, ...]  # the global ranks of its data axis
     data_group: object           # the process groups of its data axis
     seq_group: object            # and of its seq axis
     device: torch.device
+    group: object = None         # the process group of the whole mesh
 
     def data_rows(self, batch: int) -> slice:
         """This rank's rows ``r*B_loc:(r+1)*B_loc`` of a global batch of
@@ -55,6 +61,17 @@ class Mesh:
             raise ValueError(f"batch {batch} not divisible by data={n}")
         return slice(self.data_index * (batch // n),
                      (self.data_index + 1) * (batch // n))
+
+    def seq_bars(self, n_bars: int) -> slice:
+        """This rank's bars ``s*R/n:(s+1)*R/n`` of a bar bucket of
+        ``n_bars`` (s: its seq index); raises unless the seq axis divides
+        the bucket."""
+        n = self.shape["seq"]
+        if n_bars % n:
+            raise ValueError(f"bar bucket {n_bars} not divisible by "
+                             f"--seq-parallel {n}")
+        return slice(self.seq_index * (n_bars // n),
+                     (self.seq_index + 1) * (n_bars // n))
 
 
 def local_device(device=None) -> torch.device:
@@ -99,21 +116,28 @@ def create_mesh(n_data: Optional[int] = None, n_seq: int = 1,
     # every rank forms every group, in the same order
     data_groups = [dist.new_group(list(r)) for r in data_axes]
     seq_groups = [dist.new_group(list(r)) for r in seq_axes]
+    whole = dist.new_group(list(range(n_data * n_seq)))
     rank = dist.get_rank()
     if rank >= n_data * n_seq:
         raise ValueError(f"rank {rank} lies outside the {n_data} x {n_seq} "
                          f"mesh")
     i, j = divmod(rank, n_seq)
     return Mesh(shape={"data": n_data, "seq": n_seq}, data_index=i,
-                seq_index=j, data_ranks=data_axes[j],
-                data_group=data_groups[j], seq_group=seq_groups[i],
-                device=local_device(device))
+                seq_index=j, data_group=data_groups[j],
+                seq_group=seq_groups[i], device=local_device(device),
+                group=whole)
 
 
 def shard_batch(batch, mesh: Mesh):
-    """This rank's rows of a global ``Batch`` (``Mesh.data_rows``)."""
+    """This rank's share of a global ``Batch``: its rows
+    (``Mesh.data_rows``) of every field and, of the pitched and unpitched
+    rasters, its bars (``Mesh.seq_bars``, dim 2)."""
     rows = mesh.data_rows(batch.mode.shape[0])
-    return type(batch)(*(None if x is None else x[rows] for x in batch))
+    bars = mesh.seq_bars(batch.pitched.shape[2])
+    rasters = ("pitched", "unpitched")
+    return type(batch)(*(
+        None if x is None else x[rows, :, bars] if name in rasters
+        else x[rows] for name, x in zip(batch._fields, batch)))
 
 
 def _state_tensors(module_or_state):
@@ -136,12 +160,12 @@ def _state_tensors(module_or_state):
 @torch.no_grad()
 def replicate(module_or_state, mesh: Mesh):
     """Broadcast a module's parameters (and, for a TrainState, its
-    accumulated gradients and optimizer state) from the first rank of this
-    rank's data axis, in place. Every rank must hold a state of the same
-    structure. Returns its argument."""
+    accumulated gradients and optimizer state) from the mesh's first rank
+    to all of its ranks, in place. Every rank must hold a state of the
+    same structure. Returns its argument."""
     for t in _state_tensors(module_or_state):
         buf = t.to(mesh.device)
-        dist.broadcast(buf, src=mesh.data_ranks[0], group=mesh.data_group)
+        dist.broadcast(buf, src=0, group=mesh.group)
         if buf is not t:
             t.copy_(buf)
     return module_or_state
@@ -149,8 +173,8 @@ def replicate(module_or_state, mesh: Mesh):
 
 def make_sharded_train_step(config: Config, has_unpitched: bool,
                             mesh: Mesh):
-    """The micro-step on this rank's rows of the global batch: the losses
-    of the global batch, gradients summed over the data axis, the same
+    """The micro-step on this rank's rows and bars of the global batch: the
+    losses of the global batch, gradients summed over the mesh, the same
     Adam update on every rank. It is
     ``mst_torch.runtime.train.make_train_step(..., mesh=mesh)`` and exists
     only so that mst_tpu.parallel.mesh's API carries over."""

@@ -41,18 +41,12 @@ import torch.distributed as dist
 
 from mst_torch.ops import precision
 from mst_torch.ops.lstm import _lstm_step, _recur
+from mst_torch.ops.seq_context import sum_bits as _hand_off
 
 # the row-microbatched pipeline engages when every microbatch keeps at least
 # this many rows; below it the per-step fixed cost dominates and the
 # (2n-1)-stage pipeline would take longer than the n-stage relay
 MIN_ROWS_PER_MICROBATCH = 2
-
-
-def _hand_off(buf, group):
-    """Sum a float32 buffer over the group as int32 bits: each slot has one
-    writer and zeros elsewhere, so every rank reads the writer's bits."""
-    dist.all_reduce(buf.view(torch.int32), group=group)
-    return buf
 
 
 class _SeqScan(torch.autograd.Function):

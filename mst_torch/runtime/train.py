@@ -27,12 +27,18 @@ and the pitched applier's note-grid tail runs forward through K2 and
 backward through K3 (mst_torch.ops.grid_kernel.GridTail).
 
 Under a process mesh (mst_torch.parallel.mesh) each rank holds its rows
-of the global batch: ``device_batch_from_songs(mesh=...)`` builds them,
-K1 running on the rank; the step's loss sums run over the mesh's data
-axis, so every rank computes the global batch's losses, and each
-micro-step's parameter gradients are summed over the axis before they are
-added to the accumulated ones, as JAX's psum inside the step does. Adam
-then runs on the same values on every rank.
+of the global batch and, with a seq axis, its bars of them:
+``device_batch_from_songs(mesh=...)`` builds them, K1 running on the
+rank. The step's per-cell loss sums run over the whole mesh and its
+per-song ones over the data axis (every seq rank holds the same songs),
+so every rank computes the global batch's losses; each micro-step's
+parameter gradients are summed over the mesh before they are added to the
+accumulated ones, as JAX's psum inside the step does. Adam then runs on
+the same values on every rank. With a seq axis the forward runs under
+``ops.seq_context.sequence_sharding``: the bar-axis recurrences, norms and
+final-state reads cross ranks there, the loss masks the bars this rank
+holds, and the song-info losses, which every seq rank computes alike,
+send their gradient back from seq rank 0 alone (``count_once``).
 
 The step runs under the model config's numeric policy
 (``ModelConfig.compute_dtype`` and ``storage_dtype``,
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 from typing import NamedTuple, Optional
 
@@ -58,7 +65,7 @@ from torch.optim.lr_scheduler import StepLR
 from mst_torch.config import Config
 from mst_torch.data.pipeline import Song, get_used_instruments, prepare_input
 from mst_torch.models import StyleTransferModel
-from mst_torch.ops import precision
+from mst_torch.ops import precision, seq_context
 from mst_torch.ops.losses import LossDict, total_loss
 from mst_torch.ops.shapes import split_note_features
 from mst_torch.transfer import strict_fp32
@@ -129,11 +136,21 @@ def create_train_state(config: Config, device="cuda",
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
 
 
+def _bar_positions(n_bars: int, device):
+    """The song bars of the batch's ``n_bars`` raster bars: under a
+    sequence-sharding context, this rank's share of the bucket."""
+    mesh = seq_context.current_seq_mesh()
+    first = 0 if mesh is None else mesh.seq_index * n_bars
+    return torch.arange(first, first + n_bars, device=device)
+
+
 def loss_fn(model: StyleTransferModel, batch: Batch, has_unpitched: bool,
-            mean_type: str = "quadratic", group=None) -> LossDict:
+            mean_type: str = "quadratic", group=None,
+            song_group=None) -> LossDict:
     """The training objective of one batch (mst_tpu's loss_fn). ``group``:
-    the data axis whose ranks hold the rest of the batch's rows (the
-    losses are then the global batch's)."""
+    the ranks that hold the rest of the batch's cells (the losses are then
+    the global batch's); ``song_group``: those that hold the rest of its
+    songs, when that differs (the data axis of a bar-sharded mesh)."""
     pitched = split_note_features(batch.pitched, 5)
     unpitched = split_note_features(batch.unpitched, 2)
     (inst_pred, mode_pred, bpm_pred), x_pitched, x_unpitched = model(
@@ -141,9 +158,11 @@ def loss_fn(model: StyleTransferModel, batch: Batch, has_unpitched: bool,
         unpitched if has_unpitched else None,
         bar_lengths=batch.bar_lengths, channel_mask=batch.channel_mask,
         uchannel_mask=batch.uchannel_mask if has_unpitched else None)
+    inst_pred, mode_pred, bpm_pred = seq_context.count_once(
+        inst_pred, mode_pred, bpm_pred)
 
     R = pitched.shape[2]
-    bar_mask = (torch.arange(R, device=pitched.device)[None, :]
+    bar_mask = (_bar_positions(R, pitched.device)[None, :]
                 < batch.bar_lengths[:, None]).to(pitched.dtype)
     p_mask = batch.channel_mask[:, :, None] * bar_mask[:, None, :]
     u_mask = None
@@ -156,7 +175,8 @@ def loss_fn(model: StyleTransferModel, batch: Batch, has_unpitched: bool,
         x_pitched, pitched,
         x_unpitched, unpitched if has_unpitched else None,
         normalize=True, mean_type=mean_type,
-        pitched_pad_mask=p_mask, unpitched_pad_mask=u_mask, group=group)
+        pitched_pad_mask=p_mask, unpitched_pad_mask=u_mask, group=group,
+        song_group=song_group)
 
 
 def apply_updates(state: TrainState) -> None:
@@ -197,36 +217,41 @@ def _backward_summed(model: StyleTransferModel, total, group) -> None:
 def _make_step_fn(config: Config, has_unpitched: bool, mesh=None):
     """The micro-step shared by make_train_step and make_multi_train_step."""
     iter_size = config.train.iter_size
-    group = None if mesh is None else mesh.data_group
-    if group is not None and config.train.remat:
-        # the recompute would run the loss's collectives again on the
-        # autograd engine's thread
-        raise ValueError("remat is not offered under a process mesh")
-
+    group = None if mesh is None else mesh.group
+    song_group = None if mesh is None else mesh.data_group
     compute, storage = config.model.compute_dtype, config.model.storage_dtype
+    objective = functools.partial(loss_fn, has_unpitched=has_unpitched,
+                                  group=group, song_group=song_group)
+
+    @contextlib.contextmanager
+    def forward_context():
+        # the config's numeric policy, for the forward and (through the
+        # dtypes it leaves on the saved tensors) the backward, and the bar
+        # axis over the mesh's seq ranks
+        with precision.precision(compute, storage=storage), \
+                seq_context.sequence_sharding(mesh):
+            yield
 
     def step(state: TrainState, batch: Batch):
         model = state.model
-        # the config's numeric policy, for the forward and (through the
-        # dtypes it leaves on the saved tensors) the backward
-        with precision.precision(compute, storage=storage):
+        with forward_context():
             batch = batch._replace(
                 pitched=precision.cast_storage(batch.pitched),
                 unpitched=(None if batch.unpitched is None else
                            precision.cast_storage(batch.unpitched)))
             if config.train.remat:
                 # recompute the forward during backward instead of saving
-                # activations. The recompute enters the policy itself: the
-                # CUDA autograd engine runs it on its own device thread,
-                # which does not see this thread's context variables.
+                # activations. The recompute enters the forward's contexts
+                # itself: the CUDA autograd engine runs it on its own
+                # device thread, which does not see this thread's context
+                # variables. Every rank recomputes the same graph in the
+                # same order, so the collectives of the recompute match.
                 losses = torch.utils.checkpoint.checkpoint(
-                    loss_fn, model, batch, has_unpitched,
-                    use_reentrant=False,
+                    objective, model, batch, use_reentrant=False,
                     context_fn=lambda: (contextlib.nullcontext(),
-                                        precision.precision(compute,
-                                                            storage)))
+                                        forward_context()))
             else:
-                losses = loss_fn(model, batch, has_unpitched, group=group)
+                losses = objective(model, batch)
             if group is None:
                 losses.total.backward()
             else:
@@ -445,12 +470,15 @@ def device_batch_from_songs(songs, max_channels: int, max_bars: int,
     config's storage_dtype: a bf16-storage step then never holds the fp32
     raster, and its cast_storage of the batch is a no-op).
 
-    ``mesh``: with a data axis of n > 1 ranks, ``songs`` is the global
-    batch and the result is this rank's rows of it, B/n of them (n must
-    divide B): K1 rasterizes this rank's songs alone
-    (``device_rasterize_batch_sharded``). The unpitched raster and mask
-    exist when any song of the global batch has percussion, so every rank
-    runs the same model path."""
+    ``mesh``: with more than one rank, ``songs`` is the global batch and
+    the result is this rank's share of it: its B/n rows (n, the data
+    axis, must divide B) and, of the rasters, its ``max_bars``/m bars (m,
+    the seq axis, must divide the bucket; ``Mesh.seq_bars``). K1
+    rasterizes this rank's songs and bars alone
+    (``device_rasterize_batch_sharded``); the per-song fields and the bar
+    lengths stay whole. The unpitched raster and mask exist when any song
+    of the global batch has percussion, so every rank runs the same model
+    path."""
     from mst_torch.ops.device_raster import (
         device_rasterize_batch, device_rasterize_batch_sharded)
     from mst_torch.ops.rasterize import Rasterizer
@@ -469,7 +497,7 @@ def device_batch_from_songs(songs, max_channels: int, max_bars: int,
         channel_counts.append(min(song.n_channels, max_channels))
 
     out_dtype = precision.as_dtype(raster_dtype)
-    sharded = mesh is not None and mesh.shape["data"] > 1
+    sharded = mesh is not None and mesh.shape["data"] * mesh.shape["seq"] > 1
     mine = mesh.data_rows(B) if sharded else slice(None)
 
     def build(note_arrays, pitched, n_ch):

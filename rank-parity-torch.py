@@ -7,6 +7,7 @@ in one process, and compare their loss logs row by row.
     CUDA_VISIBLE_DEVICES=0 python rank-parity-torch.py --ranks 2 \
         --batch-size 2
     python rank-parity-torch.py --ranks 2 --batch-size 2 --device cpu
+    python rank-parity-torch.py --ranks 2 --seq-parallel 2 --batch-size 1
 
 The ranks take their cards and their backend as the trainer does (card
 ``LOCAL_RANK`` modulo the cards; ``mst_torch.parallel.default_backend``).
@@ -32,6 +33,9 @@ def parse_args(argv=None):
     parser.add_argument("--ranks", type=int, required=True)
     parser.add_argument("--batch-size", type=int, required=True,
                         help="the global batch; the ranks must divide it")
+    parser.add_argument("--seq-parallel", type=int, default=1,
+                        help="ranks on the bar axis of the run over ranks "
+                             "(the trainer's --seq-parallel)")
     parser.add_argument("--iters", type=int, default=4)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--root", default=HERE,
@@ -48,7 +52,7 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def run(args, name, ranks):
+def run(args, name, ranks, seq=1):
     """One training run; returns (exit code, wall seconds, CSV path)."""
     root = os.path.abspath(args.root)
     out = os.path.join(os.path.abspath(args.out), name)
@@ -59,7 +63,8 @@ def run(args, name, ranks):
            "--device", args.device, "--iters", str(args.iters),
            "--batch-size", str(args.batch_size), "--save-interval", "1000",
            "--csv", os.path.join(out, "losses.csv"),
-           "--snapshots", os.path.join(out, "snapshots")]
+           "--snapshots", os.path.join(out, "snapshots"),
+           "--seq-parallel", str(seq)]
     if os.path.exists(os.path.join(out, "losses.csv")):
         os.remove(os.path.join(out, "losses.csv"))
     launcher = [sys.executable]
@@ -98,11 +103,15 @@ def largest_difference(path_a, path_b):
 def main(argv=None):
     args = parse_args(argv)
     label = f"{args.ranks}x{args.batch_size}"
-    rc_n, wall_n, csv_n = run(args, f"ranks-{label}", args.ranks)
+    if args.seq_parallel > 1:
+        label += f"-seq{args.seq_parallel}"
+    rc_n, wall_n, csv_n = run(args, f"ranks-{label}", args.ranks,
+                              args.seq_parallel)
     rc_1, wall_1, csv_1 = run(args, f"one-{label}", 1)
-    print(f"{args.ranks} ranks: exit {rc_n}, {wall_n:.3f} s wall; one "
-          f"process: exit {rc_1}, {wall_1:.3f} s wall (global batch "
-          f"{args.batch_size}, {args.iters} iterations, {args.root})")
+    print(f"{args.ranks} ranks (--seq-parallel {args.seq_parallel}): exit "
+          f"{rc_n}, {wall_n:.3f} s wall; one process: exit {rc_1}, "
+          f"{wall_1:.3f} s wall (global batch {args.batch_size}, "
+          f"{args.iters} iterations, {args.root})")
     if rc_n != 0 or rc_1 != 0:
         print(f"a run failed: see {os.path.abspath(args.out)}")
         return 1

@@ -35,7 +35,7 @@ from mst_tpu.config import ModelConfig as JModelConfig
 from mst_tpu.models import StyleTransferModel as JModel
 from mst_tpu.runtime import train as jtr
 from mst_torch import weights
-from mst_torch.config import Config, ModelConfig, TrainConfig
+from mst_torch.config import Config, ModelConfig
 from mst_torch.models import StyleTransferModel
 from mst_torch.ops import device_raster as tdr
 from mst_torch.ops.rasterize import Rasterizer
@@ -92,7 +92,7 @@ def _fake_mesh(n, rank):
     """A mesh as rank ``rank`` of a data axis of ``n`` sees it, without a
     process group (the per-rank batch functions run no collective)."""
     return Mesh(shape={"data": n, "seq": 1}, data_index=rank, seq_index=0,
-                data_ranks=tuple(range(n)), data_group=None, seq_group=None,
+                data_group=None, seq_group=None,
                 device=torch.device("cpu"))
 
 
@@ -410,16 +410,6 @@ def test_stacked_steps_over_ranks_equal_single_steps(data_parallel):
         assert torch.equal(rec["stacked"], torch.stack(rec["single"]))
 
 
-def test_remat_is_refused_over_ranks():
-    """The recompute would run the loss's collectives again, on the
-    autograd engine's thread: refused, not run."""
-    mesh = _fake_mesh(2, 0)
-    mesh.data_group = object()
-    with pytest.raises(ValueError, match="remat"):
-        ttr.make_train_step(Config(train=TrainConfig(remat=True)), False,
-                            mesh=mesh)
-
-
 # ---------------------------------------------------------------- the CLI
 
 def _cli():
@@ -430,10 +420,40 @@ def _cli():
     return module
 
 
-def _csv_rows(path):
+def _cli_rows_match(tmp_path, name_one, name_two, rows):
+    """Two loss logs with the same rows (a row may carry more columns than
+    the header, once the unpitched losses appear), each finite loss
+    within ``LOSS_RTOL``, and the same snapshots."""
     import csv
-    with open(path) as fh:
-        return list(csv.DictReader(fh))
+    logs = []
+    for name in (name_one, name_two):
+        with open(tmp_path / f"{name}.csv") as fh:
+            logs.append(list(csv.reader(fh)))
+    one, two = logs
+    assert len(one) == len(two) == rows + 1 and one[0] == two[0]
+    for a, b in zip(one[1:], two[1:]):
+        assert len(a) == len(b) and a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            if x not in ("", "nan"):
+                np.testing.assert_allclose(float(y), float(x),
+                                           rtol=LOSS_RTOL)
+    assert sorted(os.listdir(tmp_path / name_two)) == \
+        sorted(os.listdir(tmp_path / name_one))
+
+
+def _cli_argv(tmp_path, name, iters, *extra):
+    return ["--data", str(tmp_path / "data"), "--device", "cpu",
+            "--iters", str(iters), "--seed", "3",
+            "--csv", str(tmp_path / f"{name}.csv"),
+            "--snapshots", str(tmp_path / name), *extra]
+
+
+def _cli_over_two_ranks(tmp_path, argv):
+    ranks_dir = tmp_path / "ranks"
+    ranks_dir.mkdir()
+    with open(ranks_dir / "inputs.json", "w") as fh:
+        json.dump(dict(argv=argv), fh)
+    return run_ranks("cli", 2, ranks_dir)
 
 
 def test_cli_over_two_ranks_matches_one_process(tmp_path):
@@ -442,31 +462,12 @@ def test_cli_over_two_ranks_matches_one_process(tmp_path):
     whose losses are the one-process ``--batch-size 2`` run's, and the
     same snapshots."""
     data = _write_songs(str(tmp_path / "data"), (0, 245, 250))
-
-    def argv(name):
-        return ["--data", str(tmp_path / "data"), "--device", "cpu",
-                "--iters", "2", "--batch-size", "2",
-                "--seed", "3", "--csv", str(tmp_path / f"{name}.csv"),
-                "--snapshots", str(tmp_path / name)]
-
-    _cli().main(argv("one"))
-    ranks_dir = tmp_path / "ranks"
-    ranks_dir.mkdir()
-    with open(ranks_dir / "inputs.json", "w") as fh:
-        json.dump(dict(argv=argv("two")), fh)
-    ranks = run_ranks("cli", 2, ranks_dir)
+    _cli().main(_cli_argv(tmp_path, "one", 2, "--batch-size", "2"))
+    ranks = _cli_over_two_ranks(tmp_path, _cli_argv(
+        tmp_path, "two", 2, "--batch-size", "2"))
     assert [(r["micro_step"], r["opt_step"]) for r in ranks] == [(2, 1)] * 2
-    one, two = _csv_rows(tmp_path / "one.csv"), _csv_rows(tmp_path /
-                                                          "two.csv")
-    assert len(data) == 3 and len(one) == len(two) == 2
-    for a, b in zip(one, two):
-        assert a.keys() == b.keys() and a["iteration"] == b["iteration"]
-        for key in a:
-            if a[key] not in ("", "nan"):
-                np.testing.assert_allclose(float(b[key]), float(a[key]),
-                                           rtol=LOSS_RTOL, err_msg=key)
-    assert sorted(os.listdir(tmp_path / "two")) == \
-        sorted(os.listdir(tmp_path / "one"))
+    assert len(data) == 3
+    _cli_rows_match(tmp_path, "one", "two", rows=2)
 
 
 def test_cli_stops_every_rank_on_a_nonfinite_loss(tmp_path):
@@ -502,6 +503,13 @@ def test_rank_parity_script_on_two_cpu_ranks(tmp_path, capsys):
     assert "rows 1/1" in capsys.readouterr().out
 
 
-def test_cli_refuses_seq_parallel():
-    with pytest.raises(SystemExit, match="next slice"):
-        _cli().main(["--data", ROOT, "--seq-parallel", "2"])
+def test_cli_seq_parallel_over_two_ranks_matches_one_process(tmp_path):
+    """``train-model-torch.py --device cpu --seq-parallel 2 --iters 4`` on
+    2 ranks, each holding half of every song's bars (the bar-sharded
+    model at full width): the one-process run's loss rows and snapshots."""
+    _write_songs(str(tmp_path / "data"), (0, 250))
+    _cli().main(_cli_argv(tmp_path, "one", 4))
+    ranks = _cli_over_two_ranks(tmp_path, _cli_argv(
+        tmp_path, "seq", 4, "--seq-parallel", "2"))
+    assert [(r["micro_step"], r["opt_step"]) for r in ranks] == [(4, 2)] * 2
+    _cli_rows_match(tmp_path, "one", "seq", rows=4)

@@ -1,7 +1,7 @@
 """Rank processes for the port's multi-process tests (no JAX here).
 
-``run_ranks(job, world, tmp_path)`` starts ``world`` processes of this
-file; each joins a gloo group through a ``FileStore`` in ``tmp_path`` (no
+``run_ranks(job, world, tmp_path)`` (or ``start_ranks`` and, after other
+work, ``join_ranks``) starts ``world`` processes of this file; each joins a gloo group through a ``FileStore`` in ``tmp_path`` (no
 TCP port, so parallel test workers cannot collide), runs ``JOBS[job]``
 with one CPU thread and saves what it returns to ``tmp_path``. The group
 has a timeout and so has the join: a deadlocked collective fails the test
@@ -24,9 +24,9 @@ GROUP_TIMEOUT = 120     # seconds a collective may wait
 JOIN_TIMEOUT = 420      # seconds the ranks may take together
 
 
-def run_ranks(job, world, tmp_path, timeout=JOIN_TIMEOUT):
-    """Run ``job`` on ``world`` gloo ranks; returns each rank's result."""
-    import torch
+def start_ranks(job, world, tmp_path):
+    """Start ``job`` on ``world`` gloo ranks; ``join_ranks`` collects
+    them. The caller may work meanwhile."""
     tmp = str(tmp_path)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     procs, logs = [], []
@@ -37,7 +37,16 @@ def run_ranks(job, world, tmp_path, timeout=JOIN_TIMEOUT):
             [sys.executable, os.path.abspath(__file__), job, str(rank),
              str(world), tmp], cwd=ROOT, env=env, stdout=log,
             stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + timeout
+    return dict(job=job, tmp=tmp, procs=procs, logs=logs,
+                started=time.monotonic())
+
+
+def join_ranks(started, timeout=JOIN_TIMEOUT):
+    """Wait for the ranks of ``start_ranks`` (``timeout`` seconds from
+    their start); returns each rank's result."""
+    import torch
+    job, procs, logs = started["job"], started["procs"], started["logs"]
+    deadline = started["started"] + timeout
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1.0))
@@ -56,8 +65,13 @@ def run_ranks(job, world, tmp_path, timeout=JOIN_TIMEOUT):
             log.close()
     for rank, p in enumerate(procs):
         assert p.returncode == 0, f"{job} rank {rank}:\n{tails[rank]}"
-    return [torch.load(os.path.join(tmp, f"{job}-rank{r}.pt"))
-            for r in range(world)]
+    return [torch.load(os.path.join(started["tmp"], f"{job}-rank{r}.pt"))
+            for r in range(len(procs))]
+
+
+def run_ranks(job, world, tmp_path, timeout=JOIN_TIMEOUT):
+    """Run ``job`` on ``world`` gloo ranks; returns each rank's result."""
+    return join_ranks(start_ranks(job, world, tmp_path), timeout)
 
 
 def _inputs(tmp):
@@ -93,8 +107,11 @@ def job_data_parallel(rank, world, tmp):
     """One data-parallel micro-step, its accumulated gradients, the
     per-rank losses taken alone, then a second micro-step that applies,
     on the global batch of ``inputs.json`` over a data axis of ``world``
-    ranks and of 2 (the (2, world/2) mesh); with 2 ranks also a stacked
+    ranks and of 2 (the (2, world/2) mesh, whose seq ranks hold their
+    rows' bars in halves or quarters); with 2 ranks also a stacked
     two-step call against two single steps."""
+    import dataclasses
+
     import torch
 
     from mst_torch.config import Config, ModelConfig
@@ -122,14 +139,18 @@ def job_data_parallel(rank, world, tmp):
         state = replicate(tr.create_train_state(config, device="cpu",
                                                 model=model), mesh)
 
-        def batch_of(group, caps):
+        def batch_of(group, caps, of=mesh):
             return tr.device_batch_from_songs(
                 group, spec["Cb"], spec["Rb"], bar_cap=caps, device="cpu",
-                mesh=mesh)
+                mesh=of)
         batch = batch_of(songs, spec["caps"])
         has_u = batch.unpitched is not None
+        # the loss of this rank's rows alone, every bar of them
+        rows = dataclasses.replace(mesh, shape=dict(mesh.shape, seq=1),
+                                   seq_index=0)
         with torch.no_grad():
-            alone = tr.loss_fn(state.model, batch, has_u).total.item()
+            alone = tr.loss_fn(state.model, batch_of(
+                songs, spec["caps"], rows), has_u).total.item()
         step = make_sharded_train_step(config, has_u, mesh)
         _, vec1 = step(state, batch)
         grads = {n: p.grad.clone() for n, p in
@@ -203,6 +224,212 @@ def job_seq(rank, world, tmp):
     return out
 
 
+def _backward_on_fresh_thread(backward):
+    """``Tensor.backward`` on a new thread, which starts without the
+    caller's context variables, as the CUDA autograd engine's does."""
+    import threading
+
+    def run(self, *args, **kwargs):
+        failed = []
+
+        def target():
+            try:
+                backward(self, *args, **kwargs)
+            except BaseException as e:      # re-raised on the caller
+                failed.append(e)
+        thread = threading.Thread(target=target)
+        thread.start()
+        thread.join()
+        if failed:
+            raise failed[0]
+    return run
+
+
+# the bar-sharded cases of job_seq_model: (name, n_data, n_seq, policy);
+# the mutated ones break one guard each (tests/test_torch_seq_model.py)
+SEQ_MODEL_CASES = [
+    ("1x2", 1, 2, "float32"), ("1x4", 1, 4, "float32"),
+    ("2x2", 2, 2, "float32"), ("1x2-bf16", 1, 2, "bfloat16"),
+    ("1x2-local-bar-mask", 1, 2, "float32"),
+    ("1x2-song-info-every-rank", 1, 2, "float32"),
+]
+
+
+def _mutate(case):
+    """Undo one guard of the bar-sharded step for ``case`` (a context
+    manager): the loss's bar mask by local index, or the song-info losses
+    counted on every seq rank."""
+    import contextlib
+
+    import torch
+
+    from mst_torch.ops import seq_context
+    from mst_torch.runtime import train as tr
+    stack = contextlib.ExitStack()
+
+    def patch(module, name, value):
+        old = getattr(module, name)
+        setattr(module, name, value)
+        stack.callback(setattr, module, name, old)
+    if case.endswith("local-bar-mask"):
+        patch(tr, "_bar_positions",
+              lambda n, device: torch.arange(n, device=device))
+    if case.endswith("song-info-every-rank"):
+        patch(seq_context, "count_once", lambda *xs: xs)
+    return stack
+
+
+def job_seq_model(rank, world, tmp):
+    """The bar-sharded train step on the global batch of ``inputs.json``
+    for every case of SEQ_MODEL_CASES whose mesh holds this rank: the
+    first micro-step's losses and accumulated gradients, and (fp32) the
+    parameters after the second one applies; a remat step against the
+    plain one over (2, 1) and (1, 2) with every backward on a fresh
+    thread; and the cross-rank ops of mst_torch.ops.seq_context on
+    (1, 2) and (1, 4) meshes."""
+    import dataclasses
+
+    import torch
+
+    from mst_torch.config import Config, ModelConfig, TrainConfig
+    from mst_torch.models import StyleTransferModel
+    from mst_torch.parallel import create_mesh, replicate
+    from mst_torch.runtime import train as tr
+
+    spec = _inputs(tmp)
+    weights = torch.load(os.path.join(tmp, "weights.pt"))
+    songs = _songs(spec["songs"])
+    meshes = {}
+
+    def mesh_of(n_data, n_seq):
+        # every rank forms every mesh's groups; a rank outside the grid
+        # takes no part in its cases
+        if (n_data, n_seq) not in meshes:
+            try:
+                meshes[n_data, n_seq] = create_mesh(n_data, n_seq,
+                                                    device="cpu")
+            except ValueError:
+                meshes[n_data, n_seq] = None
+        return meshes[n_data, n_seq]
+
+    def run(config, mesh, steps):
+        model = StyleTransferModel(config.model)
+        model.load_state_dict(weights)
+        state = replicate(tr.create_train_state(config, device="cpu",
+                                                model=model), mesh)
+        dtype = config.model.storage_dtype
+        batch = tr.device_batch_from_songs(
+            songs, spec["Cb"], spec["Rb"], bar_cap=spec["caps"],
+            device="cpu", raster_dtype=dtype, mesh=mesh)
+        step = tr.make_train_step(config, batch.unpitched is not None,
+                                  mesh=mesh)
+        rec = {}
+        for i in range(steps):
+            _, vec = step(state, batch)
+            if i == 0:
+                rec["losses"] = vec
+                rec["grads"] = {n: p.grad.clone() for n, p in
+                                state.model.named_parameters()
+                                if p.grad is not None}
+        if steps > 1:
+            rec["params"] = {n: p.detach().clone() for n, p in
+                             state.model.named_parameters()}
+            rec["opt_step"] = state.opt_step
+        return rec
+
+    out = {}
+    for name, n_data, n_seq, policy in SEQ_MODEL_CASES:
+        mesh = mesh_of(n_data, n_seq)
+        if mesh is None:
+            continue
+        config = Config(model=ModelConfig(**spec["widths"],
+                                          compute_dtype=policy,
+                                          storage_dtype=policy))
+        with _mutate(name):
+            rec = run(config, mesh, 2 if policy == "float32" else 1)
+        out[name] = dict(rec, data_index=mesh.data_index,
+                         seq_index=mesh.seq_index)
+
+    # remat over ranks, each backward() on a fresh thread
+    plain_backward = torch.Tensor.backward
+    torch.Tensor.backward = _backward_on_fresh_thread(plain_backward)
+    try:
+        for n_data, n_seq in ((2, 1), (1, 2)):
+            mesh = mesh_of(n_data, n_seq)
+            if mesh is None:
+                continue
+            config = Config(model=ModelConfig(**spec["widths"]))
+            remat = dataclasses.replace(config, train=TrainConfig(
+                remat=True))
+            out[f"remat-{n_data}x{n_seq}"] = (run(config, mesh, 1),
+                                             run(remat, mesh, 1))
+    finally:
+        torch.Tensor.backward = plain_backward
+    out["ops"] = {n: _seq_ops(mesh_of(1, n)) for n in (2, 4)}
+    return out
+
+
+def _seq_ops(mesh):
+    """masked_flip_bars and last_step on this rank's chunk of fixed
+    inputs, values and gradients (the cotangent of the shared last step
+    is seq rank 0's, zeros elsewhere), and last_step of a planted -0.0
+    with the bits summed as int32 and, mutated, as floats."""
+    if mesh is None:
+        return None
+    import torch
+
+    from mst_torch.ops import seq_context
+    from mst_torch.ops.seq_context import (last_step, masked_flip_bars,
+                                           sequence_sharding)
+    n, s = mesh.shape["seq"], mesh.seq_index
+    x, lengths, ct_flip, ct_last = seq_op_inputs()
+    t_l = x.shape[1] // n
+    mine = slice(s * t_l, (s + 1) * t_l)
+    out = {}
+    with sequence_sharding(mesh):
+        xl = x[:, mine].clone().requires_grad_()
+        flipped = masked_flip_bars(xl, lengths)
+        (flipped * ct_flip[:, mine]).sum().backward()
+        out["flip"] = (flipped.detach(), xl.grad)
+        for key, lens in (("last", lengths), ("last-none", None)):
+            xl = x[:, mine].clone().requires_grad_()
+            last = last_step(xl, lens)
+            (last * (ct_last if s == 0 else 0.0)).sum().backward()
+            out[key] = (last.detach(), xl.grad)
+        planted = torch.zeros(2, t_l, 3)
+        planted[:, -1] = -0.0           # the last bar of the last rank
+        exact = last_step(planted)
+        float_sum = seq_context.sum_bits
+        seq_context.sum_bits = lambda buf, group: float_all_reduce(buf,
+                                                                   group)
+        try:
+            mutated = last_step(planted)
+        finally:
+            seq_context.sum_bits = float_sum
+        out["negative-zero"] = (exact, mutated)
+    return out
+
+
+def float_all_reduce(buf, group):
+    import torch.distributed as dist
+    dist.all_reduce(buf, group=group)
+    return buf
+
+
+def seq_op_inputs():
+    """x (3, 16, 5), lengths spanning both halves and quarters, and the
+    cotangents of the flip and of the last read."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(3, 16, 5)).astype(np.float32))
+    lengths = torch.tensor([16, 3, 9])
+    ct_flip = torch.from_numpy(rng.normal(size=(3, 16, 5)).astype(
+        np.float32))
+    ct_last = torch.from_numpy(rng.normal(size=(3, 5)).astype(np.float32))
+    return x, lengths, ct_flip, ct_last
+
+
 def job_cli(rank, world, tmp):
     """train-model-torch.py's main in a rank whose group is formed. With
     ``nan`` in the inputs, every step's losses are made NaN after the real
@@ -271,7 +498,7 @@ def seq_inputs(case):
 
 
 JOBS = {"allreduce": job_allreduce, "data_parallel": job_data_parallel,
-        "seq": job_seq, "cli": job_cli}
+        "seq": job_seq, "cli": job_cli, "seq_model": job_seq_model}
 
 
 def main():

@@ -38,8 +38,17 @@ one-process ``--batch-size N`` batch; each rank builds and trains on its
 own N/ranks rows of it (the losses and gradients are the global batch's),
 and rank 0 alone writes the CSV and the snapshots. The collectives run
 over NCCL, or over gloo on the CPU and where ranks share a card
-(``mst_torch.parallel.default_backend``). ``--seq-parallel``
-(the bar-sharded model) is not offered yet.
+(``mst_torch.parallel.default_backend``).
+
+``--seq-parallel M`` shards the bar axis as well: the ranks form a
+(ranks/M) x M grid, and each holds its rows' bars ``s*R/M .. (s+1)*R/M``
+of every raster and activation (the bar-sharded model,
+mst_torch.ops.seq_context); M must divide every bar bucket a batch takes:
+
+    torchrun --nproc-per-node 2 train-model-torch.py --data corpus/ \
+        --device cpu --seq-parallel 2
+    torchrun --nproc-per-node 4 train-model-torch.py --data corpus/ \
+        --seq-parallel 2 --batch-size 2
 """
 
 import argparse
@@ -74,8 +83,10 @@ def parse_args(argv=None):
                              "fixed-shape batch; the reference trains one "
                              "song per step); the ranks must divide it")
     parser.add_argument("--seq-parallel", type=int, default=1,
-                        help="ranks on the sequence axis; only 1 is "
-                             "offered yet")
+                        help="ranks on the bar axis: each holds 1/N of "
+                             "every song's bars (the bar buckets must be "
+                             "divisible by it); the ranks must be a "
+                             "multiple of it")
     parser.add_argument("--remat", action="store_true",
                         help="recompute the forward in backward "
                              "(torch.utils.checkpoint)")
@@ -105,11 +116,8 @@ def parse_args(argv=None):
                         help="host-RAM budget (MB) for the cross-epoch "
                              "ingestion cache; 0 re-parses every epoch")
     args = parser.parse_args(argv)
-    if args.seq_parallel != 1:
-        raise SystemExit("--seq-parallel > 1 is not offered yet: the "
-                         "bar-sharded model (the LSTM dispatch onto "
-                         "mst_torch.parallel.seq_lstm and the cross-bar "
-                         "ops) is the next slice of the port")
+    if args.seq_parallel < 1:
+        raise SystemExit("--seq-parallel must be at least 1")
     if args.steps_per_dispatch > 1 and args.exact_shapes:
         raise SystemExit("--steps-per-dispatch needs bucketed shapes "
                          "(drop --exact-shapes)")
@@ -300,11 +308,11 @@ def train(args, distributed=False):
                 else:
                     batch = tr.pad_batch(songs_flat, Cb, Rb, bar_cap=caps,
                                          device=device)
-                    if mesh is not None:
-                        batch = shard_batch(batch, mesh)
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh)
             else:
                 # K1 writes the rasters at the storage dtype; over ranks,
-                # each rank's rows alone
+                # each rank's rows and bars alone
                 batch = tr.device_batch_from_songs(
                     songs_flat, Cb, Rb, bar_cap=caps, device=device,
                     raster_dtype=config.model.storage_dtype, mesh=mesh)
