@@ -140,6 +140,19 @@ Phases (any failure exits non-zero):
    (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), both ranks must hold the
    same losses, and their parameters after the apply must be bit-equal.
    It prints the micro-step's wall time beside the one-process step's.
+12. FLOP accounting (mst_torch.runtime.flops): the matmul FLOPs of work
+   the earlier phases run, counted on the card's route (K1, K2 and K3
+   launched; backwards on the CUDA autograd engine's thread) and on the
+   CPU's (the plain versions), must be equal integers: the 1 x 1 request
+   of phase 5 (one more card run, counted; the CPU run of phase 5,
+   counted), the first batch-1 micro-step of phase 7 and the first of
+   phase 8 (bf16) against their CPU twins, which those phases run counted.
+   It prints each count with the card's name and power limit, and its MFU
+   against the card's peak for the compute dtype over the wall time and
+   over the profiled device time that phases 5, 7 and 8 measured, for the
+   12-job request (counted in one more run) and for the batch-1 steps
+   (steps 1 and 2 are counted; steps 7 and 8 run the same songs, timed
+   and profiled).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -935,6 +948,7 @@ def differing_share(paths_a, paths_b):
 
 def phase_main(torch, bundle, comps, styles, tmp):
     from mst_torch.parity import midi_differences
+    from mst_torch.runtime.flops import MatmulFlops
     from mst_torch.transfer import ModelBundle, transfer_styles
 
     out = os.path.join(tmp, "warm")
@@ -975,14 +989,27 @@ def phase_main(torch, bundle, comps, styles, tmp):
         f"{prof_wall * 1e3:.3f} ms wall")
     log(events.table(sort_by="self_cuda_time_total", row_limit=15,
                      max_name_column_width=60))
+    # phase 12's counts: the 12-job request and the 1 x 1 request on the
+    # card, each in a run of its own (counting slows the run it counts)
+    counts = {"wall_s": wall, "busy_s": busy_us / 1e6}
+    with MatmulFlops() as count:
+        transfer_styles(bundle, comps, styles, os.path.join(tmp, "counted"))
+    counts["request"] = count.total
+    with MatmulFlops() as count:
+        transfer_styles(bundle, comps[:1], styles[:1],
+                        os.path.join(tmp, "pair_counted"))
+    counts["pair_gpu"] = count.total
 
     # one composition x one style on the card and on the CPU
     gpu = transfer_styles(bundle, comps[:1], styles[:1],
                           os.path.join(tmp, "pair_gpu"))
     t0 = time.perf_counter()
-    cpu = transfer_styles(ModelBundle.from_npz(device="cpu"), comps[:1],
-                          styles[:1], os.path.join(tmp, "pair_cpu"))
-    log(f"1 x 1 on the CPU: {time.perf_counter() - t0:.3f} s")
+    with MatmulFlops() as count:
+        cpu = transfer_styles(ModelBundle.from_npz(device="cpu"), comps[:1],
+                              styles[:1], os.path.join(tmp, "pair_cpu"))
+    counts["pair_cpu"] = count.total
+    log(f"1 x 1 on the CPU (its matmul FLOPs counted): "
+        f"{time.perf_counter() - t0:.3f} s")
     for a, b in zip(gpu, cpu):
         with open(a, "rb") as fa, open(b, "rb") as fb:
             equal, faults, borderline = midi_differences(fa.read(), fb.read())
@@ -1022,7 +1049,7 @@ def phase_main(torch, bundle, comps, styles, tmp):
         f"{len(styled)} reconstructed and styled files differ "
         f"({differ / max(total, 1):.2%})")
     del bf16
-    return launches, launches_bf16
+    return launches, launches_bf16, counts
 
 
 def mid_files(root):
@@ -1249,6 +1276,8 @@ def phase_train(torch, paths, tmp, bf16=False):
     from mst_torch.config import Config, ModelConfig
     from mst_torch.runtime import train as tr
     from mst_torch.runtime.checkpoint import CheckpointManager
+    from mst_torch.runtime.flops import MatmulFlops
+    from mst_torch.runtime.metrics import StepTimer
     from mst_torch.transfer import get_model_input
 
     tr.reproducible_backends()        # as train-model-torch.py runs
@@ -1291,23 +1320,27 @@ def phase_train(torch, paths, tmp, bf16=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    times, losses, first_grads = [], [], None
-    busy_us = prof_wall = None
+    # batch-1 steps 1-7 (the first two a warm-up, out of the mean), step 8
+    # under the profiler, the two batch-6 steps
+    timers = {"batch-1": StepTimer(warmup=2, device="cuda"),
+              "profiled": StepTimer(warmup=0, device="cuda"),
+              "batch-6": StepTimer(warmup=0, device="cuda")}
+    losses, first_grads, counted = [], None, []
     t_run = time.perf_counter()
     for i, (kind, build) in enumerate(plan):
         if i == 7:       # the last batch-1 micro-step runs under the profiler
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                vec, has_u = run_step(state, build, "cuda")
-                torch.cuda.synchronize()
-                prof_wall = time.perf_counter() - t0
+                with timers["profiled"]:
+                    vec, has_u = run_step(state, build, "cuda")
             busy_us = device_busy_us(prof.key_averages())
+        elif i < 2:      # the warm-up steps are counted (phase 12)
+            with timers[kind], MatmulFlops() as count:
+                vec, has_u = run_step(state, build, "cuda")
+            counted.append(count.total)
         else:
-            t0 = time.perf_counter()
-            vec, has_u = run_step(state, build, "cuda")
-            torch.cuda.synchronize()
-            times.append((kind, time.perf_counter() - t0))
+            with timers[kind]:
+                vec, has_u = run_step(state, build, "cuda")
         losses.append((vec, has_u))
         if i == 0:      # iter_size 2: the first step's gradient is unapplied
             first_grads = {n: p.grad.detach().cpu().clone()
@@ -1329,17 +1362,22 @@ def phase_train(torch, paths, tmp, bf16=False):
     if (state.micro_step, state.opt_step) != (10, 5):
         raise AssertionError(f"counters {state.micro_step}, "
                              f"{state.opt_step} after 10 micro-steps")
-    b1 = [dt for kind, dt in times[2:] if kind == "batch-1"]
-    b6 = [dt for kind, dt in times if kind == "batch-6"]
-    summary = dict(b1_ms=sum(b1) / len(b1) * 1e3, b6_ms=[dt * 1e3
-                                                          for dt in b6],
-                   busy=busy_us / 1e3 / (prof_wall * 1e3), peak_gib=peak)
+    b1_timer = timers["batch-1"]
+    b1, b6 = b1_timer.times[b1_timer.warmup:], timers["batch-6"].times
+    prof_wall = timers["profiled"].times[0]
+    summary = dict(b1_ms=b1_timer.mean * 1e3, b6_ms=[dt * 1e3 for dt in b6],
+                   busy=busy_us / 1e3 / (prof_wall * 1e3), peak_gib=peak,
+                   # phase 12: steps 7 and 8 run the songs of the counted
+                   # steps 1 and 2: step 7 timed, step 8 profiled
+                   flops=counted, step7_s=b1_timer.times[6],
+                   step8_busy_s=busy_us / 1e6,
+                   compute_dtype=config.model.compute_dtype)
     log(f"{label}: {n_params} parameters, 10 micro-steps in "
         f"{run_wall:.3f} s, launches {launches}, peak device memory "
         f"{peak:.2f} GiB")
     log(f"  ms per batch-1 step after 2 warm-up steps: "
         f"{[round(dt * 1e3, 3) for dt in b1]}, mean "
-        f"{sum(b1) / len(b1) * 1e3:.3f}")
+        f"{b1_timer.mean * 1e3:.3f}")
     log(f"  ms per batch-6 step: first {b6[0] * 1e3:.3f}, second "
         f"{b6[1] * 1e3:.3f}")
     log(f"  losses per step (total): "
@@ -1352,8 +1390,11 @@ def phase_train(torch, paths, tmp, bf16=False):
     # the first step on the CPU, from the same seed and the same song
     t0 = time.perf_counter()
     cpu_state = tr.create_train_state(config, device="cpu", seed=108)
-    cpu_vec, has_u = run_step(cpu_state, plan[0][1], "cpu")
-    log(f"{label}: first step on the CPU: {time.perf_counter() - t0:.3f} s")
+    with MatmulFlops() as count:
+        cpu_vec, has_u = run_step(cpu_state, plan[0][1], "cpu")
+    summary["cpu_flops"] = count.total
+    log(f"{label}: first step on the CPU (its matmul FLOPs counted): "
+        f"{time.perf_counter() - t0:.3f} s")
     gpu_vec = losses[0][0].cpu()
     from mst_torch.ops.losses import LossDict
     pick = [LossDict._fields.index(n) for n in _loss_names(has_u)]
@@ -1917,6 +1958,42 @@ def phase_seq(torch, paths, tmp, smi):
     return ranks[0]["launches"]
 
 
+def phase_flops(serve, fp32, bf16, smi):
+    """Phase 12: each count of the card's route against the same work's
+    count on the CPU's (equal integers, or the run fails), and the MFU of
+    each count over the wall and the device time phases 5, 7 and 8
+    measured."""
+    from mst_torch.runtime.flops import device_peak_flops
+
+    pairs = [("1 x 1 request", serve["pair_gpu"], serve["pair_cpu"]),
+             ("first batch-1 fp32 micro-step", fp32["flops"][0],
+              fp32["cpu_flops"]),
+             ("first batch-1 bf16 micro-step", bf16["flops"][0],
+              bf16["cpu_flops"])]
+    for label, gpu, cpu in pairs:
+        log(f"phase 12: {label}: {gpu} matmul FLOPs on the card, {cpu} on "
+            f"the CPU ({smi})")
+        if gpu != cpu or gpu <= 0:
+            raise AssertionError(f"FLOP count of the {label}: card {gpu}, "
+                                 f"CPU {cpu}")
+    rows = [("12-job request", serve["request"], "float32", serve["wall_s"],
+             serve["busy_s"])]
+    for name, run in (("fp32", fp32), ("bf16", bf16)):
+        rows.append((f"batch-1 {name} micro-step (step 1 counted, step 7 "
+                     f"timed)", run["flops"][0], run["compute_dtype"],
+                     run["step7_s"], None))
+        rows.append((f"batch-1 {name} micro-step (step 2 counted, step 8 "
+                     f"profiled)", run["flops"][1], run["compute_dtype"],
+                     None, run["step8_busy_s"]))
+    for label, n, dtype, wall_s, busy_s in rows:
+        peak = device_peak_flops(dtype)
+        by = [f"{kind} {seconds * 1e3:.3f} ms: MFU {n / seconds / peak:.4e}"
+              for kind, seconds in (("wall", wall_s), ("device", busy_s))
+              if seconds is not None]
+        log(f"phase 12: {label}: {n} matmul FLOPs ({n:.4e}); peak "
+            f"{peak:.4g} FLOP/s ({dtype}); {'; '.join(by)} ({smi})")
+
+
 def main():
     try:
         import torch
@@ -1942,7 +2019,8 @@ def main():
     bundle = ModelBundle.from_npz(device="cuda")
     kernels = phase_k1(torch, bundle, songs) + phase_k2(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        serve, serve_bf16 = phase_main(torch, bundle, comps, styles, tmp)
+        serve, serve_bf16, serve_flops = phase_main(torch, bundle, comps,
+                                                    styles, tmp)
         apply_run, eval_run = phase_serve_eval(torch, bundle, comps, styles,
                                                tmp)
         del bundle
@@ -1958,6 +2036,7 @@ def main():
         parallel = phase_parallel(torch, comps[:1] + styles[:1], tmp, smi)
         torch.cuda.empty_cache()
         seq = phase_seq(torch, comps[:1] + styles[:1], tmp, smi)
+    phase_flops(serve_flops, fp32, bf16, smi)
     log(f"training, bf16 storage and compute against fp32 (one call): "
         f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
         f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "

@@ -29,10 +29,11 @@ nothing. ``grid_tail_fwd`` and ``grid_tail_bwd`` are the kernel wrappers:
 CPU tensors take the plain versions ``grid_tail_plain`` and
 ``grid_tail_bwd_plain``; tensors anywhere else launch the kernel or raise.
 ``grid_tail.launches`` and ``grid_tail_bwd.launches`` count kernel
-launches. Both kernels are built without FMA contraction, so on the card
-they agree with their plain versions bit for bit, apart from ct_w, a sum
-over every row taken in another order (``chip_smoke.py`` states each
-tolerance).
+launches. The tail counts no matmul FLOPs on any route
+(mst_torch.runtime.flops): the plain versions run inside ``uncounted``.
+Both kernels are built without FMA contraction, so on the card they agree
+with their plain versions bit for bit, apart from ct_w, a sum over every
+row taken in another order (``chip_smoke.py`` states each tolerance).
 
 Each kernel has two forms, chosen by the dtype of ``xo`` and ``xd``:
 
@@ -62,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from mst_torch.ops import cuda_build
+from mst_torch.ops.flop_scope import uncounted
 from mst_torch.ops.precision import BF16, FP32, bf16_value
 
 N_OCTAVES = 8
@@ -139,6 +141,7 @@ def _dleaky_mul(x, ct):
     return torch.where(x >= 0, ct, ct * _slope(ct.dtype))
 
 
+@uncounted()
 def grid_tail_plain(xo, xd, w, rest, scale: Sequence[float]):
     """Plain torch version. ``xo``: (*L, O, K), ``xd``: (*L, D, K), ``w``:
     (K, F), ``rest``: broadcastable to (*L, O*D, F), ``scale``: F floats.
@@ -167,6 +170,7 @@ def grid_tail_plain(xo, xd, w, rest, scale: Sequence[float]):
     return (torch.sigmoid(y + rest) * sc).to(xo.dtype)
 
 
+@uncounted()
 def grid_tail_bwd_plain(xo, xd, out, ct, w, scale: Sequence[float]):
     """Plain torch version of K3, from the formulas of ``_bwd_kernel``
     (pallas_grid.py:167-194). ``xo`` (*L, O, K), ``xd`` (*L, D, K), ``out``

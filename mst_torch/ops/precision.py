@@ -18,7 +18,11 @@ This is not ``torch.autocast``: autocast rounds matmul outputs to bf16 and
 picks its own list of ops. The policy here is explicit, as the JAX
 package's is. Entry points that own a config (``runtime.train``'s step,
 ``transfer.ModelBundle``) enter ``precision(...)`` around their work. The
-setting lives in a context variable, so threads do not see each other's.
+setting lives in a context variable, so threads do not see each other's;
+outside any context it is fp32 and fp32. There are no process-wide
+setters (mst_tpu's ``set_compute_dtype``/``set_storage_dtype``): every
+caller enters the context from its config. No backward reads the policy:
+the CUDA autograd engine runs backwards on a thread of its own.
 
 torch does not promote dtypes in ``matmul`` or ``conv1d`` as ``jnp`` does
 (bf16 @ fp32 -> fp32), so under fp32 compute a bf16-stored operand is cast
@@ -115,7 +119,8 @@ class _Bf16Product(torch.autograd.Function):
     order of the sums). The backward follows JAX's transposes of a
     ``preferred_element_type=float32`` dot: the fp32 cotangent times the
     other bf16 operand in fp32, rounded to bf16, then cast to the input's
-    dtype."""
+    dtype. An operand that needs no gradient (a raster, a constant) gets
+    none, as JAX transposes only the operands it differentiates."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -131,10 +136,14 @@ class _Bf16Product(torch.autograd.Function):
     def backward(ctx, ct):
         ab, bb = ctx.saved_tensors
         ct = ct.to(FP32)
-        ct_a = torch.matmul(ct, bb.to(FP32).transpose(-1, -2))
-        ct_b = torch.matmul(ab.to(FP32).transpose(-1, -2), ct)
-        return (ct_a.to(BF16).to(ctx.dtypes[0]),
-                ct_b.to(BF16).to(ctx.dtypes[1]))
+        ct_a = ct_b = None
+        if ctx.needs_input_grad[0]:
+            ct_a = torch.matmul(ct, bb.to(FP32).transpose(-1, -2))
+            ct_a = ct_a.to(BF16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            ct_b = torch.matmul(ab.to(FP32).transpose(-1, -2), ct)
+            ct_b = ct_b.to(BF16).to(ctx.dtypes[1])
+        return ct_a, ct_b
 
 
 def matmul(x, w):

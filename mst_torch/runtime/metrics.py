@@ -5,8 +5,9 @@ misc.py:17-82, the ProgressBar with momentum-.99 EMA, and style/utils/
 data.py:27-46 + train-model.py:143-149, the flattened loss dict to
 training.csv, one row per iteration, header on create). The progress line
 is written to stderr by hand (the machine with the GPU has no ``tqdm``);
-``save_to_csv`` is the append mode of mst_tpu/utils/data.py's. ``profiler_trace``
-records a ``torch.profiler`` trace of the steps it wraps.
+``save_to_csv`` is the append mode of mst_tpu/utils/data.py's.
+``profiler_trace`` records a ``torch.profiler`` trace of the steps it
+wraps; ``StepTimer`` times steps on the host clock, waiting for the card.
 """
 
 from __future__ import annotations
@@ -129,6 +130,48 @@ def flatten_losses(losses) -> Dict[str, float]:
                 out[name] = None if value is None else float(value)
     walk(losses.as_nested_dict(), "")
     return out
+
+
+class StepTimer:
+    """Wall-clock per-step timing with a warm-up discard (mst_tpu's
+    StepTimer): ``with timer: step()`` appends the step's seconds to
+    ``times``. On a CUDA ``device`` entry and exit wait for the card
+    (``torch.cuda.synchronize``) before they read the clock: without that
+    the host clock measures the enqueue, not the step (the JAX caller
+    blocks on its result instead). ``device`` None or the CPU reads the
+    clock alone; a CUDA device without a card raises."""
+
+    def __init__(self, warmup: int = 2, device=None):
+        self.warmup = warmup
+        self.times = []
+        self._t0 = None
+        self._sync = None
+        if device is not None:
+            import torch
+            device = torch.device(device)
+            if device.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError(f"StepTimer: no CUDA device for "
+                                       f"{device}")
+                self._sync = lambda: torch.cuda.synchronize(device)
+
+    def __enter__(self):
+        if self._sync is not None:
+            self._sync()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._sync is not None:
+            self._sync()
+        self.times.append(time.perf_counter() - self._t0)
+
+    @property
+    def mean(self) -> float:
+        """Mean of the steps after the warm-up (of all of them when there
+        are no more than ``warmup``)."""
+        steady = self.times[self.warmup:] or self.times
+        return sum(steady) / max(len(steady), 1)
 
 
 @contextlib.contextmanager

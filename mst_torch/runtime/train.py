@@ -4,8 +4,9 @@ with step decay.
 Counterpart of mst_tpu/runtime/train.py (parity target: train-model.py:
 89-160):
 
-- Adam(lr=.01) with StepLR(step_size=200, gamma=.9) stepped once per
-  optimizer step (train-model.py:89-90,151-154);
+- Adam(lr=.01) with StepLR's schedule (step_size=200, gamma=.9;
+  ``make_lr_schedule``) stepped once per optimizer step
+  (train-model.py:89-90,151-154);
 - gradient accumulation over ``iter_size`` micro-steps by *summing*
   gradients: each micro-step's ``backward()`` adds into ``.grad``, and every
   ``iter_size``-th micro-step applies Adam and clears them;
@@ -60,7 +61,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
-from torch.optim.lr_scheduler import StepLR
+from torch.optim.lr_scheduler import LambdaLR
 
 from mst_torch.config import Config
 from mst_torch.data.pipeline import Song, get_used_instruments, prepare_input
@@ -105,20 +106,33 @@ class TrainState:
 
     model: StyleTransferModel
     optimizer: torch.optim.Adam
-    scheduler: StepLR
+    scheduler: LambdaLR
     micro_step: int = 0
     opt_step: int = 0
 
 
+def make_lr_schedule(config: Config):
+    """``opt_step -> lr``: lr * gamma^(opt_step // step_size) (parity:
+    StepLR, train-model.py:90), mst_tpu's schedule and the one
+    ``make_optimizer``'s scheduler follows."""
+    t = config.train
+
+    def schedule(opt_step):
+        return t.learning_rate * (t.lr_decay_gamma **
+                                  (opt_step // t.lr_decay_every))
+    return schedule
+
+
 def make_optimizer(model: StyleTransferModel, config: Config):
-    """(Adam, StepLR): lr * gamma^(opt_step // step_size) (parity: StepLR,
-    train-model.py:89-90), stepped once per optimizer application as
-    optax's update count is."""
+    """(Adam, scheduler): the scheduler sets the rates of
+    ``make_lr_schedule`` and is stepped once per optimizer application, as
+    optax's update count is (parity: train-model.py:89-90)."""
     t = config.train
     optimizer = torch.optim.Adam(model.parameters(), lr=t.learning_rate,
                                  betas=ADAM_BETAS, eps=ADAM_EPS)
-    scheduler = StepLR(optimizer, step_size=t.lr_decay_every,
-                       gamma=t.lr_decay_gamma)
+    schedule = make_lr_schedule(config)
+    scheduler = LambdaLR(optimizer,
+                         lambda step: schedule(step) / t.learning_rate)
     return optimizer, scheduler
 
 

@@ -146,6 +146,68 @@ def test_storage_context_restores_and_default_is_noop():
     assert tp.storage_dtype() == torch.float32
 
 
+def test_policy_is_the_contexts_and_a_fresh_thread_sees_fp32():
+    """The policy is the innermost ``precision(...)`` context's, restored
+    when it closes; a thread started inside a context does not see it
+    (there are no process-wide setters: callers enter the context from
+    their config); a bad dtype raises."""
+    import threading
+
+    seen = []
+    with tp.precision("bfloat16", storage="bfloat16"):
+        thread = threading.Thread(target=lambda: seen.append(
+            (tp.compute_dtype(), tp.storage_dtype())))
+        thread.start()
+        thread.join()
+        with tp.precision("float32"):
+            assert tp.compute_dtype() == torch.float32
+            assert tp.storage_dtype() == torch.bfloat16   # storage as is
+        assert (tp.compute_dtype(), tp.storage_dtype()) == (torch.bfloat16,
+                                                            torch.bfloat16)
+    assert seen == [(torch.float32, torch.float32)]
+    assert (tp.compute_dtype(), tp.storage_dtype()) == (torch.float32,
+                                                        torch.float32)
+    with pytest.raises(ValueError):
+        with tp.precision("float16"):
+            pass
+
+
+def test_train_step_bits_ignore_the_callers_policy(setup):
+    """A train step enters its config's policy: under a caller's bf16
+    context it gives the bits it gives without one. The loss and its
+    gradients under that context equal bf16 compute's and differ from
+    fp32's."""
+    _, params, _, t_batch = setup
+
+    def loss_and_grads(context):
+        model = _torch_model(params)
+        with context:
+            total = ttr.loss_fn(model, t_batch, True).total
+            total.backward()
+        return total.detach(), [p.grad.clone() for p in model.parameters()]
+
+    def step_bits(context):
+        config = Config(model=ModelConfig(**NARROW))
+        state = ttr.create_train_state(config, device="cpu",
+                                       model=_torch_model(params))
+        with context:
+            _, vec = ttr.make_train_step(config, True)(state, t_batch)
+        return vec, [p.grad.clone() for p in state.model.parameters()]
+
+    import contextlib
+
+    bf16 = lambda: tp.precision("bfloat16", storage="bfloat16")  # noqa: E731
+    fp32 = loss_and_grads(contextlib.nullcontext())
+    context = loss_and_grads(bf16())
+    plain_step, outer_step = step_bits(contextlib.nullcontext()), \
+        step_bits(bf16())
+    assert torch.equal(plain_step[0], outer_step[0])
+    assert all(torch.equal(a, b) for a, b in zip(plain_step[1],
+                                                 outer_step[1]))
+    assert not torch.equal(context[0], fp32[0])
+    assert any(not torch.equal(a, b) for a, b in zip(context[1], fp32[1]))
+
+
 def _j_losses(j_model, params, j_batch, n=5, **policy):
     config = JConfig(model=JModelConfig(**NARROW, **policy))
     opt = jtr.make_optimizer(config)

@@ -35,7 +35,20 @@ def test_import_pulls_in_no_jax():
             "mst_torch.data.cache, mst_torch.data.prefetch, "
             "mst_torch.audio, mst_torch.audio.mp3, mst_torch.analysis, "
             "mst_torch.utils, mst_torch.runtime.ref_checkpoint, "
-            "mst_torch.parallel, mst_torch.parallel.seq_lstm; "
+            "mst_torch.parallel, mst_torch.parallel.seq_lstm, "
+            "mst_torch.runtime.flops, mst_torch.ops.flop_scope; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN_MODULES!r}]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_flops_import_alone_pulls_in_no_jax():
+    """The FLOP counter on its own (its tests import mst_tpu's beside it)."""
+    code = ("import sys; import mst_torch.runtime.flops; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN_MODULES!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")

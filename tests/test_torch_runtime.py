@@ -1,8 +1,11 @@
 """The port's training runtime helpers against mst_tpu's, on the CPU: the
 song cache and the prefetch thread (copies), the metrics (ProgressBar
-without tqdm, CsvLogger, flatten_losses), and the remat path of the train
-step. Everything here is exact, apart from remat, which recomputes the same
-forward: its losses and gradients must be bit-equal too.
+without tqdm, CsvLogger, flatten_losses, StepTimer), the learning-rate
+schedule, and the remat path of the train step. Everything here is exact,
+apart from remat, which recomputes the same forward: its losses and
+gradients must be bit-equal too; and the schedule, which JAX evaluates in
+float32: three roundings (lr, gamma^k, their product), so rtol 3 * 2^-23
+against the port's float64.
 """
 
 import io
@@ -117,6 +120,89 @@ def test_progress_bar_matches_mst_tpu():
     assert bar.avg_values == pytest.approx(j_bar.avg_values, rel=1e-12)
     assert bar.closed and out.getvalue().endswith("\n")
     assert f"{len(rows)}/{len(rows)}" in out.getvalue()
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 3, 6])
+def test_step_timer_discards_warmup_like_mst_tpu(monkeypatch, n_steps):
+    """With a stubbed clock (step i takes i + 1 s): the times, and the mean
+    of the steps after the warm-up (of all of them when there are no
+    more), equal mst_tpu's StepTimer's."""
+    from mst_tpu.runtime import metrics as jm
+
+    def run(timer_cls, **kwargs):
+        ticks = iter(np.cumsum([0] + [v for i in range(n_steps)
+                                      for v in (i + 1, 0.5)]).tolist())
+        monkeypatch.setattr(metrics.time, "perf_counter", lambda: next(ticks))
+        timer = timer_cls(**kwargs)
+        for _ in range(n_steps):
+            with timer:
+                pass
+        monkeypatch.undo()
+        return timer
+
+    got, want = run(metrics.StepTimer, device="cpu"), run(jm.StepTimer)
+    assert got.times == want.times == [float(i + 1) for i in range(n_steps)]
+    assert got.mean == want.mean
+    assert got.mean == (np.mean(got.times[2:]) if n_steps > 2
+                        else np.mean(got.times))
+
+
+def test_step_timer_waits_for_the_card_and_never_falls_back(monkeypatch):
+    """On a CUDA device the timer synchronises before it reads the clock
+    (at entry and exit); without a card, asking for one raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        metrics.StepTimer(device="cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: synced.append(device))
+    timer = metrics.StepTimer(warmup=0, device="cuda:0")
+    with timer:
+        assert len(synced) == 1
+    assert synced == [torch.device("cuda:0")] * 2 and len(timer.times) == 1
+    with metrics.StepTimer(device=None):
+        pass
+    assert len(synced) == 2
+
+
+def test_lr_schedule_matches_mst_tpu_and_steplr():
+    """make_lr_schedule against mst_tpu's schedule (jnp, float32), and the
+    rates of make_optimizer's scheduler against it and against the
+    original's StepLR(200, 0.9), each stepped once per apply, at every
+    optimizer step 0..1000 (decays at 200, 400, ...)."""
+    import jax.numpy as jnp
+
+    from mst_tpu.config import Config as JConfig
+    from mst_tpu.runtime import train as jtr
+    from mst_torch.config import Config
+    from mst_torch.runtime import make_lr_schedule
+    from mst_torch.runtime import train as tr
+
+    steps = np.arange(1001)
+    want = np.asarray(jtr.make_lr_schedule(JConfig())(jnp.asarray(steps)))
+    schedule = make_lr_schedule(Config())
+    got = np.array([schedule(int(i)) for i in steps])
+    np.testing.assert_allclose(got, want, rtol=3 * 2.0 ** -23)
+    assert got[199] == 0.01 and got[200] == pytest.approx(0.009, rel=1e-15)
+
+    def rates(optimizer, scheduler):
+        out = []
+        for _ in steps:
+            out.append(optimizer.param_groups[0]["lr"])
+            optimizer.step()
+            scheduler.step()
+        return out
+
+    optimizer, scheduler = tr.make_optimizer(torch.nn.Linear(2, 2),
+                                             Config())
+    np.testing.assert_allclose(rates(optimizer, scheduler), got,
+                               rtol=1e-15)
+    original = torch.optim.Adam(torch.nn.Linear(2, 2).parameters(),
+                                lr=0.01)
+    step_lr = torch.optim.lr_scheduler.StepLR(original, step_size=200,
+                                              gamma=0.9)
+    np.testing.assert_allclose(rates(original, step_lr), got, rtol=1e-15)
 
 
 def test_csv_logger_and_flatten_losses(tmp_path):
