@@ -34,9 +34,13 @@ Phases (any failure exits non-zero):
 5. The serving path: ``transfer_styles`` with the ``snapshots/4900``
    weights on 3 compositions x 3 styles (12 jobs) on ``cuda``, once to warm
    up and once with every launch counter at 0, which must see K1 and K2
-   launch. Every output parses and every styled output has notes. One more
-   request runs under torch.profiler: its device-busy time beside its wall
-   time, and the device time by kernel. Then 1 composition x 1 style runs
+   launch. Every output parses and every styled output has notes. Two more
+   requests run under ``runtime.metrics.profiler_trace`` with the model's
+   components annotated (``runtime.profile.model_scopes``), the first as
+   the tracer's warm-up, out of the trace: the second's device-busy time
+   (``runtime.profile.summarize``) beside its wall time; its trace is kept
+   for phase 13, which splits it.
+   Then 1 composition x 1 style runs
    on the card and on the CPU, and the two sets of files must agree under
    the fp32-boundary rule (mst_torch.parity).
 6. K3 (``csrc/grid_tail_bwd.cu``) against its plain version at the
@@ -55,10 +59,15 @@ Phases (any failure exits non-zero):
 7. The training path at full width (``ModelConfig()``) from a seed-108
    fresh init on the six smoke songs: 8 batch-1 micro-steps and 2 batch-6
    steps through ``create_train_state``, ``device_batch_from_songs`` and
-   ``make_train_step`` (Adam + StepLR, iter_size 2), with every launch
+   ``make_train_step`` (Adam with a ``LambdaLR`` over
+   ``make_lr_schedule``, iter_size 2), with every launch
    counter at 0 first; each of K1, K2 and K3 must launch and every loss
-   must be finite. It prints the ms per step after warm-up, the
-   device-busy share of one profiled step and the peak memory. The first
+   must be finite. Three more batch-1 micro-steps run from the run's
+   state under ``runtime.metrics.profiler_trace`` and ``model_scopes``:
+   one that warms the tracer up, then a traced pair on the songs of steps
+   1 and 2 (the first applies Adam), for phases 12 and 13. It prints the
+   ms per step after warm-up, the pair's device-busy share
+   (``runtime.profile.summarize``) and the peak memory. The first
    step's losses and per-leaf gradients on the card must match the same
    step on the CPU (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), and a save
    after step 4 and a resume must reproduce step 5's losses
@@ -149,10 +158,29 @@ Phases (any failure exits non-zero):
    phase 8 (bf16) against their CPU twins, which those phases run counted.
    It prints each count with the card's name and power limit, and its MFU
    against the card's peak for the compute dtype over the wall time and
-   over the profiled device time that phases 5, 7 and 8 measured, for the
-   12-job request (counted in one more run) and for the batch-1 steps
-   (steps 1 and 2 are counted; steps 7 and 8 run the same songs, timed
-   and profiled).
+   over the device time of the traces of phases 5, 7 and 8 (``summarize``),
+   for the 12-job request (counted in one more run) and for the batch-1
+   steps (steps 1 and 2 are counted; step 7 runs step 1's song, timed, and
+   the traced pair runs both songs).
+13. The profile tools (mst_torch.runtime.profile, tools/*_torch.py):
+   ``summarize`` of the traces of phases 5 (the 12-job request) and 7
+   (the micro-step pair), each per request or micro-step: every child of
+   the model must have device time under ``[fwd]`` (in the micro-step,
+   under ``[fwd]`` and ``[bwd]``), the share of ``other`` must stay under
+   ``OTHER_SHARE_MAX``, the K1, K2 and K3 launches must be the path's
+   (request: 2, 1, 0; micro-step: 2, 1, 1; phases 5, 7 and 8 take a
+   trace again, up to 3 in all, when the tracer lost the device record of
+   a launch, and log each loss), and the sum over its
+   components and the sum over its kernel categories must each equal its
+   busy time within 0.1% (this holds by construction: it guards the
+   summary's bookkeeping, not the attribution). It prints the top 5
+   categories, the 5 longest idle gaps with the host ops across them, and
+   the matmul share of the fp32 peak with phase 12's counts. Then
+   ``tools/profile_transfer_torch.py`` runs the smoke request stage by
+   stage on the card (one warm-up, 3 rounds): its stages must sum to
+   within 10% of its staged round's wall time, and every file it writes
+   must equal phase 5's request's byte for byte. It prints the time of
+   phases 7's and 8's checkpoint saves (``StageTimer``).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -206,6 +234,16 @@ EVAL_ATOL = 1e-4
 # products have B/2 rows where the dense scan's have B, and cuBLAS may
 # pick another algorithm (another summation order) for them
 SEQ_RTOL = 1e-5
+# phase 13: component and category sums against busy time (they hold by
+# construction: each kernel gets one label of each kind)
+PROFILE_SUM_RTOL = 1e-3
+# phase 13: the most of a trace's busy time that may fall outside every
+# model component, `other [fwd|bwd]` (measured 17.9% for the request and
+# 6.2% for a micro-step on an H100; a broken host-device or forward-backward
+# link puts most kernels there)
+OTHER_SHARE_MAX = {"request": 0.25, "micro-step": 0.10}
+STAGE_SUM_RTOL = 0.1      # phase 13: stages' sum vs the staged wall time
+TRACE_TAKES = 3           # traces of a run, until one has every device record
 RANK_TIMEOUT = 600        # seconds the phase-10 and 11 ranks may take
 SEQ_CAPS = (40, 128)      # phase 11: comp_0 ends on seq rank 0, style_0 on 1
 SEQ_CB, SEQ_RB = 4, 128
@@ -233,16 +271,6 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_busy_us(events):
-    """Device time of a profile's kernels (key_averages()): the events on
-    the device, without user annotations such as the optimizer's step
-    range, which would count its kernels twice."""
-    from torch.autograd import DeviceType
-    return sum(e.self_device_time_total for e in events
-               if e.device_type != DeviceType.CPU
-               and not getattr(e, "is_user_annotation", False))
-
-
 def _counters():
     """(name in the kernels line, wrapper, counter attribute) of every
     kernel form."""
@@ -264,6 +292,24 @@ def reset_launches():
 def read_launches():
     """Every kernel form's launch count, by the name in the kernels line."""
     return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+
+
+def complete_trace(label, take):
+    """``take()`` traces a run and returns (its ``summarize``, the traced
+    run's wall seconds). Now and then the tracer loses the device record of
+    a launch the trace holds (``unrecorded_launches``; PERF.md §7), and the
+    summary then misses that kernel's time and launch. Such a trace is
+    logged and taken again, up to TRACE_TAKES in all; the checks read only
+    a trace with every device record."""
+    for attempt in range(1, TRACE_TAKES + 1):
+        summary, wall = take()
+        lost = summary["unrecorded_launches"]
+        if not lost:
+            return summary, wall
+        log(f"{label}: the tracer lost the device records of {lost} "
+            f"(trace {attempt} of at most {TRACE_TAKES})")
+    raise AssertionError(f"{label}: the tracer lost device records in "
+                         f"{TRACE_TAKES} traces in a row, the last {lost}")
 
 
 def bound_ms(n_bytes, n_ops):
@@ -948,7 +994,7 @@ def differing_share(paths_a, paths_b):
 
 def phase_main(torch, bundle, comps, styles, tmp):
     from mst_torch.parity import midi_differences
-    from mst_torch.runtime.flops import MatmulFlops
+    from mst_torch.runtime.flops import MatmulFlops, device_peak_flops
     from mst_torch.transfer import ModelBundle, transfer_styles
 
     out = os.path.join(tmp, "warm")
@@ -975,26 +1021,43 @@ def phase_main(torch, bundle, comps, styles, tmp):
             raise AssertionError(f"main path launched no {name} kernel")
     check_outputs(written, "main path")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        transfer_styles(bundle, comps, styles, os.path.join(tmp, "prof"))
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    # kernel events carry the device time; their CPU-side ops repeat it
-    busy_us = device_busy_us(events)
-    log(f"profiled request: device busy {busy_us / 1e3:.3f} ms of "
-        f"{prof_wall * 1e3:.3f} ms wall")
-    log(events.table(sort_by="self_cuda_time_total", row_limit=15,
-                     max_name_column_width=60))
+    from mst_torch.runtime.metrics import profiler_trace
+    from mst_torch.runtime.profile import model_scopes, summarize
+
     # phase 12's counts: the 12-job request and the 1 x 1 request on the
     # card, each in a run of its own (counting slows the run it counts)
-    counts = {"wall_s": wall, "busy_s": busy_us / 1e6}
+    counts = {"wall_s": wall, "dir": os.path.join(tmp, "gpu"),
+              "children": [n for n, _ in bundle.model.named_children()]}
     with MatmulFlops() as count:
         transfer_styles(bundle, comps, styles, os.path.join(tmp, "counted"))
     counts["request"] = count.total
+
+    # a warm-up request under the tracer, out of the trace (a kernel's first
+    # launch after the tracer starts can lose its device record), then the
+    # profiled one; phase 13 reads the trace
+    trace = os.path.join(tmp, "trace_request")
+
+    def take():
+        with profiler_trace(trace) as end_warmup, \
+                model_scopes(bundle.model):
+            transfer_styles(bundle, comps, styles,
+                            os.path.join(tmp, "prof_warm"))
+            torch.cuda.synchronize()
+            end_warmup()
+            t0 = time.perf_counter()
+            transfer_styles(bundle, comps, styles, os.path.join(tmp, "prof"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return summarize(trace, 1, flops=count.total,
+                         peak_flops=device_peak_flops("float32"),
+                         device="cuda"), wall
+
+    t_trace = time.perf_counter()
+    counts["summary"], prof_wall = complete_trace("profiled request", take)
+    counts["trace_s"] = time.perf_counter() - t_trace - prof_wall
+    counts["busy_s"] = counts["summary"]["busy_ms_per_step"] / 1e3
+    log(f"profiled request: device busy {counts['busy_s'] * 1e3:.3f} ms of "
+        f"{prof_wall * 1e3:.3f} ms wall (phase 13 splits it)")
     with MatmulFlops() as count:
         transfer_styles(bundle, comps[:1], styles[:1],
                         os.path.join(tmp, "pair_counted"))
@@ -1271,13 +1334,12 @@ def phase_train(torch, paths, tmp, bf16=False):
     batch-6 steps, with the launch counters at 0 first; with ``bf16``
     under bf16 storage and bf16 compute. Returns (the launches of the run,
     its summary for the other run's comparison)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mst_torch.config import Config, ModelConfig
     from mst_torch.runtime import train as tr
     from mst_torch.runtime.checkpoint import CheckpointManager
-    from mst_torch.runtime.flops import MatmulFlops
-    from mst_torch.runtime.metrics import StepTimer
+    from mst_torch.runtime.flops import MatmulFlops, device_peak_flops
+    from mst_torch.runtime.metrics import StepTimer, profiler_trace
+    from mst_torch.runtime.profile import StageTimer, model_scopes, summarize
     from mst_torch.transfer import get_model_input
 
     tr.reproducible_backends()        # as train-model-torch.py runs
@@ -1320,21 +1382,15 @@ def phase_train(torch, paths, tmp, bf16=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    # batch-1 steps 1-7 (the first two a warm-up, out of the mean), step 8
-    # under the profiler, the two batch-6 steps
+    # batch-1 steps 1-8 (the first two a warm-up, out of the mean), the two
+    # batch-6 steps
     timers = {"batch-1": StepTimer(warmup=2, device="cuda"),
-              "profiled": StepTimer(warmup=0, device="cuda"),
               "batch-6": StepTimer(warmup=0, device="cuda")}
+    save_timer = StageTimer("cuda")       # phase 13 prints the save's time
     losses, first_grads, counted = [], None, []
     t_run = time.perf_counter()
     for i, (kind, build) in enumerate(plan):
-        if i == 7:       # the last batch-1 micro-step runs under the profiler
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                with timers["profiled"]:
-                    vec, has_u = run_step(state, build, "cuda")
-            busy_us = device_busy_us(prof.key_averages())
-        elif i < 2:      # the warm-up steps are counted (phase 12)
+        if i < 2:      # the warm-up steps are counted (phase 12)
             with timers[kind], MatmulFlops() as count:
                 vec, has_u = run_step(state, build, "cuda")
             counted.append(count.total)
@@ -1347,7 +1403,8 @@ def phase_train(torch, paths, tmp, bf16=False):
                            for n, p in state.model.named_parameters()
                            if p.grad is not None}
         if state.micro_step == 4:
-            ckpt.save(4, state, cursor=4)
+            with save_timer("checkpoint save"):
+                ckpt.save(4, state, cursor=4)
     run_wall = time.perf_counter() - t_run
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1364,13 +1421,40 @@ def phase_train(torch, paths, tmp, bf16=False):
                              f"{state.opt_step} after 10 micro-steps")
     b1_timer = timers["batch-1"]
     b1, b6 = b1_timer.times[b1_timer.warmup:], timers["batch-6"].times
-    prof_wall = timers["profiled"].times[0]
+
+    # a traced pair of batch-1 micro-steps from this state, on the songs of
+    # the counted steps 1 and 2 (the first applies Adam), after one on the
+    # first song that warms the tracer up; phases 12 and 13 read it
+    pair_trace = os.path.join(tmp, "trace_pair_bf16" if bf16
+                              else "trace_pair")
+    def take():
+        with profiler_trace(pair_trace) as end_warmup, \
+                model_scopes(state.model):
+            run_step(state, plan[0][1], "cuda")      # the tracer's warm-up
+            torch.cuda.synchronize()
+            end_warmup()
+            t0 = time.perf_counter()
+            for _, build in plan[:2]:
+                run_step(state, build, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return summarize(
+            pair_trace, 2, flops=counted[0] + counted[1],
+            peak_flops=device_peak_flops(config.model.compute_dtype),
+            device="cuda"), wall
+
+    t_pair = time.perf_counter()
+    pair, pair_wall = complete_trace(f"{label}: traced pair", take)
+    busy_ms = pair["busy_ms_per_step"] * 2
     summary = dict(b1_ms=b1_timer.mean * 1e3, b6_ms=[dt * 1e3 for dt in b6],
-                   busy=busy_us / 1e3 / (prof_wall * 1e3), peak_gib=peak,
-                   # phase 12: steps 7 and 8 run the songs of the counted
-                   # steps 1 and 2: step 7 timed, step 8 profiled
+                   busy=busy_ms / (pair_wall * 1e3), peak_gib=peak,
+                   # phase 12: step 7 runs the song of the counted step 1;
+                   # the pair, those of steps 1 and 2
                    flops=counted, step7_s=b1_timer.times[6],
-                   step8_busy_s=busy_us / 1e6,
+                   pair=pair, pair_busy_s=busy_ms / 1e3,
+                   pair_s=time.perf_counter() - t_pair,
+                   children=[n for n, _ in state.model.named_children()],
+                   save_ms=save_timer.times["checkpoint save"] * 1e3,
                    compute_dtype=config.model.compute_dtype)
     log(f"{label}: {n_params} parameters, 10 micro-steps in "
         f"{run_wall:.3f} s, launches {launches}, peak device memory "
@@ -1382,10 +1466,8 @@ def phase_train(torch, paths, tmp, bf16=False):
         f"{b6[1] * 1e3:.3f}")
     log(f"  losses per step (total): "
         f"{[round(v[0].item(), 6) for v, _ in losses]}")
-    log(f"  profiled batch-1 step: device busy {busy_us / 1e3:.3f} ms of "
-        f"{prof_wall * 1e3:.3f} ms wall ({busy_us / 1e3 / (prof_wall * 1e3):.1%})")
-    log(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                  row_limit=12, max_name_column_width=60))
+    log(f"  traced pair of batch-1 steps: device busy {busy_ms:.3f} ms of "
+        f"{pair_wall * 1e3:.3f} ms wall ({summary['busy']:.1%})")
 
     # the first step on the CPU, from the same seed and the same song
     t0 = time.perf_counter()
@@ -1962,7 +2044,7 @@ def phase_flops(serve, fp32, bf16, smi):
     """Phase 12: each count of the card's route against the same work's
     count on the CPU's (equal integers, or the run fails), and the MFU of
     each count over the wall and the device time phases 5, 7 and 8
-    measured."""
+    measured (device time: ``summarize`` of their traces)."""
     from mst_torch.runtime.flops import device_peak_flops
 
     pairs = [("1 x 1 request", serve["pair_gpu"], serve["pair_cpu"]),
@@ -1982,9 +2064,9 @@ def phase_flops(serve, fp32, bf16, smi):
         rows.append((f"batch-1 {name} micro-step (step 1 counted, step 7 "
                      f"timed)", run["flops"][0], run["compute_dtype"],
                      run["step7_s"], None))
-        rows.append((f"batch-1 {name} micro-step (step 2 counted, step 8 "
-                     f"profiled)", run["flops"][1], run["compute_dtype"],
-                     None, run["step8_busy_s"]))
+        rows.append((f"batch-1 {name} micro-step pair (steps 1 and 2 "
+                     f"counted, their songs traced)", sum(run["flops"]),
+                     run["compute_dtype"], None, run["pair_busy_s"]))
     for label, n, dtype, wall_s, busy_s in rows:
         peak = device_peak_flops(dtype)
         by = [f"{kind} {seconds * 1e3:.3f} ms: MFU {n / seconds / peak:.4e}"
@@ -1992,6 +2074,110 @@ def phase_flops(serve, fp32, bf16, smi):
               if seconds is not None]
         log(f"phase 12: {label}: {n} matmul FLOPs ({n:.4e}); peak "
             f"{peak:.4g} FLOP/s ({dtype}); {'; '.join(by)} ({smi})")
+
+
+def phase_profile(torch, serve, fp32, bf16, comps, styles, tmp, smi):
+    """Phase 13: the summaries of phase 5's and phase 7's traces, and the
+    stage tool on the smoke request."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    cases = (("12-job request", serve["summary"], serve["children"],
+              ("[fwd]",), OTHER_SHARE_MAX["request"],
+              {"K1": 2, "K2": 1, "K3": 0}),
+             ("batch-1 fp32 micro-step (pair)", fp32["pair"],
+              fp32["children"], ("[fwd]", "[bwd]"),
+              OTHER_SHARE_MAX["micro-step"], {"K1": 2, "K2": 1, "K3": 1}))
+    for label, s, children, phases, other_max, want in cases:
+        busy = s["busy_ms_per_step"]
+        comps_ms, cats_ms = s["by_component_ms"], s["by_category_ms"]
+        got = {k: s["by_category_launches"].get(k, 0) for k in want}
+        others = {k: round(v, 3) for k, v in comps_ms.items()
+                  if k.startswith("other")}
+        other_share = sum(others.values()) / busy
+        lost = s["unrecorded_launches"]
+        log(f"phase 13: {label}: busy {busy:.3f} ms a step; components sum "
+            f"to {sum(comps_ms.values()):.3f}, categories to "
+            f"{sum(cats_ms.values()):.3f}; other {others} "
+            f"({other_share:.1%}, at most {other_max:.0%}); K launches a "
+            f"step {got}; launches without a device record {lost}; "
+            f"{s['model_gflops_per_step']:.3f} GFLOPs a step, matmul "
+            f"{s['matmul_fraction_of_peak']:.4e} of the fp32 peak by device "
+            f"time ({smi})")
+        log(f"  components (ms a step): "
+            f"{ {k: round(v, 3) for k, v in comps_ms.items()} }")
+        log("  top categories (ms a step, share, launches a step): "
+            + "; ".join(f"{k} {v:.3f} ({v / busy:.1%}, "
+                        f"{s['by_category_launches'][k]:g})"
+                        for k, v in list(cats_ms.items())[:5]) + f" ({smi})")
+        log(f"  all categories (ms a step): "
+            f"{ {k: round(v, 3) for k, v in cats_ms.items()} }")
+        for gap in s["idle_gaps"][:5]:
+            log(f"  idle gap {gap['ms']:.3f} ms at {gap['at_ms']:.3f} ms: "
+                f"host in {gap['host'][-160:]} ({smi})")
+        top_ops = list(s["top_ops_ms"].items())[:8]
+        log(f"  top ops (ms a step): "
+            f"{ {k: round(v, 3) for k, v in top_ops} }")
+        for key, values in (("components", comps_ms),
+                            ("categories", cats_ms)):
+            total = sum(values.values())
+            if not abs(total - busy) <= PROFILE_SUM_RTOL * busy:
+                raise AssertionError(f"phase 13: {label}: {key} sum to "
+                                     f"{total} ms, busy {busy} ms")
+        if got != want:
+            raise AssertionError(f"phase 13: {label}: K launches {got}, "
+                                 f"want {want}; launches without a device "
+                                 f"record in the trace: {lost}")
+        missing = [f"StyleTransferModel.{name} {phase}" for name in children
+                   for phase in phases
+                   if f"StyleTransferModel.{name} {phase}" not in comps_ms]
+        if missing:
+            raise AssertionError(f"phase 13: {label}: no device time in "
+                                 f"{missing}")
+        if not other_share <= other_max:
+            raise AssertionError(f"phase 13: {label}: {other_share:.1%} of "
+                                 f"the busy time in no model component "
+                                 f"(at most {other_max:.0%})")
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_transfer_torch",
+        os.path.join(ROOT, "tools", "profile_transfer_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = os.path.join(tmp, "stages")
+    result = tool.main(["--device", "cuda", "--rounds", "3", "--out", out,
+                        "--compositions", *comps, "--styles", *styles])
+    total, staged = result["stage_sum_ms"], result["staged_ms"]
+    if not abs(total - staged) <= STAGE_SUM_RTOL * staged:
+        raise AssertionError(f"phase 13: stages sum to {total} ms of a "
+                             f"{staged} ms staged round")
+
+    def contents(root):
+        files = {}
+        for name in mid_files(root):
+            with open(os.path.join(root, name), "rb") as fh:
+                files[name] = fh.read()
+        return files
+
+    want_files = contents(serve["dir"])
+    for r in range(3):
+        if contents(os.path.join(out, f"staged_{r}")) != want_files:
+            raise AssertionError(f"phase 13: the stage tool's round {r} "
+                                 f"wrote other files than phase 5's request")
+    log(f"phase 13: stage tool: stages sum to {total:.3f} of {staged:.3f} "
+        f"ms a staged round ({total / staged:.1%}); transfer_styles "
+        f"{result['request_ms']:.3f} ms; {len(want_files)} files byte-equal "
+        f"to phase 5's request in each of 3 rounds ({smi})")
+    log(f"phase 13: checkpoint save after phase 7's step 4 (StageTimer): "
+        f"{fp32['save_ms']:.3f} ms fp32, {bf16['save_ms']:.3f} ms under the "
+        f"bf16 policies ({smi})")
+    phase_s = time.perf_counter() - t_phase
+    added = phase_s + fp32["pair_s"] + serve["trace_s"]
+    log(f"phase 13: {phase_s:.1f} s, plus {fp32['pair_s']:.1f} s for phase "
+        f"7's traced pair and its summary and {serve['trace_s']:.1f} s for "
+        f"phase 5's tracer warm-up, scopes, export and summary: "
+        f"{added:.1f} s in all (phase 8's traced pair: "
+        f"{bf16['pair_s']:.1f} s)")
 
 
 def main():
@@ -2036,7 +2222,9 @@ def main():
         parallel = phase_parallel(torch, comps[:1] + styles[:1], tmp, smi)
         torch.cuda.empty_cache()
         seq = phase_seq(torch, comps[:1] + styles[:1], tmp, smi)
-    phase_flops(serve_flops, fp32, bf16, smi)
+        phase_flops(serve_flops, fp32, bf16, smi)
+        phase_profile(torch, serve_flops, fp32, bf16, comps, styles, tmp,
+                      smi)
     log(f"training, bf16 storage and compute against fp32 (one call): "
         f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
         f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "

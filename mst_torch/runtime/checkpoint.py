@@ -13,6 +13,7 @@ iterator's position beside it in ``cursor_<step>.json``; the newest
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 from typing import Optional
@@ -39,12 +40,49 @@ def state_dict_of(state: TrainState) -> dict:
     }
 
 
+def _load_step_lr(state: TrainState, saved: dict, opt_step: int) -> None:
+    """Take a ``StepLR`` state, as older checkpoints hold it, into the
+    state's ``LambdaLR``: its step count, which must equal ``opt_step``,
+    and each param group's rate from the schedule at that step, so the
+    next ``apply_updates`` uses the rate an uninterrupted run would. The
+    saved decay must be the one the schedule follows."""
+    scheduler = state.scheduler
+    last = int(saved["last_epoch"])
+    if last != opt_step:
+        raise ValueError(f"StepLR state at step {last}, checkpoint at "
+                         f"optimizer step {opt_step}")
+    step_size, gamma = int(saved["step_size"]), float(saved["gamma"])
+    for factor in scheduler.lr_lambdas:
+        for k in (0, step_size - 1, step_size, last):
+            if not math.isclose(factor(k), gamma ** (k // step_size),
+                                rel_tol=1e-9):
+                raise ValueError(f"StepLR({step_size}, {gamma}) state: the "
+                                 f"schedule in force decays otherwise")
+    scheduler.base_lrs = list(saved["base_lrs"])
+    scheduler.last_epoch = last
+    scheduler._step_count = int(saved.get("_step_count", last + 1))
+    rates = [base * factor(last) for base, factor
+             in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, rate in zip(state.optimizer.param_groups, rates):
+        group["lr"] = rate
+    scheduler._last_lr = rates
+
+
 def load_state_dict_into(state: TrainState, saved: dict) -> TrainState:
     """Load ``state_dict_of``'s output into ``state`` (in place, on the
-    state's devices) and return it."""
+    state's devices) and return it. A scheduler state is the ``LambdaLR``'s
+    or the ``StepLR``'s of older checkpoints (``_load_step_lr``); any other
+    raises."""
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
-    state.scheduler.load_state_dict(saved["scheduler"])
+    scheduler = saved["scheduler"]
+    if "lr_lambdas" in scheduler:
+        state.scheduler.load_state_dict(scheduler)
+    elif {"step_size", "gamma", "last_epoch", "base_lrs"} <= set(scheduler):
+        _load_step_lr(state, scheduler, int(saved["opt_step"]))
+    else:
+        raise ValueError(f"unknown scheduler state, keys "
+                         f"{sorted(scheduler)}")
     for name, p in state.model.named_parameters():
         p.grad = saved["accum_grads"][name].to(p.device, p.dtype).clone()
     state.micro_step = int(saved["micro_step"])

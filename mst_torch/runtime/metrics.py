@@ -7,7 +7,8 @@ training.csv, one row per iteration, header on create). The progress line
 is written to stderr by hand (the machine with the GPU has no ``tqdm``);
 ``save_to_csv`` is the append mode of mst_tpu/utils/data.py's.
 ``profiler_trace`` records a ``torch.profiler`` trace of the steps it
-wraps; ``StepTimer`` times steps on the host clock, waiting for the card.
+wraps (read by ``runtime.profile.summarize``); ``StepTimer`` times steps
+on the host clock, waiting for the card.
 """
 
 from __future__ import annotations
@@ -177,21 +178,47 @@ class StepTimer:
 @contextlib.contextmanager
 def profiler_trace(log_dir: str):
     """torch.profiler trace of the wrapped steps, written to
-    ``log_dir/trace.json`` (a Chrome trace) with a per-kernel table in
-    ``log_dir/kernels.txt``."""
+    ``log_dir/trace.json``, a Chrome trace that ``runtime.profile.summarize``
+    and tools/parse_profile_torch.py read. The block gets a ``step()`` that
+    the caller calls after one warm-up step: the warm-up runs under the
+    tracer but stays out of the trace, and the trace holds what follows.
+    The warm-up should be a step of the traced kind. A trace without one
+    can lose the device record of a kernel launched near its start: on an
+    H100, a K1 launch in 2 of 4 traces of two micro-steps, and as often
+    after a warm-up of one small kernel, but in none of 4 after one
+    warm-up micro-step;
+    ``runtime.profile.summarize`` counts such launches as
+    ``unrecorded_launches``. A block that never calls ``step()`` raises,
+    since its trace would hold nothing. The profiler's own per-op table is
+    not built: ``key_averages()`` took 5.3 s of Python over the 97k events
+    of one full-width micro-step traced on a CPU."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-        if torch.cuda.is_available():
+
+    def write(prof):
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+    warmed = []
+
+    def step():
+        if warmed:
+            raise RuntimeError("profiler_trace: step() ends the one warm-up "
+                               "step; call it once")
+        warmed.append(True)
+        prof.step()
+
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1 << 30),
+                 on_trace_ready=write) as prof:
+        yield step
+        if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-    sort = ("self_cuda_time_total" if torch.cuda.is_available()
-            else "self_cpu_time_total")
-    with open(os.path.join(log_dir, "kernels.txt"), "w") as fh:
-        fh.write(prof.key_averages().table(sort_by=sort, row_limit=30))
+        if not warmed:
+            raise RuntimeError("profiler_trace: step() was not called after "
+                               "the warm-up step: the trace would be empty")

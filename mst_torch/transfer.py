@@ -40,7 +40,9 @@ process has set, so its packed outputs stay those of the fp32 path
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
@@ -225,6 +227,26 @@ def _compact(word, n_channels, n_bars):
     return counts, nz[:, 1], flat[nz[:, 0], nz[:, 1]]
 
 
+# the stages of a request that ``transfer_styles(..., stage=timer)`` times,
+# by tools/profile_transfer.py's names; 2a and 6a are split out of 2 and 6
+STAGE_INGEST = "1 ingest (read_midi+get_input)"
+STAGE_EXTRACT_DISPATCH = "2 extract dispatch"
+STAGE_NOTE_RECORDS = "2a note-record prep (out of 2)"
+STAGE_EXTRACT_BLOCK = "3 extract block"
+STAGE_ORIGINALS = "4 originals decode+write"
+STAGE_APPLY = "5 apply dispatch+fetch"
+STAGE_STYLED = "6 styled decode+write"
+STAGE_PACKED_DECODE = "6a packed-job decode (out of 6)"
+REQUEST_STAGES = (STAGE_INGEST, STAGE_EXTRACT_DISPATCH, STAGE_NOTE_RECORDS,
+                  STAGE_EXTRACT_BLOCK, STAGE_ORIGINALS, STAGE_APPLY,
+                  STAGE_STYLED, STAGE_PACKED_DECODE)
+
+
+def _untimed(name: str, sync: bool = True):
+    """The ``stage`` of a request that nobody times."""
+    return contextlib.nullcontext()
+
+
 def ingest_map(fn, paths):
     """Map ingestion over paths: threaded when the host has cores to spare
     (parsing/quantization release the GIL inside numpy and the C++ codec),
@@ -260,12 +282,12 @@ class LatentBatch:
 
 
 def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
-                    has_unpitched: bool):
+                    has_unpitched: bool, stage=_untimed):
     """Device inputs of one extraction batch (mst_tpu's _extract_inputs):
     every song's quantized note records are offset into one flat row space
     (song b = channel block b*Cb..), so one scatter materializes the whole
     (B, Cb, Rb, ...) raster batch. Returns (inputs dict, per-song real bar
-    counts)."""
+    counts). ``stage`` times the note-record prep."""
     dev = bundle.device
     B = len(songs)
     caps = [1000 // s.n_channels for s in songs]
@@ -275,18 +297,20 @@ def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
     Rb = _bucket(max(Rs), BAR_BUCKETS)
 
     def records(pitched):
-        parts = []
-        for b, song in enumerate(songs):
-            rasterizer = Rasterizer(song.info)
-            note_arrays = (song.pitched_notes if pitched
-                           else song.unpitched_notes)
-            n_channels = Cb if pitched else 1
-            for c, n in enumerate(note_arrays[:n_channels]):
-                q = rasterizer.quantize(n, pitched)
-                parts.append(encode_notes(
-                    rasterizer, q, b * n_channels + c, pitched,
-                    B * n_channels, Rb, valid_bars=Rs[b]))
-        return concat_and_pad(parts).to(dev)
+        with stage(STAGE_NOTE_RECORDS, sync=False):
+            parts = []
+            for b, song in enumerate(songs):
+                rasterizer = Rasterizer(song.info)
+                note_arrays = (song.pitched_notes if pitched
+                               else song.unpitched_notes)
+                n_channels = Cb if pitched else 1
+                for c, n in enumerate(note_arrays[:n_channels]):
+                    q = rasterizer.quantize(n, pitched)
+                    parts.append(encode_notes(
+                        rasterizer, q, b * n_channels + c, pitched,
+                        B * n_channels, Rb, valid_bars=Rs[b]))
+            recs = concat_and_pad(parts)
+        return recs.to(dev)
 
     instf = np.zeros((B, Cb, songs[0].instruments_features.shape[-1]),
                      np.float32)
@@ -333,11 +357,12 @@ def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
                                uchannel_mask=umask)
 
 
-def extract_styles(bundle: ModelBundle, songs: Sequence[Song]):
+def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
+                   stage=_untimed):
     """Batched latent extraction: songs are grouped by (beats-per-bar,
     percussion presence), and each group is one bucket-padded batch. Returns
     (batches, locators): a list of LatentBatch plus, per input song, its
-    (batch_index, row)."""
+    (batch_index, row). ``stage``: as ``transfer_styles``'."""
     group_keys = {}
     group_members = []
     locators = [None] * len(songs)
@@ -350,7 +375,7 @@ def extract_styles(bundle: ModelBundle, songs: Sequence[Song]):
     batches = []
     for (T, has_unpitched), members in zip(group_keys, group_members):
         inputs, Rs = _extract_inputs(bundle, [songs[i] for i in members], T,
-                                     has_unpitched)
+                                     has_unpitched, stage)
         with bundle.policy(bundle.extract_storage_dtype):
             style, melody, rhythm = _raster_extract_latents(bundle.model,
                                                             **inputs)
@@ -487,10 +512,8 @@ def save_channels(rasterizer: Rasterizer, pitched_channels, unpitched_channels,
             "channel_id": 9, "instrument_id": -1, "messages": messages,
         })
 
-    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
-    mid = create_midi(rasterizer.info.as_create_midi_info(),
-                      *instruments_data, max_delta_time=1)
-    native.write_midi_file(save_path, mid)
+    _write_midi(create_midi(rasterizer.info.as_create_midi_info(),
+                            *instruments_data, max_delta_time=1), save_path)
 
 
 def save_packed_channels(rasterizer: Rasterizer, packed_p, packed_u,
@@ -516,10 +539,8 @@ def save_packed_channels(rasterizer: Rasterizer, packed_p, packed_u,
             "channel_id": 9, "instrument_id": -1,
             "messages": rasterizer.qnotes_to_messages(q, pitched=False),
         })
-    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
-    mid = create_midi(rasterizer.info.as_create_midi_info(),
-                      *instruments_data, max_delta_time=1)
-    native.write_midi_file(save_path, mid)
+    _write_midi(create_midi(rasterizer.info.as_create_midi_info(),
+                            *instruments_data, max_delta_time=1), save_path)
 
 
 def _decode_packed_job(info: SongInfo, header: np.ndarray, picked_all,
@@ -527,6 +548,20 @@ def _decode_packed_job(info: SongInfo, header: np.ndarray, picked_all,
                        T: int, save_path: str) -> None:
     """Decode one job's records (one ``apply_jobs`` view) to a .mid file
     (mst_tpu/transfer.py:1140-1192)."""
+    _write_midi(_packed_job_midi(info, header, picked_all, rec_p, rec_u, Cb,
+                                 Rb, T), save_path)
+
+
+def _write_midi(mid, save_path: str) -> None:
+    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+    native.write_midi_file(save_path, mid)
+
+
+def _packed_job_midi(info: SongInfo, header: np.ndarray, picked_all,
+                     rec_p: np.ndarray, rec_u: np.ndarray, Cb: int, Rb: int,
+                     T: int):
+    """The MIDI object of one job's records: ``_decode_packed_job``
+    without the write. Sets ``info``'s tempo and scale from the header."""
     info.tempo = bpm2tempo(int(header[0]))
     info.scale = Scale(tonic=info.scale.tonic, is_minor=bool(header[1] == 1))
     rasterizer = Rasterizer(info)
@@ -569,10 +604,8 @@ def _decode_packed_job(info: SongInfo, header: np.ndarray, picked_all,
             "channel_id": 9, "instrument_id": -1,
             "messages": rasterizer.qnotes_to_messages(qnotes_u[0], False),
         })
-    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
-    mid = create_midi(rasterizer.info.as_create_midi_info(),
-                      *instruments_data, max_delta_time=1)
-    native.write_midi_file(save_path, mid)
+    return create_midi(rasterizer.info.as_create_midi_info(),
+                       *instruments_data, max_delta_time=1)
 
 
 def apply_style(bundle: ModelBundle, info: SongInfo, style, melody, rhythm,
@@ -630,18 +663,27 @@ def transfer_style(bundle: ModelBundle, composition_path, style_paths,
 
 
 def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
-                    output_path) -> List[str]:
+                    output_path, stage=None) -> List[str]:
     """Batched transfer_style over many compositions (same per-song outputs
     and file layout as mst_tpu.transfer.transfer_styles).
 
     All compositions and styles are latent-extracted in batches grouped by
     (beats-per-bar, percussion presence); all (reconstructed + styled) apply
-    jobs of one composition group run as one batch."""
+    jobs of one composition group run as one batch. The originals' decode
+    overlaps the first group's apply.
+
+    ``stage``: a ``runtime.profile.StageTimer`` that times the request by
+    ``REQUEST_STAGES`` (tools/profile_transfer_torch.py). The originals
+    are then decoded alone, between the extraction and the apply, so that
+    no stage hides another; the files are the same."""
     strict_fp32()
+    timed = stage is not None
+    stage = stage or _untimed
     all_paths = list(composition_paths) + list(style_paths)
     if not all_paths:
         return []
-    loaded = list(ingest_map(get_model_input, all_paths))
+    with stage(STAGE_INGEST):
+        loaded = list(ingest_map(get_model_input, all_paths))
     bad = [p for p, s in zip(all_paths, loaded) if s is None]
     if bad:
         raise MidiFormatError(
@@ -650,8 +692,80 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     comps = songs[:len(composition_paths)]
     style_songs = songs[len(composition_paths):]
 
-    with torch.inference_mode():
-        batches, locators = extract_styles(bundle, comps + style_songs)
+    with stage(STAGE_EXTRACT_DISPATCH, sync=False), torch.inference_mode():
+        batches, locators = extract_styles(bundle, comps + style_songs,
+                                           stage)
+    names, style_names = song_names(composition_paths), song_names(style_paths)
+    host_work = functools.partial(write_originals, comps, style_songs, names,
+                                  style_names, output_path)
+    if timed:
+        with stage(STAGE_EXTRACT_BLOCK):
+            pass                      # the extraction's device work
+        with stage(STAGE_ORIGINALS):
+            host_work()
+        host_work = None
+    with stage(STAGE_APPLY):
+        style_mat, jobs_per_group, written = plan_jobs(
+            comps, style_songs, batches, locators, names, style_names,
+            output_path)
+    for g, jobs in jobs_per_group.items():
+        s_idx, c_idx, infos, n_inst, bars, paths = zip(*jobs)
+        rhythm = batches[g].rhythm
+        with stage(STAGE_APPLY), torch.inference_mode():
+            views, Cb = apply_jobs(bundle, list(infos), style_mat,
+                                   batches[g].melody, rhythm, s_idx, c_idx,
+                                   n_inst, bars, host_work=host_work)
+        host_work = None
+        for info, view, path in zip(infos, views, paths):
+            with stage(STAGE_PACKED_DECODE):
+                mid = _packed_job_midi(info, *view, Cb, rhythm.shape[1],
+                                       rhythm.shape[2])
+            with stage(STAGE_STYLED):
+                _write_midi(mid, path)
+    if host_work is not None:  # no apply jobs at all
+        host_work()
+    return written
+
+
+def song_names(paths) -> List[str]:
+    """Each path's file name without its extension: the output names."""
+    return [os.path.splitext(os.path.basename(str(p)))[0] for p in paths]
+
+
+def write_originals(comps: Sequence[Song], style_songs: Sequence[Song],
+                    names, style_names, output_path) -> None:
+    """Host-side decode of the ingested songs to ``transfer_styles``'
+    original/ files: each composition's, and each style's once per
+    composition (decoded once, then copied byte for byte)."""
+    style_original_bytes = [None] * len(style_songs)
+    for i, comp in enumerate(comps):
+        out_dir = os.path.join(str(output_path), names[i])
+        original = os.path.join(out_dir, f"original/{names[i]}.mid")
+        save_channels(Rasterizer(comp.info), comp.pitched, comp.unpitched,
+                      comp.instruments, original)
+        for j, style_song in enumerate(style_songs):
+            path = os.path.join(out_dir, f"original/{style_names[j]}.mid")
+            if style_original_bytes[j] is None:
+                save_channels(Rasterizer(style_song.info),
+                              style_song.pitched, style_song.unpitched,
+                              style_song.instruments, path)
+                with open(path, "rb") as fh:
+                    style_original_bytes[j] = fh.read()
+            else:
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                with open(path, "wb") as fh:
+                    fh.write(style_original_bytes[j])
+
+
+def plan_jobs(comps: Sequence[Song], style_songs: Sequence[Song],
+              batches: Sequence[LatentBatch], locators, names, style_names,
+              output_path):
+    """``transfer_styles``' apply jobs, grouped by the composition's latent
+    batch (which fixes Rb and T): each composition's reconstruction, then
+    one job per style. Returns ``(style_mat, jobs_per_group, written)``:
+    the style vectors of every batch as one matrix, ``{group: [(style
+    row, composition row, info, n_instruments, n_bars, path), ...]}``, and
+    every path the request writes, in its return order."""
     comp_loc = locators[:len(comps)]
     style_loc = locators[len(comps):]
     # global style-vector matrix: batch g's rows start at style_offset[g]
@@ -661,37 +775,7 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     def style_row(loc):
         return int(style_offset[loc[0]]) + loc[1]
 
-    names = [os.path.splitext(os.path.basename(str(p)))[0]
-             for p in composition_paths]
-    style_names = [os.path.splitext(os.path.basename(str(p)))[0]
-                   for p in style_paths]
-
-    def decode_originals():
-        """Host-side decode of the ingested tensors to the original/ files."""
-        style_original_bytes = [None] * len(style_songs)
-        for i, comp in enumerate(comps):
-            out_dir = os.path.join(str(output_path), names[i])
-            original = os.path.join(out_dir, f"original/{names[i]}.mid")
-            save_channels(Rasterizer(comp.info), comp.pitched, comp.unpitched,
-                          comp.instruments, original)
-            for j, style_song in enumerate(style_songs):
-                path = os.path.join(out_dir, f"original/{style_names[j]}.mid")
-                if style_original_bytes[j] is None:
-                    # decode each style original ONCE; later comps copy bytes
-                    save_channels(Rasterizer(style_song.info),
-                                  style_song.pitched, style_song.unpitched,
-                                  style_song.instruments, path)
-                    with open(path, "rb") as fh:
-                        style_original_bytes[j] = fh.read()
-                else:
-                    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-                    with open(path, "wb") as fh:
-                        fh.write(style_original_bytes[j])
-
-    written_per_comp = [[os.path.join(str(output_path), names[i],
-                                      f"original/{names[i]}.mid")]
-                        for i in range(len(comps))]
-    # apply jobs, grouped by the composition's latent batch (shared Rb/T)
+    written = []
     jobs_per_group = {}
     for i, comp in enumerate(comps):
         g, row = comp_loc[i]
@@ -702,7 +786,8 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
         jobs.append((style_row(comp_loc[i]), row, comp.info,
                      len(comp.instruments), batches[g].n_bars[row],
                      reconstructed))
-        written_per_comp[i].append(reconstructed)
+        written += [os.path.join(out_dir, f"original/{names[i]}.mid"),
+                    reconstructed]
         for j, style_song in enumerate(style_songs):
             info = combine_info(style_info=style_song.info,
                                 melody_info=comp.info)
@@ -711,25 +796,9 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
             jobs.append((style_row(style_loc[j]), row, info,
                          len(style_song.instruments),
                          batches[g].n_bars[row], path))
-            written_per_comp[i].append(
-                os.path.join(out_dir, f"original/{style_names[j]}.mid"))
-            written_per_comp[i].append(path)
-
-    host_work = decode_originals
-    for g, jobs in jobs_per_group.items():
-        s_idx, c_idx, infos, n_inst, bars, paths = zip(*jobs)
-        rhythm = batches[g].rhythm
-        with torch.inference_mode():
-            views, Cb = apply_jobs(bundle, list(infos), style_mat,
-                                   batches[g].melody, rhythm, s_idx, c_idx,
-                                   n_inst, bars, host_work=host_work)
-        host_work = None
-        for b, view in enumerate(views):
-            _decode_packed_job(infos[b], *view, Cb, rhythm.shape[1],
-                               rhythm.shape[2], paths[b])
-    if host_work is not None:  # no apply jobs at all
-        host_work()
-    return [p for per_comp in written_per_comp for p in per_comp]
+            written += [os.path.join(out_dir,
+                                     f"original/{style_names[j]}.mid"), path]
+    return style_mat, jobs_per_group, written
 
 
 def transfer_and_evaluate(bundle: ModelBundle, composition_path, style_paths,

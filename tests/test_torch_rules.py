@@ -1,8 +1,9 @@
 """Ground rules of the port, checked on the CPU.
 
-- ``mst_torch``, ``chip_smoke.py`` and the port's CLIs (``*-torch.py``)
-  import neither JAX, flax, optax, orbax, tqdm nor anything of
-  ``mst_tpu``: the machine with the GPU has none of them.
+- ``mst_torch``, ``chip_smoke.py``, the port's CLIs (``*-torch.py``) and
+  its tools (``tools/*_torch.py``) import neither JAX, flax, optax,
+  orbax, tqdm nor anything of ``mst_tpu``, nor a tool of the JAX package:
+  the machine with the GPU has none of them.
 - Entry points run on the GPU unless the caller asks for the CPU, and
   raise rather than run quietly on the CPU.
 - A CUDA kernel's wrapper takes its plain version only for CPU tensors;
@@ -22,7 +23,11 @@ from mst_torch.models import StyleTransferModel
 from mst_torch.ops import cuda_build, grid_kernel, raster_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOOLS = os.path.join(ROOT, "tools")
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "tqdm", "mst_tpu")
+# the JAX package's tools, which import it
+JAX_TOOLS = tuple(name[:-3] for name in os.listdir(TOOLS)
+                  if name.endswith(".py") and not name.endswith("_torch.py"))
 # torch itself imports tqdm where it is installed (torch.hub), so the
 # import check below leaves it out; the source check forbids it
 FORBIDDEN_MODULES = tuple(m for m in FORBIDDEN if m != "tqdm")
@@ -36,11 +41,13 @@ def test_import_pulls_in_no_jax():
             "mst_torch.audio, mst_torch.audio.mp3, mst_torch.analysis, "
             "mst_torch.utils, mst_torch.runtime.ref_checkpoint, "
             "mst_torch.parallel, mst_torch.parallel.seq_lstm, "
-            "mst_torch.runtime.flops, mst_torch.ops.flop_scope; "
+            "mst_torch.runtime.flops, mst_torch.ops.flop_scope, "
+            "mst_torch.runtime.profile, parse_profile_torch, "
+            "profile_transfer_torch, profile_transfer_device_torch; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN_MODULES!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join((ROOT, TOOLS)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -67,6 +74,9 @@ def _port_sources():
                  "style-transfer-torch.py", "batch-style-transfer-torch.py",
                  "corpus-stats-torch.py"):
         yield os.path.join(ROOT, name)
+    for name in sorted(os.listdir(TOOLS)):
+        if name.endswith("_torch.py"):
+            yield os.path.join(TOOLS, name)
 
 
 def test_no_source_imports_jax_or_mst_tpu():
@@ -83,6 +93,7 @@ def test_no_source_imports_jax_or_mst_tpu():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
+                assert name.split(".")[-1] not in JAX_TOOLS, (path, name)
         checked += 1
     assert checked > 40
 

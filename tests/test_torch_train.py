@@ -531,10 +531,9 @@ def _csv_rows(path):
         return [{k: v for k, v in row.items()} for row in csv.DictReader(fh)]
 
 
-def test_cli_resume_equals_uninterrupted(tmp_path):
-    """train-model-torch.py --device cpu on 3 synthetic songs: 4 iterations
-    then --resume to 6 gives the losses and snapshot of an uninterrupted
-    run of 6, exactly."""
+def _cli_runner(tmp_path):
+    """train-model-torch.py --device cpu on 3 synthetic songs:
+    ``run(name, iters, resume=False)`` trains into ``tmp_path/name``."""
     sys.path.insert(0, TOOLS)
     from make_corpus import generate_song
     from mst_tpu.io import create_midi, native
@@ -553,10 +552,12 @@ def test_cli_resume_equals_uninterrupted(tmp_path):
                 str(tmp_path / f"{name}.csv"), "--snapshots",
                 str(tmp_path / name), "--seed", "3"]
         return cli.main(args + (["--resume"] if resume else []))
+    return run
 
-    run("full", 6)
-    run("split", 4)
-    resumed = run("split", 6, resume=True)
+
+def _assert_resumed_equals_full(tmp_path, resumed):
+    """The "split" run (4 iterations, then --resume to 6) against the
+    uninterrupted "full" run of 6: the same loss rows and snapshot."""
     assert (resumed.micro_step, resumed.opt_step) == (6, 3)
     full = _csv_rows(tmp_path / "full.csv")
     split = _csv_rows(tmp_path / "split.csv")
@@ -575,6 +576,110 @@ def test_cli_resume_equals_uninterrupted(tmp_path):
         assert torch.equal(value, b["accum_grads"][name]), name
     assert CheckpointManager(str(tmp_path / "full")).load_cursor(4) == \
         CheckpointManager(str(tmp_path / "split")).load_cursor(4)
+
+
+def test_cli_resume_equals_uninterrupted(tmp_path):
+    """train-model-torch.py --device cpu on 3 synthetic songs: 4 iterations
+    then --resume to 6 gives the losses and snapshot of an uninterrupted
+    run of 6, exactly."""
+    run = _cli_runner(tmp_path)
+    run("full", 6)
+    run("split", 4)
+    _assert_resumed_equals_full(tmp_path, run("split", 6, resume=True))
+
+
+def _step_lr_state(opt_step, step_size=200, gamma=0.9):
+    """The state of a ``StepLR(step_size, gamma)`` stepped ``opt_step``
+    times, the scheduler state that checkpoints of the StepLR optimizer
+    hold."""
+    from torch.optim.lr_scheduler import StepLR
+
+    optimizer = torch.optim.Adam([torch.zeros(1)], lr=0.01)
+    scheduler = StepLR(optimizer, step_size=step_size, gamma=gamma)
+    for _ in range(opt_step):
+        optimizer.step()
+        scheduler.step()
+    return scheduler.state_dict(), optimizer.param_groups[0]["lr"]
+
+
+def test_cli_resume_of_a_steplr_checkpoint(tmp_path):
+    """A checkpoint whose scheduler state is StepLR(200, 0.9)'s resumes
+    through --resume: the losses and snapshot of an uninterrupted run,
+    exactly."""
+    from mst_torch.runtime.checkpoint import CheckpointManager
+
+    run = _cli_runner(tmp_path)
+    run("full", 6)
+    run("split", 4)
+    mgr = CheckpointManager(str(tmp_path / "split"))
+    step = mgr.latest_step()
+    saved = mgr.load(step)
+    saved["scheduler"], _ = _step_lr_state(saved["opt_step"])
+    assert "lr_lambdas" not in saved["scheduler"]
+    torch.save(saved, os.path.join(mgr.directory, f"ckpt_{step}.pt"))
+    _assert_resumed_equals_full(tmp_path, run("split", 6, resume=True))
+
+
+@pytest.mark.parametrize("case", ["resumes", "unknown kind", "other step",
+                                  "other decay"])
+def test_steplr_state_takes_the_schedule_rate(model_pair, case):
+    """A StepLR state saved at optimizer step 5 of a schedule that decays
+    every 2 steps: the resumed state's rate is the schedule's at step 5,
+    and one more apply gives the uninterrupted run's parameters and rate,
+    exactly. A scheduler state of another kind, another step count or
+    another decay raises."""
+    import dataclasses
+
+    from torch.optim.lr_scheduler import CosineAnnealingLR
+
+    from mst_torch.runtime.checkpoint import (load_state_dict_into,
+                                              state_dict_of)
+
+    _, params, _, t_config = model_pair
+    config = dataclasses.replace(t_config, train=dataclasses.replace(
+        t_config.train, lr_decay_every=2))
+
+    def state():
+        return ttr.create_train_state(config, device="cpu",
+                                      model=_torch_model(params, config))
+
+    def apply(s):
+        for p in s.model.parameters():
+            p.grad = torch.full_like(p, 0.5)
+        ttr.apply_updates(s)
+
+    full = state()
+    for _ in range(5):
+        apply(full)
+    saved = state_dict_of(full)
+    saved["scheduler"], lr = _step_lr_state(
+        4 if case == "other step" else 5,
+        step_size=3 if case == "other decay" else 2)
+    for group in saved["optimizer"]["param_groups"]:
+        group["lr"] = lr               # the rate StepLR left in the groups
+    if case == "unknown kind":
+        optimizer = torch.optim.Adam([torch.zeros(1)], lr=0.01)
+        saved["scheduler"] = CosineAnnealingLR(optimizer, 10).state_dict()
+    resumed = state()
+    if case != "resumes":
+        with pytest.raises(ValueError):
+            load_state_dict_into(resumed, saved)
+        return
+    load_state_dict_into(resumed, saved)
+    schedule = ttr.make_lr_schedule(config)
+    assert resumed.scheduler.last_epoch == 5
+    assert [g["lr"] for g in resumed.optimizer.param_groups] == \
+        [g["lr"] for g in full.optimizer.param_groups]
+    assert resumed.optimizer.param_groups[0]["lr"] == pytest.approx(
+        schedule(5), rel=1e-12)
+    apply(full)
+    apply(resumed)
+    for (name, a), b in zip(full.model.named_parameters(),
+                            resumed.model.parameters()):
+        assert torch.equal(a, b), name
+    assert resumed.scheduler.get_last_lr() == full.scheduler.get_last_lr()
+    assert resumed.optimizer.param_groups[0]["lr"] == pytest.approx(
+        schedule(6), rel=1e-12)
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):

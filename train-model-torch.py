@@ -52,6 +52,7 @@ mst_torch.ops.seq_context); M must divide every bar bucket a batch takes:
 """
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import os
@@ -77,7 +78,8 @@ def parse_args(argv=None):
                         help="resume from the latest snapshot if present")
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace of iterations "
-                             "10-15")
+                             "11-15 (iteration 10 warms the tracer up), "
+                             "with the model's components annotated")
     parser.add_argument("--batch-size", type=int, default=1,
                         help="songs per step over all ranks (>1: padded "
                              "fixed-shape batch; the reference trains one "
@@ -161,6 +163,7 @@ def train(args, distributed=False):
     from mst_torch.runtime.checkpoint import CheckpointManager
     from mst_torch.runtime.metrics import (CsvLogger, ProgressBar,
                                            flatten_losses, profiler_trace)
+    from mst_torch.runtime.profile import model_scopes
     from mst_torch.transfer import resolve_device
 
     config = Config(train=TrainConfig(n_iterations=args.iters, seed=args.seed,
@@ -367,13 +370,21 @@ def train(args, distributed=False):
                                          mesh=mesh))
         if (args.profile_dir and lead and profile is None
                 and iteration >= 10):
-            profile = profiler_trace(args.profile_dir)
-            profile.__enter__()
+            # this dispatch warms the tracer up; the next 5 iterations are
+            # traced
+            profile = contextlib.ExitStack()
+            end_warmup = profile.enter_context(
+                profiler_trace(args.profile_dir))
+            profile.enter_context(model_scopes(state.model))
+            traced_from = iteration + ksteps
         state, loss_vec = step_fns[key](state, batch)
-        if profile is not None and iteration + ksteps >= 15:
-            profile.__exit__(None, None, None)
-            print(f"profile written to {args.profile_dir}")
-            args.profile_dir, profile = None, None
+        if profile is not None:
+            if iteration + ksteps == traced_from:
+                end_warmup()
+            elif iteration + ksteps >= traced_from + 5:
+                profile.close()
+                print(f"profile written to {args.profile_dir}")
+                args.profile_dir, profile = None, None
 
         # fetch the PREVIOUS call's losses: the copy then waits only for
         # work already queued, not for this step
@@ -396,7 +407,7 @@ def train(args, distributed=False):
     if pending is not None:
         record(*pending)
     if profile is not None:
-        profile.__exit__(None, None, None)
+        profile.close()
     if pbar is not None:
         pbar.close()
     return state
