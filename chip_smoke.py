@@ -32,7 +32,8 @@ Phases (any failure exits non-zero):
    alone; beside K2, its time at the batch-6 training shape (122,880 rows)
    and in its copy-only and compute-only modes.
 5. The serving path: ``transfer_styles`` with the ``snapshots/4900``
-   weights on 3 compositions x 3 styles (12 jobs) on ``cuda``, once to warm
+   weights on 3 compositions x 3 styles (12 jobs) on ``cuda``, its programs
+   uncaptured (``capture=False``; phase 14 captures them), once to warm
    up and once with every launch counter at 0, which must see K1 and K2
    launch. Every output parses and every styled output has notes. Two more
    requests run under ``runtime.metrics.profiler_trace`` with the model's
@@ -181,6 +182,29 @@ Phases (any failure exits non-zero):
    within 10% of its staged round's wall time, and every file it writes
    must equal phase 5's request's byte for byte. It prints the time of
    phases 7's and 8's checkpoint saves (``StageTimer``).
+14. The captured serving programs (mst_torch.runtime.programs): phases
+   2-13 run the transfer programs uncaptured (``capture=False``); here a
+   bundle captures them as CUDA graphs. Requests run until one captures
+   nothing (each capture's program key, warm-up and capture time are
+   printed); one replayed request, counters at 0 first, must launch K1
+   twice and K2 once (the counts a capture recorded, added on each
+   replay) and capture nothing. Five replayed requests and five of the same
+   programs uncaptured, in turns: the median and spread of each one's wall
+   time. The files of both must equal phase 5's request's byte for byte,
+   or within the fp32-boundary rule with the count of boundary events
+   printed. The launch of one replay (input copies, replay, output copy)
+   runs under ``torch.cuda.set_sync_debug_mode("error")``; its fetch
+   does not. One replayed request, after a replayed warm-up under the
+   tracer, is traced: its device records must hold K1 twice and K2 once
+   by kernel name, equal to the counters; it prints the device-busy time
+   and share and the host's launch calls beside phase 5's uncaptured
+   request's. A request whose first capacity tier is 1024 must escalate
+   through the ladder to the request's own tier, and one with a starved
+   pool hint (a 16-record tier) must run again at its exact tier; both
+   write phase 5's files. A bundle with
+   ``extract_storage_dtype="bfloat16"`` captures its programs, launches
+   K1's bf16 form twice in a replay and writes phase 5's bf16 request's
+   files. It prints the graphs held and the peak device memory.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -423,10 +447,12 @@ def phase_k1(torch, bundle, songs):
     from mst_torch.ops import raster_kernel as rk
     from mst_torch.transfer import _extract_inputs
 
-    inputs, _ = _extract_inputs(bundle, songs, 4, True)
-    B, Cb, Rb, T = (inputs[k] for k in ("B", "Cb", "Rb", "T"))
-    cases = [("pitched", inputs["p_notes"], B * Cb * Rb * T * 10, 56, 5),
-             ("unpitched", inputs["u_notes"], B * Rb * T * 10, 47, 2)]
+    inputs, statics, _ = _extract_inputs(bundle, songs, 4, True)
+    B, Cb, Rb, T = (statics[k] for k in ("B", "Cb", "Rb", "T"))
+    p_notes, u_notes = (tuple(t.cuda() for t in notes)
+                        for notes in inputs[:2])
+    cases = [("pitched", p_notes, B * Cb * Rb * T * 10, 56, 5),
+             ("unpitched", u_notes, B * Rb * T * 10, 47, 2)]
     g = torch.Generator().manual_seed(1)
     n = 1 << 18
     n_rows = 4096                      # ~64 notes per row: heavy collisions
@@ -1085,7 +1111,7 @@ def phase_main(torch, bundle, comps, styles, tmp):
 
     # the same request with bf16 extraction: K1 writes bf16 rasters, the
     # apply stage stays at fp32 storage
-    bf16 = ModelBundle.from_npz(device="cuda",
+    bf16 = ModelBundle.from_npz(device="cuda", capture=False,
                                 extract_storage_dtype="bfloat16")
     transfer_styles(bf16, comps, styles, os.path.join(tmp, "bf16_warm"))
     torch.cuda.synchronize()
@@ -2180,6 +2206,250 @@ def phase_profile(torch, serve, fp32, bf16, comps, styles, tmp, smi):
         f"{bf16['pair_s']:.1f} s)")
 
 
+def host_launches(trace_dir):
+    """The host's launch calls in a trace, by name: kernel and graph
+    launches, copies and fills (CUDA runtime and driver API calls)."""
+    from collections import Counter
+    from mst_torch.runtime.profile import LAUNCH_CATS, load_events
+    return Counter(e["name"] for e in load_events(trace_dir)
+                   if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS
+                   and any(k in e["name"]
+                           for k in ("Launch", "Memcpy", "Memset")))
+
+
+def files_against(root, want_root, label):
+    """Every .mid under ``root`` against the same file under ``want_root``:
+    byte-equal, or within the fp32-boundary rule (mst_torch.parity), or
+    the run fails. Returns (byte-equal files, files, boundary events)."""
+    from mst_torch.parity import midi_differences
+    names = mid_files(want_root)
+    if mid_files(root) != names:
+        raise AssertionError(f"{label}: files {mid_files(root)}, want "
+                             f"{names}")
+    equal = boundary = 0
+    for name in names:
+        with open(os.path.join(root, name), "rb") as fa, \
+                open(os.path.join(want_root, name), "rb") as fb:
+            same, faults, borderline = midi_differences(fa.read(), fb.read())
+        if faults:
+            raise AssertionError(f"{label}: {name}: {faults}")
+        equal += same
+        boundary += len(borderline)
+    return equal, len(names), boundary
+
+
+def phase_captured(torch, comps, styles, tmp, smi):
+    """Phase 14: the serving programs captured as CUDA graphs and replayed
+    (mst_torch.runtime.programs), on the 12-job request. Returns the
+    launches of one replayed request, by kernel form."""
+    import statistics
+
+    from mst_torch import transfer as tr
+    from mst_torch.runtime.metrics import profiler_trace
+    from mst_torch.runtime.profile import summarize
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    names = [name for name, _, _ in _counters()]
+    bundle = tr.ModelBundle.from_npz(device="cuda")
+    eager = tr.ModelBundle.from_npz(device="cuda", capture=False)
+    programs = bundle.programs
+    want_dir = os.path.join(tmp, "gpu")           # phase 5's request
+
+    def request(b, name):
+        t0 = time.perf_counter()
+        tr.transfer_styles(b, comps, styles, os.path.join(tmp, name))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def capture(b, label):
+        """Requests until one captures nothing: the first request's record
+        sums become the pool hint, which may pick another tier."""
+        for r in range(3):
+            held = len(b.programs.graphs)
+            wall = request(b, f"{label}_capture_{r}")
+            new = list(b.programs.graphs.values())[held:]
+            for g in new:
+                log(f"phase 14: {label}: request {r} captured {g.key}: "
+                    f"warm-up {g.warmup_s * 1e3:.3f} ms, capture "
+                    f"{g.capture_s * 1e3:.3f} ms; a replay launches "
+                    f"{dict(zip(names, g.launches))} ({smi})")
+            log(f"phase 14: {label}: request {r}: {wall * 1e3:.3f} ms "
+                f"wall, {len(new)} programs captured")
+            if not new:
+                return
+        raise AssertionError(f"phase 14: {label}: a third request still "
+                             f"captured")
+
+    def counted(b, name, want):
+        """One request with the counters at 0; it may capture nothing and
+        must launch ``want`` (every other form 0)."""
+        held = len(b.programs.graphs)
+        reset_launches()
+        request(b, name)
+        got = read_launches()
+        if len(b.programs.graphs) != held or any(
+                got[k] != want.get(k, 0) for k in got):
+            raise AssertionError(f"phase 14: {name}: launches {got}, want "
+                                 f"{want}; graphs {held} -> "
+                                 f"{len(b.programs.graphs)}")
+        return got
+
+    capture(bundle, "fp32")
+    request(eager, "eager_warm")
+    launches = counted(bundle, "replay_counted", {"raster": 2,
+                                                  "grid_tail": 1})
+    log(f"phase 14: one replayed request: launches {launches}")
+
+    held = len(programs.graphs)
+    replay_s, eager_s = [], []
+    for r in range(5):
+        replay_s.append(request(bundle, f"replay_{r}"))
+        eager_s.append(request(eager, f"eager_{r}"))
+    if len(programs.graphs) != held:
+        raise AssertionError("phase 14: a timed request captured a program")
+
+    def spread(v):
+        return (f"median {statistics.median(v) * 1e3:.3f} ms (min "
+                f"{min(v) * 1e3:.3f}, max {max(v) * 1e3:.3f}; "
+                f"{', '.join(f'{t * 1e3:.3f}' for t in v)})")
+
+    log(f"phase 14: 12-job request, captured and replayed: "
+        f"{spread(replay_s)}; the same programs uncaptured, in turns: "
+        f"{spread(eager_s)} ({smi})")
+    for label, name in (("replayed", "replay_4"), ("uncaptured", "eager_4")):
+        equal, n, boundary = files_against(os.path.join(tmp, name),
+                                           want_dir, f"phase 14 {label}")
+        log(f"phase 14: {label} request against phase 5's: {equal} of {n} "
+            f"files byte-equal, {boundary} fp32-boundary note events")
+
+    # the launch of one replay may not wait for the card; its fetch does
+    checked = []
+    run = programs.run
+
+    def run_checked(key, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run(key, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked.append(key)
+        return out
+
+    programs.run = run_checked
+    try:
+        request(bundle, "replay_nosync")
+    finally:
+        del programs.run
+    if not checked or len(programs.graphs) != held:
+        raise AssertionError(f"phase 14: the checked request ran {checked}")
+    log(f"phase 14: the launch of a replay ({checked}): input copies, "
+        f"replay and output copy with no host synchronisation (sync debug "
+        f"mode 'error'); the fetch after it waits for the card")
+
+    # one replayed request traced, after a replayed warm-up under the tracer
+    trace = os.path.join(tmp, "trace_replay")
+    traced = {}
+
+    def take():
+        with profiler_trace(trace) as end_warmup:
+            request(bundle, "replay_trace_warm")
+            end_warmup()
+            reset_launches()
+            wall = request(bundle, "replay_traced")
+            traced["launches"] = read_launches()
+        return summarize(trace, 1, device="cuda"), wall
+
+    summary, wall = complete_trace("phase 14 traced replay", take)
+    got = {k: summary["by_category_launches"].get(k, 0)
+           for k in ("K1", "K2", "K3")}
+    n = traced["launches"]
+    counters = {"K1": n["raster"] + n["raster_bf16"],
+                "K2": n["grid_tail"] + n["grid_tail_bf16"],
+                "K3": n["grid_tail_bwd"] + n["grid_tail_bwd_bf16"]}
+    if got != counters or got != {"K1": 2, "K2": 1, "K3": 0}:
+        raise AssertionError(f"phase 14: the traced replay's device records "
+                             f"{got}, the counters {counters}, want K1 2, "
+                             f"K2 1, K3 0")
+    busy = summary["busy_ms_per_step"]
+    host = host_launches(trace)
+    eager_host = host_launches(os.path.join(tmp, "trace_request"))
+    log(f"phase 14: traced replayed request: device busy {busy:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall ({busy / (wall * 1e3):.1%}); K launches "
+        f"by kernel name {got}, equal to the counters; host launch calls "
+        f"{sum(host.values())} {dict(host)}; phase 5's uncaptured request: "
+        f"{sum(eager_host.values())} ({smi})")
+    log("  top categories (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in list(summary["by_category_ms"].items())
+        [:6]))
+
+    # the ladder on the card: a small first capacity tier, a starved pool
+    def ladder(label, name, patch, hints):
+        """One request with ``tr``'s ``patch`` and the bundle's ``hints``
+        set; returns the program keys it ran, in order."""
+        saved = {k: getattr(tr, k) for k in patch}
+        ran = []
+
+        def recording(key, *args, **kwargs):
+            ran.append(key)
+            return run(key, *args, **kwargs)
+
+        for k, v in patch.items():
+            setattr(tr, k, v)
+        for k, v in hints.items():
+            setattr(bundle, k, v)
+        programs.run = recording
+        try:
+            request(bundle, name)
+        finally:
+            del programs.run
+            for k, v in saved.items():
+                setattr(tr, k, v)
+        equal, n_files, boundary = files_against(
+            os.path.join(tmp, name), want_dir, f"phase 14 {label}")
+        log(f"phase 14: {label}: programs run {ran}; capacity hint "
+            f"{bundle.capacity_hint}, pool hints {bundle.pool_hint_p}, "
+            f"{bundle.pool_hint_u}; {equal} of {n_files} files byte-equal "
+            f"to phase 5's, {boundary} fp32-boundary note events")
+        return ran
+
+    steady, hint = checked[-1], bundle.capacity_hint
+    ran = ladder("first capacity tier 1024", "ladder_tier",
+                 {"COMPACT_CAPACITIES": (1024,) + tr.COMPACT_CAPACITIES},
+                 {"capacity_hint": 0})
+    if len(ran) < 2 or not ran[0].startswith("transfer_fused:1024:") \
+            or ran[-1] != steady or bundle.capacity_hint != hint:
+        raise AssertionError(f"phase 14: the 1024 tier did not escalate to "
+                             f"{steady}: {ran}")
+    ran = ladder("starved pool (tier 16)", "ladder_pool",
+                 {"POOL_TIERS": (16,) + tr.POOL_TIERS},
+                 {"pool_hint_p": 1, "pool_hint_u": 1})
+    if len(ran) != 2 or not ran[0].endswith(":pool=16,16") \
+            or ran[1] != steady:
+        raise AssertionError(f"phase 14: the starved pool did not run again "
+                             f"at {steady}: {ran}")
+
+    # bf16 extraction: the policy a capture bakes in
+    bf16 = tr.ModelBundle.from_npz(device="cuda",
+                                   extract_storage_dtype="bfloat16")
+    capture(bf16, "bf16 extraction")
+    counted(bf16, "bf16_replay", {"raster_bf16": 2, "grid_tail": 1})
+    equal, n_files, boundary = files_against(
+        os.path.join(tmp, "bf16_replay"), os.path.join(tmp, "bf16"),
+        "phase 14 bf16 extraction")
+    log(f"phase 14: bf16-extraction request, replayed, against phase 5's "
+        f"uncaptured one: {equal} of {n_files} files byte-equal, {boundary} "
+        f"fp32-boundary note events")
+
+    graphs = [g.key for b in (bundle, bf16) for g in b.programs.graphs.values()]
+    log(f"phase 14: {len(graphs)} graphs held ({graphs}); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since "
+        f"phase 14 began; phase 14 took {time.perf_counter() - t_phase:.1f} "
+        f"s ({smi})")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2202,7 +2472,9 @@ def main():
     songs = [get_model_input(p)[1] for p in comps + styles]
     log(f"host ingest of {len(songs)} songs: "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
-    bundle = ModelBundle.from_npz(device="cuda")
+    # phases 2-13 run the programs uncaptured (capture=False), as before
+    # phase 14; phase 14 captures them
+    bundle = ModelBundle.from_npz(device="cuda", capture=False)
     kernels = phase_k1(torch, bundle, songs) + phase_k2(torch)
     with tempfile.TemporaryDirectory() as tmp:
         serve, serve_bf16, serve_flops = phase_main(torch, bundle, comps,
@@ -2225,6 +2497,8 @@ def main():
         phase_flops(serve_flops, fp32, bf16, smi)
         phase_profile(torch, serve_flops, fp32, bf16, comps, styles, tmp,
                       smi)
+        torch.cuda.empty_cache()
+        captured = phase_captured(torch, comps, styles, tmp, smi)
     log(f"training, bf16 storage and compute against fp32 (one call): "
         f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
         f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "
@@ -2242,7 +2516,9 @@ def main():
                    "bf16 remat micro-step": remat[name],
                    "2-rank data-parallel micro-steps, rank 0":
                        parallel[name],
-                   "2-seq-rank bar-sharded micro-steps, rank 0": seq[name]}
+                   "2-seq-rank bar-sharded micro-steps, rank 0": seq[name],
+                   "captured transfer request (one replay)":
+                       captured[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "

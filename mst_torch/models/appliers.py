@@ -115,8 +115,10 @@ class UnpitchedStyleApplier(nn.Module):
         x = x.reshape(tuple(x.shape[:4]) + (N_UNPITCHED_NOTES, -1))
         x = self.linear(x)                               # (B,R,T,F10,47,2)
 
-        # duration = 6*sigmoid, velocity = sigmoid — one fused scale
-        scale = torch.tensor([MAX_DURATION, 1.0], dtype=x.dtype,
-                             device=x.device)
+        # duration = 6*sigmoid, velocity = sigmoid — one fused scale, made
+        # on the device (a host tensor copied in would wait for the card,
+        # and a CUDA graph capture refuses the copy)
+        scale = torch.where(torch.arange(2, device=x.device) == 0,
+                            MAX_DURATION, 1.0).to(x.dtype)
         x = precision.cast_storage(torch.sigmoid(x) * scale)
         return x[:, None]                                # (B,1,R,T,F10,47,2)

@@ -69,7 +69,7 @@ from mst_torch.models import StyleTransferModel
 from mst_torch.ops import precision, seq_context
 from mst_torch.ops.losses import LossDict, total_loss
 from mst_torch.ops.shapes import split_note_features
-from mst_torch.transfer import strict_fp32
+from mst_torch.device import strict_fp32
 
 ADAM_BETAS = (0.9, 0.999)   # torch Adam defaults (train-model.py:89), optax's
 ADAM_EPS = 1e-8

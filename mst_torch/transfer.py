@@ -14,18 +14,32 @@ with the same public entry points and output file layout:
 scores a transfer's outputs through rendered audio (mst_torch.audio);
 ``demo_params`` gives untrained weights for structure demos.
 
-The device side of a request: the songs' note records are rasterized on
-the device (K1, ``csrc/raster.cu``), the latents extracted, song info
+The device side of a request runs as static-shape programs, as in
+mst_tpu (transfer.py:87-436,928-1137): the songs' note records are
+rasterized on the device (K1, ``csrc/raster.cu``) and the latents
+extracted (``raster_extract``); for a batch of jobs, song info is
 predicted and instruments picked, both appliers run (the pitched one's
 note-grid tail is K2, ``csrc/grid_tail.cu``), every cell is packed into one
-word, and the nonzero words are compacted with an ordered ``torch.nonzero``
-into the same ascending (cell, word) records as mst_tpu's ``_compact_song``.
-The host decodes the records to ``.mid``.
+word, and the nonzero words are compacted at a fixed record capacity into
+the ascending (cell, word) records of mst_tpu's ``_compact_song``
+(``fused:{capacity}:{Cb}``). When every song of a request shares one
+extraction bucket, both run as one program (``transfer_fused:...``).
+Each program returns one buffer in mst_tpu's layout, fetched once; its
+header holds the record counts and the live-block counts that the
+capacity ladder (``run_fused_jobs``) reads to escalate through
+``COMPACT_CAPACITIES``, to re-dispatch at the exact record-pool tier
+(``POOL_TIERS``), to fall back to the dense compaction when the block
+routing table overflows, and to raise ``OverflowError`` where notes would
+be lost. The host decodes the records to ``.mid``.
 
-PyTorch runs eagerly, so the JAX package's static-shape machinery has no
-counterpart here: no compaction capacity tiers or record pools, no escape
-hatch, no fusing of extraction and apply into one program. The channel and
-bar buckets are kept, so shapes and masks match the JAX program one to one.
+On the card each program is captured once per shape key as a CUDA graph
+and replayed (mst_torch.runtime.programs); ``ModelBundle.capture=False``
+runs the same programs eagerly, as the CPU always does. The channel and
+bar buckets are kept, so shapes and masks match the JAX programs one to
+one. Deliberate difference: the packed words and the fetched buffer are
+int64 tensors holding mst_tpu's uint32 values (the host views the buffer
+as uint32). Serving over a device mesh (mst_tpu's ``ModelBundle.mesh``)
+and its ``call_log`` are not ported.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``ModelBundle(device=None)`` resolves to ``cuda`` and raises without it.
@@ -49,6 +63,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mst_torch import audio, weights
 from mst_torch.config import ModelConfig
@@ -66,6 +81,7 @@ from mst_torch.ops.device_raster import (
     concat_and_pad, encode_notes, segment_rasterize)
 from mst_torch.ops.events import SongInfo, read_midi
 from mst_torch.ops.rasterize import QNotes, Rasterizer
+from mst_torch.runtime.programs import Programs
 from mst_torch.theory.scales import Scale
 
 # Shape buckets (mst_tpu/transfer.py:439-440): channel and bar counts are
@@ -81,15 +97,94 @@ def _bucket(n: int, buckets) -> int:
     return n
 
 
+# Compaction capacity tiers (records per job and note family; the
+# unpitched family gets a quarter), mst_tpu/transfer.py:87.
+COMPACT_CAPACITIES = (16384, 65536, 262144, 1048576)
+
+# Fetched-record pool tiers (mst_tpu/transfer.py:89-98): an apply batch's
+# records are packed contiguously across jobs before the fetch
+# (``_pack_pool``), so the fetched buffer scales with the observed record
+# total, not with B x capacity. Tiers double; a sticky per-bundle hint keeps
+# steady requests on the exact tier.
+POOL_TIERS = (8192, 16384, 32768, 65536, 131072, 262144, 524288,
+              1048576, 2097152, 4194304)
+
+
+def _pick_pool_tier(n: int) -> int:
+    for t in POOL_TIERS:
+        if n <= t:
+            return t
+    return POOL_TIERS[-1]
+
+
+# the fused buffer's header: [bpm, mode_idx, n_picked, has_unpitched,
+# count_p, count_u, live_blocks_p, live_blocks_u]
+_HDR = 8
+
+_BLOCK = 128  # compaction block: 128 cells
+
+# ranks per chunk of the big tiers' rank lookup: bounds its (B, chunk, 128)
+# transient
+_COMPACT_CHUNK = 16384
+
+
+def _block_capacities(capacity: int) -> Tuple[int, int]:
+    """The most nonempty 128-cell blocks the compaction routes at a
+    capacity tier (pitched, unpitched), mst_tpu/transfer.py:118-133: the
+    routing table sizes only transients inside the program, and the ladder
+    escalates when the header's live-block count exceeds it."""
+    return max(capacity // 4, 16384), max(capacity // 16, 4096)
+
+
+def _pool_from_key(rest) -> Optional[Tuple[int, int]]:
+    """The optional ``pool=PP,PU`` segment of a fused program's key."""
+    for r in rest:
+        if r.startswith("pool="):
+            pp, pu = r[5:].split(",")
+            return int(pp), int(pu)
+    return None
+
+
+def _program_key(kind: str, capacity: int, Cb: int, dense: bool,
+                 pool) -> str:
+    """``fused:{capacity}:{Cb}[:dense][:pool=PP,PU]`` or the same with
+    ``transfer_fused`` (mst_tpu's keys)."""
+    key = f"{kind}:{capacity}:{Cb}" + (":dense" if dense else "")
+    if pool is not None:
+        key += f":pool={pool[0]},{pool[1]}"
+    return key
+
+
 @dataclasses.dataclass
 class ModelBundle:
-    """The model on its device. ``device=None`` resolves to ``cuda``.
-    ``extract_storage_dtype``: the activation storage dtype of the
-    extraction stage alone ("bfloat16" or None, which means float32)."""
+    """The model on its device, its programs and the sticky sizing of its
+    requests (mst_tpu's ModelBundle, transfer.py:459-611, without a mesh).
+    ``device=None`` resolves to ``cuda``.
+
+    - ``extract_storage_dtype``: the activation storage dtype of the
+      extraction stage alone ("bfloat16" or None, which means float32).
+    - ``capacity_hint``: the smallest compaction tier the last request's
+      counts fit; the next request starts there (it may step back down).
+    - ``pool_hint_p``/``pool_hint_u``: the last request's record sums; the
+      next request's pool tier is picked from them.
+    - ``use_record_pool``: fetch through the packed record pool (False
+      keeps the per-job row layout).
+    - ``fuse_requests``: run a request whose songs share one extraction
+      bucket as one program (False: extraction, then apply).
+    - ``capture``: on the card, capture each program as a CUDA graph and
+      replay it (mst_torch.runtime.programs); False runs the same programs
+      eagerly, for the profile tools, whose traces need the model's
+      ``record_function`` scopes."""
 
     model: StyleTransferModel
     device: Optional[object] = None
     extract_storage_dtype: Optional[str] = None
+    capacity_hint: int = 0
+    pool_hint_p: int = 0
+    pool_hint_u: int = 0
+    use_record_pool: bool = True
+    fuse_requests: bool = True
+    capture: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -98,6 +193,7 @@ class ModelBundle:
         self.model = self.model.to(self.device).eval()
         self._feature_table = torch.as_tensor(
             category_feature_table(), dtype=torch.float32).to(self.device)
+        self.programs = Programs(self.device)
 
     def policy(self, storage=None):
         """The numeric policy of one stage: the model config's compute dtype
@@ -106,28 +202,59 @@ class ModelBundle:
         return precision.precision(self.model.config.compute_dtype,
                                    storage=storage or "float32")
 
+    def fn(self, key: str):
+        """The program ``key`` (mst_tpu's ``ModelBundle.fn``): a callable
+        ``(*inputs, **statics)`` that runs it under its stage's policy
+        through ``self.programs``. Keys: ``raster_extract`` (the
+        extraction, at ``extract_storage_dtype``), ``fused:{capacity}:{Cb}
+        [:dense][:pool=PP,PU]`` (the apply of a batch of jobs) and
+        ``transfer_fused:...`` (both in one program)."""
+        if key == "raster_extract":
+            body = functools.partial(_raster_extract_latents, self.model)
+            storage = self.extract_storage_dtype
+        else:
+            kind, cap, cb, *rest = key.split(":")
+            options = dict(capacity=int(cap), max_channels=int(cb),
+                           dense_compaction="dense" in rest,
+                           pool=_pool_from_key(rest))
+            if kind == "transfer_fused":
+                body = functools.partial(
+                    _fused_transfer_full, self.model, self._feature_table,
+                    extract_storage=self.extract_storage_dtype, **options)
+            elif kind == "fused":
+                body = functools.partial(
+                    _fused_transfer_apply, self.model, self._feature_table,
+                    **options)
+            else:
+                raise KeyError(f"no program {key!r}")
+            storage = None
+
+        def program(*inputs, **statics):
+            with self.policy(storage):
+                return self.programs.run(key, body, inputs, statics,
+                                         capture=self.capture)
+        return program
+
     @classmethod
     def from_npz(cls, path: str = weights.SNAPSHOT_NPZ, device=None,
-                 config: ModelConfig = ModelConfig(),
-                 extract_storage_dtype: Optional[str] = None
+                 config: ModelConfig = ModelConfig(), **options
                  ) -> "ModelBundle":
         """A bundle with the params of an npz export (default: the committed
-        ``snapshots/4900`` export)."""
+        ``snapshots/4900`` export). ``options``: the bundle's other fields
+        (``extract_storage_dtype``, ``capture``, ...)."""
         device = resolve_device(device)
         model = StyleTransferModel(config)
         model.load_state_dict(weights.state_dict_from_flax(
             weights.load_npz(path)))
-        return cls(model=model, device=device,
-                   extract_storage_dtype=extract_storage_dtype)
+        return cls(model=model, device=device, **options)
 
     @classmethod
     def from_checkpoint(cls, directory: str, device=None,
-                        config: ModelConfig = ModelConfig(),
-                        extract_storage_dtype: Optional[str] = None
+                        config: ModelConfig = ModelConfig(), **options
                         ) -> "ModelBundle":
         """A bundle with the params of the latest checkpoint that the port's
         trainer (``train-model-torch.py``) wrote under ``directory``
-        (mst_tpu's load_trained_params)."""
+        (mst_tpu's load_trained_params). ``options``: as ``from_npz``'s."""
         from mst_torch.runtime.checkpoint import load_trained_params
 
         device = resolve_device(device)
@@ -136,8 +263,7 @@ class ModelBundle:
             raise FileNotFoundError(f"no checkpoint in {directory}")
         model = StyleTransferModel(config)
         model.load_state_dict(state_dict)
-        return cls(model=model, device=device,
-                   extract_storage_dtype=extract_storage_dtype)
+        return cls(model=model, device=device, **options)
 
 
 def sparsify_velocity_bias(state_dict: dict) -> dict:
@@ -208,23 +334,227 @@ def _pick_instruments(logits, n_instruments, max_channels: int):
     return picked, keep.sum(dim=-1), has_unpitched
 
 
-def _compact(word, n_channels, n_bars):
-    """Ordered compaction of B jobs' packed words (B, C, R, T, F10, N):
-    cells of channel >= n_channels[b] or bar >= n_bars[b] are masked, and
-    the nonzero words come back as per-job (cell, word) records in
-    ascending cell order — the records of mst_tpu's _compact_song, from one
-    ordered ``torch.nonzero``. Returns (counts (B,), cells (K,), words (K,))
-    with job b's records at [sum(counts[:b]), sum(counts[:b+1]))."""
+def _valid_cells(word, n_channels, n_bars):
+    """(B, C, R, 1, ..., 1) bool: the cells of B jobs' packed words (B, C,
+    R, ...) that lie below n_channels[b] and n_bars[b]."""
     B, C, R = word.shape[:3]
     dev = word.device
     c_ok = torch.arange(C, device=dev)[None] < n_channels[:, None]
     r_ok = torch.arange(R, device=dev)[None] < n_bars[:, None]
-    valid = (c_ok[:, :, None] & r_ok[:, None, :]).reshape(
+    return (c_ok[:, :, None] & r_ok[:, None, :]).reshape(
         B, C, R, *([1] * (word.dim() - 3)))
-    flat = torch.where(valid, word, torch.zeros_like(word)).reshape(B, -1)
-    nz = torch.nonzero(flat)                      # row-major: job, then cell
-    counts = torch.bincount(nz[:, 0], minlength=B)
-    return counts, nz[:, 1], flat[nz[:, 0], nz[:, 1]]
+
+
+def _masked_flat(word, n_channels, n_bars):
+    """B jobs' packed words with every cell outside ``_valid_cells``
+    zeroed, flat per job: (B, M)."""
+    valid = _valid_cells(word, n_channels, n_bars)
+    return torch.where(valid, word, 0).reshape(word.shape[0], -1)
+
+
+def _compact_song(word, n_channels, n_bars, capacity: int, max_blocks: int):
+    """Compaction of B jobs' packed words (B, C, R, T, F10, N) at a fixed
+    record capacity: mst_tpu's ``_compact_song`` (transfer.py:158-241),
+    batched over the jobs. Cells of channel >= n_channels[b] or bar >=
+    n_bars[b] are masked; job b's nonzero words come back as records
+    ``[cell, word]`` in ascending cell order. Returns (count (B,),
+    n_live_blocks (B,), records (B, capacity, 2)), all int64, with
+    mst_tpu's values bit for bit:
+
+    - the roll is cut into 128-cell blocks; their inclusive prefix sums
+      are one (B*G, 128) @ (128, 128) product, as on the TPU, here in fp16
+      on the tensor cores: 0/1 products, and sums up to 128, are exact in
+      fp16 whatever the accumulation. (On an NVIDIA H100 80GB HBM3 at
+      700 W, a ``cumsum`` along the blocks of 12 jobs' pitched words took
+      1.07 ms, the whole compaction with the product 0.71 ms at 16,384
+      records: tools/compaction_torch.py, PERF.md.)
+    - only the first ``max_blocks`` live (nonempty) blocks are routed:
+      ``count`` sums theirs, so it under-reports when the live blocks
+      overflow the routing table, and ``n_live_blocks`` counts them all —
+      the ladder escalates on either;
+    - output rank q finds its block by a ``searchsorted`` over the routed
+      blocks' prefix and its cell by a ``searchsorted`` in that block's
+      prefix row; ranks >= count are (0, 0);
+    - above ``_COMPACT_CHUNK`` ranks the lookup runs in chunks, which bounds
+      its (B, chunk, 128) transient of prefix rows.
+
+    Nothing here waits for the device: no ``nonzero``, no shape that
+    depends on the data."""
+    B = word.shape[0]
+    dev = word.device
+    words = word.reshape(B, -1)
+    M = words.shape[1]
+    G = -(-M // _BLOCK)
+    mask = ((word != 0) & _valid_cells(word, n_channels, n_bars)).reshape(
+        B, M).to(torch.float16)
+    if G * _BLOCK != M:
+        mask = F.pad(mask, (0, G * _BLOCK - M))
+    # a row of 128 0/1 cells times the upper triangle of ones is its
+    # inclusive prefix (made on the device: a capture refuses a host copy)
+    upper = torch.ones(_BLOCK, _BLOCK, dtype=torch.float16,
+                       device=dev).triu()
+    within = mask.view(B * G, _BLOCK) @ upper
+    counts = within[:, -1].view(B, G).to(torch.int64)  # notes per block
+    live = counts > 0
+    n_live = live.sum(-1)
+    # the routing table: the first max_blocks live blocks, padded with G-1
+    k = torch.arange(max_blocks, device=dev)
+    routed = k[None] < n_live[:, None]
+    live_idx = torch.searchsorted(live.cumsum(-1),
+                                  k.expand(B, max_blocks).contiguous(),
+                                  right=True)
+    live_idx = torch.where(routed, live_idx, G - 1)
+    live_counts = torch.where(routed, counts.gather(1, live_idx), 0)
+    prefix = live_counts.cumsum(-1)                   # inclusive
+    total = prefix[:, -1]
+    starts = prefix - live_counts
+    row0 = (torch.arange(B, device=dev) * G)[:, None]
+
+    def rank_lookup(q):
+        """Consecutive ranks ``q`` -> (B, len(q), 2) records."""
+        qb = q.expand(B, q.shape[0]).contiguous()
+        j = torch.searchsorted(prefix, qb, right=True).clamp(
+            max=max_blocks - 1)
+        block = live_idx.gather(1, j)
+        rows = within[(block + row0).reshape(-1)]     # (B*len(q), 128)
+        # the cell holds the block's (q - start + 1)-th note: the first
+        # lane whose inclusive prefix reaches it
+        nth = (qb - starts.gather(1, j) + 1).clamp(0, _BLOCK + 1)
+        lane = torch.searchsorted(rows, nth.reshape(-1, 1).to(rows.dtype))
+        on = qb < total[:, None]
+        cell = torch.where(
+            on, (block * _BLOCK + lane.view(B, -1)).clamp(max=M - 1), 0)
+        payload = torch.where(on, words.gather(1, cell), 0)
+        return torch.stack([cell, payload], dim=-1)
+
+    q = torch.arange(capacity, device=dev)
+    if capacity <= _COMPACT_CHUNK:
+        rec = rank_lookup(q)
+    else:
+        rec = torch.cat([rank_lookup(c) for c in q.split(_COMPACT_CHUNK)],
+                        dim=1)
+    return total, n_live, rec
+
+
+def _compact_song_dense(word, n_channels, n_bars, capacity: int):
+    """The escape hatch of the ladder (mst_tpu/transfer.py:244-259), for
+    rolls so spread that the live blocks overflow even the top tier's
+    routing table while the records fit: a ``cumsum`` of the nonzero mask
+    ranks every cell, and a scatter puts the first ``capacity`` nonzero
+    cells in order. Returns the true count, 0 live blocks, and records
+    bit-equal to mst_tpu's: past the count, ``[0, word of cell 0]``, as
+    its ``jnp.nonzero(..., fill_value=0)`` gives. No ``torch.nonzero``: it
+    waits for the device, and a capture refuses it."""
+    flat = _masked_flat(word, n_channels, n_bars)
+    B, M = flat.shape
+    dev = flat.device
+    nz = flat != 0
+    rank = nz.cumsum(-1) - 1
+    slot = torch.where(nz & (rank < capacity), rank, capacity)
+    cells = torch.arange(M, device=dev).expand(B, M)
+    idx = torch.zeros(B, capacity + 1, dtype=torch.int64, device=dev)
+    idx = idx.scatter_(1, slot, cells)[:, :capacity]
+    count = nz.sum(-1)
+    return count, torch.zeros_like(count), torch.stack(
+        [idx, flat.gather(1, idx)], dim=-1)
+
+
+def _pack_pool(rec, counts, pool_cap: int):
+    """B jobs' records ((B, cap, 2), job b's first counts[b] live) packed
+    contiguously into one (pool_cap, 2) buffer (mst_tpu/transfer.py:
+    262-282): job b's records start at sum(counts[:b]), in its order.
+    Ranks past the total are 0; a total above ``pool_cap`` is truncated,
+    which the host sees from the untruncated header counts."""
+    B, cap = rec.shape[:2]
+    incl = counts.cumsum(0)
+    q = torch.arange(pool_cap, device=rec.device)
+    job = torch.searchsorted(incl, q, right=True).clamp(max=B - 1)
+    start = incl[job] - counts[job]
+    on = q < incl[-1]
+    idx = torch.where(on, (q - start).clamp(max=cap - 1), 0)
+    return torch.where(on[:, None], rec[job, idx], 0)
+
+
+def _fused_transfer_apply(model: StyleTransferModel, feature_table, style,
+                          melody, rhythm, style_idx, comp_idx,
+                          n_instruments, bar_lengths, tpb, *, capacity: int,
+                          max_channels: int, dense_compaction: bool = False,
+                          pool=None):
+    """The apply of B jobs as one program (mst_tpu/transfer.py:351-436):
+    job b pairs ``style[style_idx[b]]`` with the composition latents
+    ``melody[comp_idx[b]]``, ``rhythm[comp_idx[b]]``; then song-info
+    prediction, the instrument pick and feature gather, both appliers (K2),
+    packing, and the compaction at ``capacity`` (block-routed, or
+    ``dense_compaction``). ``n_instruments`` and ``bar_lengths`` (B,)
+    int64, ``tpb`` (B,) float32 ticks per beat.
+
+    Returns one int64 tensor holding uint32 values in mst_tpu's layout:
+    with ``pool=None`` (B, 8 + Cb + capacity*2 + (capacity//4)*2), per job
+    ``[header(8) | picked(Cb) | pitched records | unpitched records]``;
+    with ``pool=(PP, PU)`` the flat ``[B*(8+Cb) headers and picks | PP*2
+    pitched pool | PU*2 unpitched pool]`` (``_pack_pool``). The header is
+    ``[bpm, mode, n_picked, has_unpitched, count_p, count_u, live_blocks_p,
+    live_blocks_u]``; picked is -1 past n_picked (0xFFFFFFFF as uint32)."""
+    style = style[style_idx]
+    melody = melody[comp_idx]
+    rhythm = rhythm[comp_idx]
+    B = style.shape[0]
+    inst_logits, mode_pred, bpm_pred = model.predict_song_info(
+        style, rhythm, bar_lengths=bar_lengths)
+    picked, n_picked, has_unpitched = _pick_instruments(
+        inst_logits, n_instruments, max_channels)
+    instf = torch.where((picked >= 0)[..., None],
+                        feature_table[picked.clamp(min=0)], 0.0)
+    x_p, x_u = model.apply_style(style, melody, rhythm, instf, True)
+    tpb_b = tpb.reshape((B,) + (1,) * 5)
+    word_p = _pack_word(x_p, tpb_b)
+    word_u = _pack_word(x_u, tpb_b)
+    cap_u = capacity // 4
+    u_channels = has_unpitched.to(torch.int64)
+    if dense_compaction:
+        count_p, live_p, rec_p = _compact_song_dense(
+            word_p, n_picked, bar_lengths, capacity)
+        count_u, live_u, rec_u = _compact_song_dense(
+            word_u, u_channels, bar_lengths, cap_u)
+    else:
+        blocks_p, blocks_u = _block_capacities(capacity)
+        count_p, live_p, rec_p = _compact_song(
+            word_p, n_picked, bar_lengths, capacity, blocks_p)
+        count_u, live_u, rec_u = _compact_song(
+            word_u, u_channels, bar_lengths, cap_u, blocks_u)
+    header = torch.stack([
+        torch.round(bpm_pred).to(torch.int64),
+        torch.argmax(mode_pred, dim=-1), n_picked, u_channels,
+        count_p, count_u, live_p, live_u], dim=1)
+    if pool is None:
+        return torch.cat([header, picked, rec_p.reshape(B, -1),
+                          rec_u.reshape(B, -1)], dim=1)
+    return torch.cat([
+        torch.cat([header, picked], dim=1).reshape(-1),
+        _pack_pool(rec_p, count_p, pool[0]).reshape(-1),
+        _pack_pool(rec_u, count_u, pool[1]).reshape(-1)])
+
+
+def _fused_transfer_full(model: StyleTransferModel, feature_table, p_notes,
+                         u_notes, mode, bpm, instf, lengths, cmask, umask,
+                         style_idx, comp_idx, n_instruments, bar_lengths, tpb,
+                         *, B, Cb, Rb, T, capacity: int, max_channels: int,
+                         dense_compaction: bool = False,
+                         extract_storage=None, pool=None):
+    """A whole request as one program (mst_tpu/transfer.py:321-348): the
+    rasterization (K1) and latent extraction of the B songs, at the
+    ``extract_storage`` storage dtype, then ``_fused_transfer_apply`` of
+    every job on those latents, at the caller's fp32 storage."""
+    with precision.precision(precision.compute_dtype(),
+                             storage=extract_storage or "float32"):
+        style, melody, rhythm = _raster_extract_latents(
+            model, p_notes, u_notes, mode, bpm, instf, lengths, cmask, umask,
+            B=B, Cb=Cb, Rb=Rb, T=T)
+    return _fused_transfer_apply(
+        model, feature_table, style, melody, rhythm, style_idx, comp_idx,
+        n_instruments, bar_lengths, tpb, capacity=capacity,
+        max_channels=max_channels, dense_compaction=dense_compaction,
+        pool=pool)
 
 
 # the stages of a request that ``transfer_styles(..., stage=timer)`` times,
@@ -283,12 +613,14 @@ class LatentBatch:
 
 def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
                     has_unpitched: bool, stage=_untimed):
-    """Device inputs of one extraction batch (mst_tpu's _extract_inputs):
-    every song's quantized note records are offset into one flat row space
-    (song b = channel block b*Cb..), so one scatter materializes the whole
-    (B, Cb, Rb, ...) raster batch. Returns (inputs dict, per-song real bar
-    counts). ``stage`` times the note-record prep."""
-    dev = bundle.device
+    """The inputs of one extraction batch (mst_tpu's _extract_inputs,
+    transfer.py:731-797): every song's quantized note records are offset
+    into one flat row space (song b = channel block b*Cb..), so one scatter
+    materializes the whole (B, Cb, Rb, ...) raster batch. Returns
+    (inputs, statics, per-song real bar counts): ``inputs`` are host tensors
+    in ``_raster_extract_latents``' order, the program moves them to the
+    device; ``statics`` are B, Cb, Rb and T. ``stage`` times the
+    note-record prep."""
     B = len(songs)
     caps = [1000 // s.n_channels for s in songs]
     Cs = [s.pitched_shape[0] for s in songs]
@@ -309,8 +641,7 @@ def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
                     parts.append(encode_notes(
                         rasterizer, q, b * n_channels + c, pitched,
                         B * n_channels, Rb, valid_bars=Rs[b]))
-            recs = concat_and_pad(parts)
-        return recs.to(dev)
+            return concat_and_pad(parts).to("cpu")
 
     instf = np.zeros((B, Cb, songs[0].instruments_features.shape[-1]),
                      np.float32)
@@ -322,29 +653,24 @@ def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
         cmask[b, :Cs[b]] = 1.0
         mode[b] = [0.0, 1.0] if song.info.scale.is_minor else [1.0, 0.0]
         bpm[b] = song.info.bpm
-    inputs = dict(
-        p_notes=records(True),
-        u_notes=records(False) if has_unpitched else None,
-        mode=torch.from_numpy(mode).to(dev),
-        bpm=torch.from_numpy(bpm).to(dev),
-        instf=torch.from_numpy(instf).to(dev),
-        lengths=torch.tensor(Rs, dtype=torch.int64, device=dev),
-        cmask=torch.from_numpy(cmask).to(dev),
-        # parity: prepare_input passes percussion whenever present, even
-        # all-zero (style_transfer.py:70-73)
-        umask=(torch.ones((B, 1), dtype=torch.float32, device=dev)
-               if has_unpitched else None),
-        B=B, Cb=Cb, Rb=Rb, T=T)
-    return inputs, Rs
+    inputs = (records(True), records(False) if has_unpitched else None,
+              torch.from_numpy(mode), torch.from_numpy(bpm),
+              torch.from_numpy(instf), torch.tensor(Rs, dtype=torch.int64),
+              torch.from_numpy(cmask),
+              # parity: prepare_input passes percussion whenever present,
+              # even all-zero (style_transfer.py:70-73)
+              torch.ones((B, 1)) if has_unpitched else None)
+    return inputs, dict(B=B, Cb=Cb, Rb=Rb, T=T), Rs
 
 
 def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
                             mode, bpm, instf, lengths, cmask, umask, *, B,
                             Cb, Rb, T):
     """On-device rasterization of both note families (K1) + the latent
-    extractor for a batch of B songs (mst_tpu's _raster_extract_latents).
-    K1 writes the rasters at the storage dtype in force. The raster stays
-    NF-fused, (…, 56*5); the model splits it."""
+    extractor for a batch of B songs (mst_tpu's _raster_extract_latents),
+    the body of the ``raster_extract`` program. K1 writes the rasters at
+    the storage dtype in force. The raster stays NF-fused, (…, 56*5); the
+    model splits it."""
     store = precision.storage_dtype()
     flat_p = segment_rasterize(*p_notes, B * Cb * Rb * T * 10, 56, 5, store)
     pitched = flat_p.reshape(B, Cb, Rb, T, 10, 56 * 5)
@@ -360,9 +686,10 @@ def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
 def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
                    stage=_untimed):
     """Batched latent extraction: songs are grouped by (beats-per-bar,
-    percussion presence), and each group is one bucket-padded batch. Returns
-    (batches, locators): a list of LatentBatch plus, per input song, its
-    (batch_index, row). ``stage``: as ``transfer_styles``'."""
+    percussion presence), and each group is one bucket-padded batch, run
+    as one ``raster_extract`` program. Returns (batches, locators): a list
+    of LatentBatch plus, per input song, its (batch_index, row).
+    ``stage``: as ``transfer_styles``'."""
     group_keys = {}
     group_members = []
     locators = [None] * len(songs)
@@ -374,11 +701,10 @@ def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
         group_members[group_keys[key]].append(i)
     batches = []
     for (T, has_unpitched), members in zip(group_keys, group_members):
-        inputs, Rs = _extract_inputs(bundle, [songs[i] for i in members], T,
-                                     has_unpitched, stage)
-        with bundle.policy(bundle.extract_storage_dtype):
-            style, melody, rhythm = _raster_extract_latents(bundle.model,
-                                                            **inputs)
+        inputs, statics, Rs = _extract_inputs(
+            bundle, [songs[i] for i in members], T, has_unpitched, stage)
+        style, melody, rhythm = bundle.fn("raster_extract")(*inputs,
+                                                            **statics)
         for row, i in enumerate(members):
             locators[i] = (len(batches), row)
         batches.append(LatentBatch(style=style, melody=melody, rhythm=rhythm,
@@ -399,74 +725,219 @@ def extract_style(bundle: ModelBundle, song: Song):
     return batch.style, batch.melody, batch.rhythm, batch.n_bars[0]
 
 
+def _fits(capacity: int, count_p: int, count_u: int, live_p: int,
+          live_u: int) -> bool:
+    """Do the record counts and the live-block counts fit a compaction
+    tier?"""
+    blocks_p, blocks_u = _block_capacities(capacity)
+    return (count_p <= capacity and count_u <= capacity // 4
+            and live_p <= blocks_p and live_u <= blocks_u)
+
+
+def _header_table(buf: np.ndarray, B: int, Cb: int, pool) -> np.ndarray:
+    """The (B, 8) header rows of a fetched fused buffer."""
+    if pool is None:
+        return buf[:B, :_HDR]
+    return buf[:B * (_HDR + Cb)].reshape(B, _HDR + Cb)[:, :_HDR]
+
+
+def unpack_job_records(buf: np.ndarray, B: int, Cb: int, capacity: int,
+                       pool):
+    """A fetched fused buffer (uint32) as B per-job views ``(header (8,),
+    picked (Cb,) int32, rec_p (count_p, 2), rec_u (count_u, 2))``, in
+    either layout (mst_tpu/transfer.py:944-974)."""
+    out = []
+    if pool is None:
+        base = _HDR + Cb
+        for b in range(B):
+            row = buf[b]
+            hdr = row[:_HDR]
+            picked = np.ascontiguousarray(row[_HDR:_HDR + Cb]).view(np.int32)
+            cp, cu = int(hdr[4]), int(hdr[5])
+            out.append((hdr, picked,
+                        row[base:base + capacity * 2].reshape(-1, 2)[:cp],
+                        row[base + capacity * 2:].reshape(-1, 2)[:cu]))
+        return out
+    hdrs = buf[:B * (_HDR + Cb)].reshape(B, _HDR + Cb)
+    rec_base = B * (_HDR + Cb)
+    rec_p = buf[rec_base:rec_base + pool[0] * 2].reshape(-1, 2)
+    rec_u = buf[rec_base + pool[0] * 2:].reshape(-1, 2)
+    off_p = off_u = 0
+    for b in range(B):
+        hdr = hdrs[b, :_HDR]
+        picked = np.ascontiguousarray(hdrs[b, _HDR:]).view(np.int32)
+        cp, cu = int(hdr[4]), int(hdr[5])
+        out.append((hdr, picked, rec_p[off_p:off_p + cp],
+                    rec_u[off_u:off_u + cu]))
+        off_p += cp
+        off_u += cu
+    return out
+
+
+def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
+                   rhythm_mat, style_idx, comp_idx, n_instruments_list,
+                   n_bars_list, Cb: int, host_work=None, dispatch=None):
+    """Run the fused apply program for B (style row, composition row) jobs,
+    escalating through the capacity ladder until every job's output fits
+    (mst_tpu/transfer.py:977-1095), and fetch its buffer (the one wait
+    for the device).
+
+    - The ladder starts at the sticky ``capacity_hint`` and breaks to the
+      next tier when a job's record or live-block counts do not fit; the
+      hint then becomes the smallest tier the counts fit (it may step
+      back down).
+    - Through the record pool, a total above the pool tier runs the
+      program again at the exact tier (the header sums are exact).
+    - When the routing table overflows at the top tier while the records
+      fit, the dense compaction runs, and its true counts are checked
+      again (an overflowed table under-reports them).
+    - Counts beyond the top tier raise ``OverflowError``: the compaction
+      has already dropped records.
+
+    ``host_work`` runs once, after the first program is launched and before
+    its buffer is fetched. ``dispatch``: ``(job_rows, capacity, dense,
+    pool) -> device buffer``, the program to run (default ``fused:...``
+    on the given latents; the one-program request passes
+    ``transfer_fused:...``). Returns ``(buf, capacity, pool)``, ``buf``
+    as uint32; ``unpack_job_records(buf, B, Cb, capacity, pool)`` splits
+    it."""
+    B = len(infos)
+
+    def rows(values, dtype):
+        return torch.tensor(list(values), dtype=dtype)
+
+    job_rows = (rows(style_idx, torch.int64), rows(comp_idx, torch.int64),
+                rows(n_instruments_list, torch.int64),
+                rows(n_bars_list, torch.int64),
+                rows([i.ticks_per_beat for i in infos], torch.float32))
+    if dispatch is None:
+        def dispatch(job_rows, capacity, dense, pool):
+            return bundle.fn(_program_key("fused", capacity, Cb, dense,
+                                          pool))(
+                style_mat, melody_mat, rhythm_mat, *job_rows)
+    use_pool = bundle.use_record_pool
+
+    def fetch(buf_dev):
+        return buf_dev.cpu().numpy().astype(np.uint32)
+
+    def pools_for(sum_p, sum_u):
+        if max(sum_p, sum_u) > POOL_TIERS[-1]:
+            return None  # beyond the top tier: the per-job rows
+        return (_pick_pool_tier(max(sum_p, 1)),
+                _pick_pool_tier(max(sum_u, 1)))
+
+    pool = pools_for(bundle.pool_hint_p or B * 2048,
+                     bundle.pool_hint_u or B * 512) if use_pool else None
+    ladder = [c for c in COMPACT_CAPACITIES if c >= bundle.capacity_hint] \
+        or [COMPACT_CAPACITIES[-1]]
+    for capacity in ladder:
+        while True:
+            buf_dev = dispatch(job_rows, capacity, False, pool)
+            if host_work is not None:
+                host_work()      # overlaps the device work launched above
+                host_work = None
+            buf = fetch(buf_dev)
+            hdr = _header_table(buf, B, Cb, pool)
+            count_p, count_u = int(hdr[:, 4].max()), int(hdr[:, 5].max())
+            live_p, live_u = int(hdr[:, 6].max()), int(hdr[:, 7].max())
+            sum_p, sum_u = int(hdr[:, 4].sum()), int(hdr[:, 5].sum())
+            if not _fits(capacity, count_p, count_u, live_p, live_u):
+                break            # the next capacity tier
+            if pool is not None and (sum_p > pool[0] or sum_u > pool[1]):
+                pool = pools_for(sum_p, sum_u)
+                continue
+            bundle.capacity_hint = next(
+                c for c in COMPACT_CAPACITIES
+                if _fits(c, count_p, count_u, live_p, live_u))
+            if use_pool:
+                bundle.pool_hint_p, bundle.pool_hint_u = sum_p, sum_u
+            return buf, capacity, pool
+    capacity = COMPACT_CAPACITIES[-1]
+    if count_p <= capacity and count_u <= capacity // 4:
+        # the records fit but the live-block routing table overflowed: the
+        # dense compaction, whose header carries the true counts
+        while True:
+            buf = fetch(dispatch(job_rows, capacity, True, pool))
+            hdr = _header_table(buf, B, Cb, pool)
+            count_p, count_u = int(hdr[:, 4].max()), int(hdr[:, 5].max())
+            sum_p, sum_u = int(hdr[:, 4].sum()), int(hdr[:, 5].sum())
+            if pool is None or (sum_p <= pool[0] and sum_u <= pool[1]):
+                break
+            pool = pools_for(sum_p, sum_u)
+    if count_p > capacity or count_u > capacity // 4:
+        raise OverflowError(
+            f"style application produced {count_p} pitched / {count_u} "
+            f"unpitched notes, beyond the largest compaction capacity "
+            f"{COMPACT_CAPACITIES[-1]}; the device compaction already "
+            f"dropped records, so decoding would silently lose notes")
+    if use_pool and pool is not None:
+        bundle.pool_hint_p, bundle.pool_hint_u = sum_p, sum_u
+    return buf, capacity, pool
+
+
 def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
                style_idx, comp_idx, n_instruments_list, n_bars_list,
                host_work=None):
-    """The device side of B (style row, composition row) jobs (mst_tpu's
-    _fused_transfer_apply): latent gathers, song-info prediction, the
-    instrument pick and feature gather, both appliers, packing and
-    compaction. ``host_work`` runs once the device work is queued and before
-    its results are read. Returns per-job views ``(header (6,) uint32 —
-    mst_tpu's header fields (transfer.py:108) [bpm, mode, n_picked,
-    has_unpitched, count_p, count_u] without its TPU routing counts,
-    picked (Cb,) int32, rec_p (count_p, 2) uint32, rec_u (count_u, 2)
-    uint32)`` and the apply channel bucket Cb. Runs at fp32 storage."""
-    with bundle.policy():
-        return _apply_jobs(bundle, infos, style_mat, melody_mat, rhythm_mat,
-                           style_idx, comp_idx, n_instruments_list,
-                           n_bars_list, host_work)
+    """The device side of B (style row, composition row) jobs: the ``fused``
+    program through the capacity ladder (``run_fused_jobs``), at fp32
+    storage. ``host_work`` runs once the program is launched and before
+    its buffer is fetched. Returns per-job views ``(header (8,) uint32 —
+    [bpm, mode, n_picked, has_unpitched, count_p, count_u, live_blocks_p,
+    live_blocks_u], mst_tpu's header (transfer.py:108) — picked (Cb,)
+    int32, rec_p (count_p, 2) uint32, rec_u (count_u, 2) uint32)`` and the
+    apply channel bucket Cb."""
+    Cb = _bucket(max(max(n_instruments_list), 1), CHANNEL_BUCKETS)
+    buf, capacity, pool = run_fused_jobs(
+        bundle, infos, style_mat, melody_mat, rhythm_mat, style_idx,
+        comp_idx, n_instruments_list, n_bars_list, Cb, host_work=host_work)
+    return unpack_job_records(buf, len(infos), Cb, capacity, pool), Cb
 
 
-def _apply_jobs(bundle, infos, style_mat, melody_mat, rhythm_mat, style_idx,
-                comp_idx, n_instruments_list, n_bars_list, host_work):
-    dev = bundle.device
-    model = bundle.model
-    B = len(infos)
+def _write_jobs(infos, views, Cb: int, Rb: int, T: int, save_paths,
+                stage=_untimed) -> None:
+    """Decode each job's records and write its ``.mid``."""
+    for info, view, path in zip(infos, views, save_paths):
+        with stage(STAGE_PACKED_DECODE):
+            mid = _packed_job_midi(info, *view, Cb, Rb, T)
+        with stage(STAGE_STYLED):
+            _write_midi(mid, path)
+
+
+def _apply_batch(bundle: ModelBundle, infos, style_mat, melody_mat,
+                 rhythm_mat, style_idx, comp_idx, n_instruments_list,
+                 save_paths, n_bars_list, host_work=None,
+                 stage=_untimed) -> None:
+    """The ``fused`` program for B jobs on extracted latents, each job's
+    records decoded to its ``.mid`` (mst_tpu/transfer.py:1098-1110)."""
+    with stage(STAGE_APPLY), torch.inference_mode():
+        views, Cb = apply_jobs(bundle, infos, style_mat, melody_mat,
+                               rhythm_mat, style_idx, comp_idx,
+                               n_instruments_list, n_bars_list, host_work)
+    _write_jobs(infos, views, Cb, rhythm_mat.shape[1], rhythm_mat.shape[2],
+                save_paths, stage)
+
+
+def _apply_batch_fused(bundle: ModelBundle, infos, ext_inputs, ext_statics,
+                       style_idx, comp_idx, n_instruments_list, save_paths,
+                       n_bars_list, host_work=None, stage=_untimed) -> None:
+    """``_apply_batch`` as one program that also rasterizes and extracts
+    the latents (``transfer_fused:...``, mst_tpu/transfer.py:1113-1137),
+    through the same ladder."""
     Cb = _bucket(max(max(n_instruments_list), 1), CHANNEL_BUCKETS)
 
-    def rows(values, dtype):
-        return torch.tensor(list(values), dtype=dtype, device=dev)
+    def dispatch(job_rows, capacity, dense, pool):
+        return bundle.fn(_program_key("transfer_fused", capacity, Cb, dense,
+                                      pool))(
+            *ext_inputs, *job_rows, **ext_statics)
 
-    tpb = rows([i.ticks_per_beat for i in infos], torch.float32)
-    n_inst = rows(n_instruments_list, torch.int64)
-    bars = rows(n_bars_list, torch.int64)
-    style = style_mat[rows(style_idx, torch.int64)]
-    melody = melody_mat[rows(comp_idx, torch.int64)]
-    rhythm = rhythm_mat[rows(comp_idx, torch.int64)]
-
-    inst_logits, mode_pred, bpm_pred = model.predict_song_info(
-        style, rhythm, bar_lengths=bars)
-    picked, n_picked, has_unpitched = _pick_instruments(inst_logits, n_inst,
-                                                        Cb)
-    instf = torch.where((picked >= 0)[..., None],
-                        bundle._feature_table[picked.clamp(min=0)], 0.0)
-    x_p, x_u = model.apply_style(style, melody, rhythm, instf, True)
-    if host_work is not None:
-        host_work()      # overlaps the queued device work above
-    tpb_b = tpb.reshape((B,) + (1,) * 5)
-    count_p, cell_p, word_p = _compact(_pack_word(x_p, tpb_b), n_picked,
-                                       bars)
-    count_u, cell_u, word_u = _compact(_pack_word(x_u, tpb_b),
-                                       has_unpitched.to(torch.int64), bars)
-    header = torch.stack([
-        torch.round(bpm_pred).to(torch.int64),
-        torch.argmax(mode_pred, dim=-1),
-        n_picked, has_unpitched.to(torch.int64), count_p, count_u], dim=1)
-
-    header, picked = header.cpu().numpy(), picked.cpu().numpy()
-    rec_p = np.stack([cell_p.cpu().numpy(), word_p.cpu().numpy()], axis=1)
-    rec_u = np.stack([cell_u.cpu().numpy(), word_u.cpu().numpy()], axis=1)
-    rec_p, rec_u = rec_p.astype(np.uint32), rec_u.astype(np.uint32)
-    views = []
-    off_p = off_u = 0
-    for b in range(B):
-        cp, cu = int(header[b, 4]), int(header[b, 5])
-        views.append((header[b].astype(np.uint32),
-                      picked[b].astype(np.int32),
-                      rec_p[off_p:off_p + cp], rec_u[off_u:off_u + cu]))
-        off_p += cp
-        off_u += cu
-    return views, Cb
+    with stage(STAGE_APPLY), torch.inference_mode():
+        buf, capacity, pool = run_fused_jobs(
+            bundle, infos, None, None, None, style_idx, comp_idx,
+            n_instruments_list, n_bars_list, Cb, host_work=host_work,
+            dispatch=dispatch)
+        views = unpack_job_records(buf, len(infos), Cb, capacity, pool)
+    _write_jobs(infos, views, Cb, ext_statics["Rb"], ext_statics["T"],
+                save_paths, stage)
 
 
 def _free_channels(n: int) -> List[int]:
@@ -543,15 +1014,6 @@ def save_packed_channels(rasterizer: Rasterizer, packed_p, packed_u,
                             *instruments_data, max_delta_time=1), save_path)
 
 
-def _decode_packed_job(info: SongInfo, header: np.ndarray, picked_all,
-                       rec_p: np.ndarray, rec_u: np.ndarray, Cb: int, Rb: int,
-                       T: int, save_path: str) -> None:
-    """Decode one job's records (one ``apply_jobs`` view) to a .mid file
-    (mst_tpu/transfer.py:1140-1192)."""
-    _write_midi(_packed_job_midi(info, header, picked_all, rec_p, rec_u, Cb,
-                                 Rb, T), save_path)
-
-
 def _write_midi(mid, save_path: str) -> None:
     os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
     native.write_midi_file(save_path, mid)
@@ -560,8 +1022,9 @@ def _write_midi(mid, save_path: str) -> None:
 def _packed_job_midi(info: SongInfo, header: np.ndarray, picked_all,
                      rec_p: np.ndarray, rec_u: np.ndarray, Cb: int, Rb: int,
                      T: int):
-    """The MIDI object of one job's records: ``_decode_packed_job``
-    without the write. Sets ``info``'s tempo and scale from the header."""
+    """The MIDI object of one job's records (one ``unpack_job_records``
+    view), mst_tpu's _decode_packed_job (transfer.py:1140-1192) without the
+    write. Sets ``info``'s tempo and scale from the header."""
     info.tempo = bpm2tempo(int(header[0]))
     info.scale = Scale(tonic=info.scale.tonic, is_minor=bool(header[1] == 1))
     rasterizer = Rasterizer(info)
@@ -627,7 +1090,8 @@ def apply_styles(bundle: ModelBundle, infos: Sequence[SongInfo], styles,
                  ) -> None:
     """Batched apply_style (mst_tpu/transfer.py:909-925): B jobs whose
     latents (each with a batch axis of 1, tensors or arrays) share one
-    (Rb, T) bucket run as one ``apply_jobs`` batch; job b is written to
+    (Rb, T) bucket run as one ``fused`` program (``apply_jobs``, through
+    the capacity ladder); job b is written to
     ``save_paths[b]``. Like mst_tpu's, the decode sets each info's tempo
     and scale to the predicted ones."""
     strict_fp32()
@@ -639,12 +1103,9 @@ def apply_styles(bundle: ModelBundle, infos: Sequence[SongInfo], styles,
 
     style, melody, rhythm = batch(styles), batch(melodies), batch(rhythms)
     idx = list(range(len(infos)))
-    with torch.inference_mode():
-        views, Cb = apply_jobs(bundle, list(infos), style, melody, rhythm,
-                               idx, idx, n_instruments_list, n_bars_list)
-    for info, view, path in zip(infos, views, save_paths):
-        _decode_packed_job(info, *view, Cb, rhythm.shape[1], rhythm.shape[2],
-                           path)
+    _apply_batch(bundle, list(infos), style, melody, rhythm, idx, idx,
+                 list(n_instruments_list), list(save_paths),
+                 list(n_bars_list))
 
 
 def combine_info(style_info: SongInfo, melody_info: SongInfo) -> SongInfo:
@@ -665,17 +1126,22 @@ def transfer_style(bundle: ModelBundle, composition_path, style_paths,
 def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
                     output_path, stage=None) -> List[str]:
     """Batched transfer_style over many compositions (same per-song outputs
-    and file layout as mst_tpu.transfer.transfer_styles).
+    and file layout as mst_tpu.transfer.transfer_styles, transfer.py:
+    1245-1374).
 
-    All compositions and styles are latent-extracted in batches grouped by
-    (beats-per-bar, percussion presence); all (reconstructed + styled) apply
-    jobs of one composition group run as one batch. The originals' decode
-    overlaps the first group's apply.
+    When every song shares one extraction bucket (beats per bar,
+    percussion presence) and ``bundle.fuse_requests`` is set, the whole
+    request is one program, ``transfer_fused``: extraction and the apply of
+    every (reconstructed and styled) job. Otherwise the songs are extracted
+    in batches grouped by that bucket (``raster_extract`` each) and the jobs
+    of one composition group are one ``fused`` apply. The originals' decode
+    overlaps the first group's program.
 
     ``stage``: a ``runtime.profile.StageTimer`` that times the request by
-    ``REQUEST_STAGES`` (tools/profile_transfer_torch.py). The originals
-    are then decoded alone, between the extraction and the apply, so that
-    no stage hides another; the files are the same."""
+    ``REQUEST_STAGES`` (tools/profile_transfer_torch.py, which runs with
+    ``fuse_requests=False`` to time extraction and apply apart). The
+    originals are then decoded alone, between the extraction and the
+    apply, so that no stage hides another; the files are the same."""
     strict_fp32()
     timed = stage is not None
     stage = stage or _untimed
@@ -691,10 +1157,24 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     songs = [s for _, s in loaded]
     comps = songs[:len(composition_paths)]
     style_songs = songs[len(composition_paths):]
+    group_keys = {(s.info.n_beats, s.unpitched_shape is not None)
+                  for s in songs}
+    fuse = bundle.fuse_requests and len(group_keys) == 1
 
     with stage(STAGE_EXTRACT_DISPATCH, sync=False), torch.inference_mode():
-        batches, locators = extract_styles(bundle, comps + style_songs,
-                                           stage)
+        if fuse:
+            T, has_unpitched = next(iter(group_keys))
+            ext_inputs, ext_statics, Rs = _extract_inputs(
+                bundle, songs, T, has_unpitched, stage)
+            locators = [(0, i) for i in range(len(songs))]
+            style_rows = list(range(len(songs)))
+            n_bars = [Rs]
+        else:
+            batches, locators = extract_styles(bundle, songs, stage)
+            offset = np.cumsum([0] + [b.style.shape[0] for b in batches])
+            style_rows = [int(offset[g]) + row for g, row in locators]
+            n_bars = [b.n_bars for b in batches]
+            style_mat = torch.cat([b.style for b in batches], dim=0)
     names, style_names = song_names(composition_paths), song_names(style_paths)
     host_work = functools.partial(write_originals, comps, style_songs, names,
                                   style_names, output_path)
@@ -705,23 +1185,19 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
             host_work()
         host_work = None
     with stage(STAGE_APPLY):
-        style_mat, jobs_per_group, written = plan_jobs(
-            comps, style_songs, batches, locators, names, style_names,
-            output_path)
+        jobs_per_group, written = plan_jobs(
+            comps, style_songs, locators, style_rows, n_bars, names,
+            style_names, output_path)
     for g, jobs in jobs_per_group.items():
-        s_idx, c_idx, infos, n_inst, bars, paths = zip(*jobs)
-        rhythm = batches[g].rhythm
-        with stage(STAGE_APPLY), torch.inference_mode():
-            views, Cb = apply_jobs(bundle, list(infos), style_mat,
-                                   batches[g].melody, rhythm, s_idx, c_idx,
-                                   n_inst, bars, host_work=host_work)
+        s_idx, c_idx, infos, n_inst, bars, paths = map(list, zip(*jobs))
+        if fuse:
+            _apply_batch_fused(bundle, infos, ext_inputs, ext_statics, s_idx,
+                               c_idx, n_inst, paths, bars, host_work, stage)
+        else:
+            _apply_batch(bundle, infos, style_mat, batches[g].melody,
+                         batches[g].rhythm, s_idx, c_idx, n_inst, paths,
+                         bars, host_work, stage)
         host_work = None
-        for info, view, path in zip(infos, views, paths):
-            with stage(STAGE_PACKED_DECODE):
-                mid = _packed_job_midi(info, *view, Cb, rhythm.shape[1],
-                                       rhythm.shape[2])
-            with stage(STAGE_STYLED):
-                _write_midi(mid, path)
     if host_work is not None:  # no apply jobs at all
         host_work()
     return written
@@ -757,35 +1233,27 @@ def write_originals(comps: Sequence[Song], style_songs: Sequence[Song],
                     fh.write(style_original_bytes[j])
 
 
-def plan_jobs(comps: Sequence[Song], style_songs: Sequence[Song],
-              batches: Sequence[LatentBatch], locators, names, style_names,
-              output_path):
+def plan_jobs(comps: Sequence[Song], style_songs: Sequence[Song], locators,
+              style_rows, n_bars, names, style_names, output_path):
     """``transfer_styles``' apply jobs, grouped by the composition's latent
     batch (which fixes Rb and T): each composition's reconstruction, then
-    one job per style. Returns ``(style_mat, jobs_per_group, written)``:
-    the style vectors of every batch as one matrix, ``{group: [(style
-    row, composition row, info, n_instruments, n_bars, path), ...]}``, and
-    every path the request writes, in its return order."""
-    comp_loc = locators[:len(comps)]
-    style_loc = locators[len(comps):]
-    # global style-vector matrix: batch g's rows start at style_offset[g]
-    style_offset = np.cumsum([0] + [b.style.shape[0] for b in batches])
-    style_mat = torch.cat([b.style for b in batches], dim=0)
-
-    def style_row(loc):
-        return int(style_offset[loc[0]]) + loc[1]
-
+    one job per style. ``locators[i]`` is song i's (batch, row) (the
+    compositions first, then the styles), ``style_rows[i]`` its row of the
+    style matrix, ``n_bars[g][row]`` the real bar count of a batch's row.
+    Returns ``(jobs_per_group, written)``: ``{group: [(style row,
+    composition row, info, n_instruments, n_bars, path), ...]}``, and every
+    path the request writes, in its return order."""
+    style_of = style_rows[len(comps):]
     written = []
     jobs_per_group = {}
     for i, comp in enumerate(comps):
-        g, row = comp_loc[i]
+        g, row = locators[i]
         out_dir = os.path.join(str(output_path), names[i])
         jobs = jobs_per_group.setdefault(g, [])
         reconstructed = os.path.join(out_dir,
                                      f"{names[i]} (reconstructed).mid")
-        jobs.append((style_row(comp_loc[i]), row, comp.info,
-                     len(comp.instruments), batches[g].n_bars[row],
-                     reconstructed))
+        jobs.append((style_rows[i], row, comp.info, len(comp.instruments),
+                     n_bars[g][row], reconstructed))
         written += [os.path.join(out_dir, f"original/{names[i]}.mid"),
                     reconstructed]
         for j, style_song in enumerate(style_songs):
@@ -793,12 +1261,11 @@ def plan_jobs(comps: Sequence[Song], style_songs: Sequence[Song],
                                 melody_info=comp.info)
             path = os.path.join(
                 out_dir, f"{names[i]} ({style_names[j]} style).mid")
-            jobs.append((style_row(style_loc[j]), row, info,
-                         len(style_song.instruments),
-                         batches[g].n_bars[row], path))
+            jobs.append((style_of[j], row, info, len(style_song.instruments),
+                         n_bars[g][row], path))
             written += [os.path.join(out_dir,
                                      f"original/{style_names[j]}.mid"), path]
-    return style_mat, jobs_per_group, written
+    return jobs_per_group, written
 
 
 def transfer_and_evaluate(bundle: ModelBundle, composition_path, style_paths,

@@ -3,7 +3,7 @@ mst_tpu's jaxpr count (mst_tpu.runtime.flops), on the CPU.
 
 Every case feeds the same numpy inputs (and, through
 ``weights.state_dict_from_flax``, the same parameters) to both packages
-and requires equal counts, as integers. Three programs count otherwise,
+and requires equal counts, as integers. Two programs count otherwise,
 each for a reason named where it is tested and pinned exactly:
 
 - a recurrence's gradient: JAX's transposed scan forms the cotangent of the
@@ -11,11 +11,6 @@ each for a reason named where it is tested and pinned exactly:
   which the program then drops); torch's autograd forms no gradient for a
   tensor that needs none. JAX counts 2 K N H 4H more per recurrence of K
   directions over N rows with H units;
-- a transfer request: JAX's compaction takes each job's inclusive prefix
-  sums as one (G, 128) @ (128, 128) matmul per note family
-  (mst_tpu/transfer.py:187-188), where the port calls ``torch.nonzero``
-  (a deliberate difference of the serving path). JAX counts
-  2 G 128 128 more per job and family, G = ceil(cells / 128);
 - a strided convolution's input gradient (which no step of the model
   takes: its input is the raster): JAX counts the transposed convolution
   over the stride-dilated cotangent as a dense one, 2 N C_in W_in C_out K;
@@ -24,7 +19,6 @@ each for a reason named where it is tested and pinned exactly:
 The note-grid tail counts 0 on every route in both packages.
 """
 
-import math
 
 import jax
 import jax.numpy as jnp
@@ -412,25 +406,17 @@ def test_train_step_flops_scale_with_bars(narrow_params):
 
 # ------------------------------------------------------ the transfer
 
-def _compaction_flops(n_jobs, Cb, Rb, T, has_unpitched):
-    """JAX's prefix-sum matmuls of one apply dispatch: per job, one
-    (G, 128) @ (128, 128) product per note family (mst_tpu/transfer.py:
-    183-188)."""
-    blocks = math.ceil(Cb * Rb * T * 10 * 56 / 128)
-    if has_unpitched:
-        blocks += math.ceil(Rb * T * 10 * 47 / 128)
-    return n_jobs * blocks * 2 * 128 * 128
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_transfer_request_count(tmp_path, dtype):
     """A narrow request, two compositions with percussion in one style
     (mst_tpu's single fused program; 4 apply jobs at Cb 8, Rb 64, T 4):
     ``count_matmul_flops(transfer_styles, ...)`` against
     ``replay_log_flops`` of mst_tpu's call log, on the same songs and
-    weights (the velocity bias sparsified, as ``demo_params``). The log is
-    taken on a second request, so that the capacity ladder (which the port
-    does not have) dispatches once."""
+    weights (the velocity bias sparsified, as ``demo_params``), equal: both
+    compactions take each job's inclusive block prefixes as one (G, 128) @
+    (128, 128) product per note family (mst_tpu/transfer.py:187-188). Each
+    side is counted on a second request, so that its capacity ladder,
+    started from the first request's hints, dispatches once."""
     from tests.test_torch_transfer import _write_songs
 
     j_model = JModel(JModelConfig(**NARROW, compute_dtype=dtype))
@@ -453,10 +439,13 @@ def test_transfer_request_count(tmp_path, dtype):
     assert [key.split(":")[0] for key, _, _ in j_bundle.call_log] == \
         ["transfer_fused"]
     want = jf.replay_log_flops(j_bundle._raw, j_bundle.call_log)
+    tt.transfer_styles(t_bundle, comps, styles, str(tmp_path / "warm_t"))
+    runs = sum(t_bundle.programs.runs.values())
     got = flops.count_matmul_flops(tt.transfer_styles, t_bundle, comps,
                                    styles, str(tmp_path / "torch"))
+    assert sum(t_bundle.programs.runs.values()) == runs + 1
     assert got > 0
-    assert want - got == _compaction_flops(4, 8, 64, 4, True)
+    assert got == want
 
 
 # ------------------------------------------------------------ the peaks

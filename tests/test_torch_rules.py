@@ -8,9 +8,12 @@
   raise rather than run quietly on the CPU.
 - A CUDA kernel's wrapper takes its plain version only for CPU tensors;
   for any other tensor it launches the kernel or raises.
+- A program whose CUDA graph capture fails raises; it never runs eagerly
+  on the card in the graph's place.
 """
 
 import ast
+import contextlib
 import os
 import subprocess
 import sys
@@ -19,8 +22,11 @@ import pytest
 import torch
 
 from mst_torch import transfer
+from mst_torch.config import ModelConfig
 from mst_torch.models import StyleTransferModel
 from mst_torch.ops import cuda_build, grid_kernel, raster_kernel
+from mst_torch.runtime import programs
+from tests.test_torch_model import NARROW
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(ROOT, "tools")
@@ -42,7 +48,8 @@ def test_import_pulls_in_no_jax():
             "mst_torch.utils, mst_torch.runtime.ref_checkpoint, "
             "mst_torch.parallel, mst_torch.parallel.seq_lstm, "
             "mst_torch.runtime.flops, mst_torch.ops.flop_scope, "
-            "mst_torch.runtime.profile, parse_profile_torch, "
+            "mst_torch.runtime.profile, mst_torch.runtime.programs, "
+            "parse_profile_torch, "
             "profile_transfer_torch, profile_transfer_device_torch; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN_MODULES!r}]; "
@@ -155,6 +162,67 @@ def test_wrappers_raise_without_the_kernel_library(monkeypatch):
     with pytest.raises(OSError):
         grid_kernel.grid_tail_bwd(xo, xd, out, out, w, scale)
     assert [c.launches for c in counters] == before
+
+
+def test_failed_capture_raises_and_never_runs_eagerly(monkeypatch):
+    """A program of a card bundle with ``capture=True`` whose capture fails
+    raises, and its body runs only as the capture's warm-up, on the side
+    stream: never eagerly in the graph's place. The card is faked: its
+    streams and pool are stand-ins, the static inputs stay on the CPU,
+    and ``torch.cuda.graph`` refuses the capture."""
+    on_side_stream = [False]
+
+    class Stream:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def side(stream):
+        on_side_stream[0] = True
+        try:
+            yield
+        finally:
+            on_side_stream[0] = False
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "stream", side)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    monkeypatch.setattr(programs.Programs, "_static_input",
+                        lambda self, leaf: leaf.clone())
+    runs = []
+    body = transfer._raster_extract_latents
+
+    def recorded(*args, **kwargs):
+        runs.append("warm-up" if on_side_stream[0] else "eager")
+        return body(*args, **kwargs)
+
+    monkeypatch.setattr(transfer, "_raster_extract_latents", recorded)
+    bundle = transfer.ModelBundle(
+        model=StyleTransferModel(ModelConfig(**NARROW)), device="cpu")
+    bundle.programs = programs.Programs("cuda")
+    assert bundle.capture
+    song = transfer.get_model_input(os.path.join(
+        ROOT, "mst_torch", "assets", "smoke", "comp_0.mid"))[1]
+    inputs, statics, _ = transfer._extract_inputs(
+        bundle, [song], song.info.n_beats, song.unpitched_shape is not None)
+    before = [getattr(fn, attr) for fn, attr in programs.COUNTERS]
+    for attempt in (1, 2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            bundle.fn("raster_extract")(*inputs, **statics)
+        assert runs == ["warm-up"] * attempt
+    assert bundle.programs.graphs == {}
+    assert [getattr(fn, attr) for fn, attr in programs.COUNTERS] == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

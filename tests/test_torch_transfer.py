@@ -5,7 +5,8 @@
   to mst_tpu's, or differ only in fp32-boundary cells (mst_torch.parity,
   the rule of tests/test_e2e_reference_parity.py:241-273);
 - the packed words and the compaction records: bit-equal to mst_tpu's
-  ``_pack_word`` and ``_compact_song``;
+  ``_pack_word`` and ``_compact_song`` (the capacity tiers, the pool and
+  the ladder: tests/test_torch_fused.py);
 - the instrument pick, including the percussion-only top-2 escalation;
 - the committed npz equals a fresh restore of ``snapshots/``.
 """
@@ -120,20 +121,17 @@ def test_pack_word_and_compaction_match(N, F):
                                   want_word.astype(np.int64))
     assert (want_word != 0).any() and (want_word == 0).any()
 
-    counts, cells, words = tt._compact(got_word, torch.from_numpy(n_channels),
-                                       torch.from_numpy(n_bars))
-    offsets = np.concatenate([[0], np.cumsum(counts.numpy())])
+    count, live, rec = tt._compact_song(
+        got_word, torch.from_numpy(n_channels), torch.from_numpy(n_bars),
+        16384, 16384)
     for b in range(B):
-        count, _, rec = jt._compact_song(
+        want_count, want_live, want_rec = jt._compact_song(
             jnp.asarray(want_word[b]), int(n_channels[b]), int(n_bars[b]),
             16384, 16384)
-        count = int(count)
-        assert count == int(counts[b])
-        lo, hi = offsets[b], offsets[b + 1]
-        np.testing.assert_array_equal(cells[lo:hi].numpy(),
-                                      np.asarray(rec[:count, 0]))
-        np.testing.assert_array_equal(words[lo:hi].numpy(),
-                                      np.asarray(rec[:count, 1]))
+        assert int(count[b]) == int(want_count)
+        assert int(live[b]) == int(want_live)
+        np.testing.assert_array_equal(rec[b].numpy(),
+                                      np.asarray(want_rec).astype(np.int64))
 
 
 def test_pick_instruments_matches():

@@ -18,7 +18,10 @@ unless paths are given. The trace stays in ``--trace`` (default
 ``build/profile_transfer_device`` in the checkout) for
 ``tools/parse_profile_torch.py``. ``--device cpu`` summarizes the CPU ops
 instead (for the tests); the default is ``cuda``, and without a card it
-raises.
+raises. The bundle runs with ``capture=False``: a replayed CUDA graph
+carries no ``record_function`` scope, so ``summarize`` could not
+attribute its kernels to model components (mst_torch.runtime.programs);
+the requests are the same programs, run eagerly.
 """
 
 import argparse
@@ -54,7 +57,7 @@ def main(argv=None):
     comps, styles = smoke_request()
     comps = args.compositions or comps
     styles = args.styles or styles
-    bundle = ModelBundle.from_npz(device=args.device)
+    bundle = ModelBundle.from_npz(device=args.device, capture=False)
     device = bundle.device
     with tempfile.TemporaryDirectory() as out:
         with MatmulFlops() as count:

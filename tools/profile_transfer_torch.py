@@ -23,7 +23,12 @@ request runs stage 4 alone). Stages (``transfer.REQUEST_STAGES``):
    6a. packed-job decode, its records decoded to MIDI messages.
 
 On a CUDA device each stage waits for the card at its exit (stage 2 and
-2a excepted, so stage 3 owns the extraction's device work). Inputs: the
+2a excepted, so stage 3 owns the extraction's device work). The bundle
+runs with ``fuse_requests=False``, so that extraction and apply are
+programs of their own, and with ``capture=False``: its programs run
+eagerly, as their CUDA graphs would hide the launches that stages 2 and 5
+time (mst_torch.runtime.programs; a replayed graph carries no
+``record_function`` scope either). Inputs: the
 smoke request (``mst_torch/assets/smoke``: 3 compositions x 3 styles, 12
 jobs) unless paths are given. ``--device cpu`` runs the CPU port (for the
 tests); the default is ``cuda``, and without a card it raises. Files go
@@ -131,7 +136,8 @@ def main(argv=None):
     comps, styles = smoke_request()
     comps = args.compositions or comps
     styles = args.styles or styles
-    bundle = ModelBundle.from_npz(device=args.device)
+    bundle = ModelBundle.from_npz(device=args.device, fuse_requests=False,
+                                  capture=False)
     with tempfile.TemporaryDirectory() as tmp:
         result = profile_rounds(bundle, comps, styles, args.out or tmp,
                                 args.rounds)
