@@ -206,6 +206,29 @@ Phases (any failure exits non-zero):
    K1's bf16 form twice in a replay and writes phase 5's bf16 request's
    files. It prints the graphs held and the peak device memory.
 
+15. The captured training step (mst_torch.runtime.train on
+   mst_torch.runtime.programs): phases 7-11 run the step eagerly
+   (``capture=False``); here, from the seed-108 init on the smoke songs,
+   a captured state and an eager one take the same calls in turns, and
+   after every call their losses, and after every apply their parameters,
+   gradient buffers and Adam moments, must be bit-equal (or within
+   ``CAPTURE_RTOL``, the gap printed): 10 batch-1 micro-steps with the
+   rate decaying every 2 applies, in fp32 and under the bf16 policies; 3
+   bf16 ``remat`` micro-steps on one song; 3 ``k=2`` stacks. Every
+   captured call, counters at 0 first, must launch K2 and K3 once a
+   micro-step (K2 twice under remat: the recompute) and K1 never (the
+   batch is built before). It prints the ms per call, replayed, eager and
+   first calls (the real step and its capture), median and min-max; each
+   graph's capture cost; the graphs held; the peak memory; and, for a
+   traced replayed fp32 pair, the device-busy share and the host's launch
+   calls beside phase 7's eager pair. It checks that ``LambdaLR`` fills
+   Adam's tensor rate in place. ``train-model-torch.py --iters 12``,
+   captured and ``--no-capture``, must write the same CSV rows, and a
+   captured ``--resume`` to 16 must repeat the uninterrupted run's rows.
+   Phase 14's bundle replays one request with its ``call_log`` on:
+   ``replay_log_flops`` of the log must equal phase 12's count of the
+   request.
+
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -221,6 +244,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1_TOL = 0.0      # K1 is exact: a max of the same fp32 values
@@ -269,6 +293,11 @@ OTHER_SHARE_MAX = {"request": 0.25, "micro-step": 0.10}
 STAGE_SUM_RTOL = 0.1      # phase 13: stages' sum vs the staged wall time
 TRACE_TAKES = 3           # traces of a run, until one has every device record
 RANK_TIMEOUT = 600        # seconds the phase-10 and 11 ranks may take
+# phase 15: a replayed training step against the same step eager, relative
+# to the largest |value| of each loss vector and state tensor: the graph
+# holds the eager step's kernels on the same inputs, so bit-equal is
+# expected; any gap is printed with this bound
+CAPTURE_RTOL = 1e-6
 SEQ_CAPS = (40, 128)      # phase 11: comp_0 ends on seq rank 0, style_0 on 1
 SEQ_CB, SEQ_RB = 4, 128
 HBM_BYTES_PER_S = 3.35e12
@@ -1398,7 +1427,7 @@ def phase_train(torch, paths, tmp, bf16=False):
         batch = build(device)
         has_u = batch.unpitched is not None
         if has_u not in steps:
-            steps[has_u] = tr.make_train_step(config, has_u)
+            steps[has_u] = tr.make_train_step(config, has_u, capture=False)
         state, vec = steps[has_u](state, batch)
         return vec, has_u
 
@@ -1580,7 +1609,8 @@ def phase_remat(torch, paths):
             [song], tr.bucket_shape(song.n_channels, t.channel_buckets), Rb,
             bar_cap=[min(cap, Rb)], device="cuda", raster_dtype="bfloat16")
         has_u = batch.unpitched is not None
-        _, vec = tr.make_train_step(config, has_u)(state, batch)
+        _, vec = tr.make_train_step(config, has_u, capture=False)(state,
+                                                                  batch)
         torch.cuda.synchronize()
         launches = read_launches()
         grads = {n: p.grad.detach().clone()
@@ -1757,7 +1787,8 @@ def phase_parallel(torch, paths, tmp, smi):
                 t0 = time.perf_counter()
                 batch = group_batch(tr, songs, t, "cuda", mesh=m)
                 _, vec = tr.make_train_step(
-                    config, batch.unpitched is not None, mesh=m)(state, batch)
+                    config, batch.unpitched is not None, mesh=m,
+                    capture=False)(state, batch)
                 torch.cuda.synchronize()
                 if m is None:
                     walls.append(time.perf_counter() - t0)
@@ -1989,8 +2020,8 @@ def phase_seq(torch, paths, tmp, smi):
     for i in range(2):
         t0 = time.perf_counter()
         batch = seq_batch(tr, songs, "cuda")
-        _, vec = tr.make_train_step(config, batch.unpitched is not None)(
-            state, batch)
+        _, vec = tr.make_train_step(config, batch.unpitched is not None,
+                                    capture=False)(state, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if i == 0:
@@ -2238,10 +2269,13 @@ def files_against(root, want_root, label):
     return equal, len(names), boundary
 
 
-def phase_captured(torch, comps, styles, tmp, smi):
+def phase_captured(torch, comps, styles, tmp, smi, request_flops):
     """Phase 14: the serving programs captured as CUDA graphs and replayed
     (mst_torch.runtime.programs), on the 12-job request. Returns the
-    launches of one replayed request, by kernel form."""
+    launches of one replayed request, by kernel form. Then (phase 15's
+    ``call_log`` check) one more replayed request with the bundle's call
+    log on: ``replay_log_flops`` of it must equal ``request_flops``, phase
+    5's count of the request uncaptured."""
     import statistics
 
     from mst_torch import transfer as tr
@@ -2442,11 +2476,335 @@ def phase_captured(torch, comps, styles, tmp, smi):
         f"uncaptured one: {equal} of {n_files} files byte-equal, {boundary} "
         f"fp32-boundary note events")
 
+    # the call log of a replayed request, replayed uncaptured under the
+    # counter: a replay itself shows the counter nothing
+    from mst_torch.runtime.flops import replay_log_flops
+
+    held = len(programs.graphs)
+    bundle.call_log = calls = []
+    request(bundle, "replay_logged")
+    bundle.call_log = None
+    counted_flops = replay_log_flops(bundle, calls)
+    log(f"phase 15: call_log of a replayed 12-job request: "
+        f"{[key for key, _, _ in calls]}; replay_log_flops {counted_flops} "
+        f"matmul FLOPs, phase 12's count of the request uncaptured "
+        f"{request_flops}")
+    if counted_flops != request_flops or len(programs.graphs) != held:
+        raise AssertionError(f"phase 15: replay_log_flops {counted_flops} "
+                             f"!= {request_flops}")
+
     graphs = [g.key for b in (bundle, bf16) for g in b.programs.graphs.values()]
     log(f"phase 14: {len(graphs)} graphs held ({graphs}); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since "
         f"phase 14 began; phase 14 took {time.perf_counter() - t_phase:.1f} "
         f"s ({smi})")
+    return launches
+
+
+def _run_cli(args, label):
+    """``train-model-torch.py`` in a process of its own; its stdout."""
+    proc = subprocess.run([sys.executable, os.path.join(
+        ROOT, "train-model-torch.py")] + args, cwd=ROOT, capture_output=True,
+        text=True, timeout=RANK_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15: {label} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _csv(path):
+    import csv
+    with open(path) as fh:
+        return list(csv.DictReader(fh))
+
+
+def phase_train_captured(torch, paths, tmp, smi):
+    """Phase 15: the training step captured as CUDA graphs and replayed
+    (mst_torch.runtime.train on mst_torch.runtime.programs), against the
+    same step eager, in turns, from the same seed-108 init on the smoke
+    songs. Returns the launches of one replayed fp32 micro-step and one
+    bf16 micro-step, by kernel form."""
+    import statistics
+
+    from mst_torch.config import Config, ModelConfig, TrainConfig
+    from mst_torch.runtime import train as tr
+    from mst_torch.runtime.metrics import profiler_trace
+    from mst_torch.runtime.profile import summarize
+    from mst_torch.transfer import get_model_input
+
+    t_phase = time.perf_counter()
+    tr.reproducible_backends()
+    songs = [get_model_input(p)[1] for p in paths]
+    names = [name for name, _, _ in _counters()]
+    # the scheduler on a tensor rate: torch fills it in place (or replaces
+    # it, which would leave a graph reading a stale rate)
+    probe = tr.create_train_state(Config(), device="cuda", seed=0)
+    rate = probe.optimizer.param_groups[0]["lr"]
+    with warnings.catch_warnings():
+        # stepping the schedule alone: torch warns that no step ran
+        warnings.simplefilter("ignore")
+        probe.scheduler.step()
+    kept = probe.optimizer.param_groups[0]["lr"] is rate
+    log(f"phase 15: torch {torch.__version__}: LambdaLR.step() "
+        f"{'fills the tensor rate in place' if kept else 'REPLACES the tensor rate'}"
+        f"; Adam capturable {probe.optimizer.param_groups[0]['capturable']}"
+        f", step count on {probe.optimizer.state[next(probe.model.parameters())]['step'].device}")
+    if not kept:
+        raise AssertionError("phase 15: the scheduler replaced the tensor "
+                             "rate")
+    del probe
+
+    def batch_of(group, config):
+        """The batch of ``group`` (songs that share beats-per-bar), bucketed
+        and capped as train-model-torch.py does."""
+        return group_batch(tr, group, config.train, "cuda",
+                           config.model.storage_dtype)
+
+    def same(a, b):
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    def param_gap(a, b):
+        """(bit-equal, largest |difference| relative to the leaf's largest
+        |value|) over parameters, gradient buffers and Adam moments."""
+        equal, gap = True, 0.0
+        for p, q in zip(a.model.parameters(), b.model.parameters()):
+            sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+            for x, y in ((p, q), (p.grad, q.grad),
+                         (sa["exp_avg"], sb["exp_avg"]),
+                         (sa["exp_avg_sq"], sb["exp_avg_sq"])):
+                if not same(x.detach(), y.detach()):
+                    equal = False
+                    gap = max(gap, _rel_err(x.detach(), y.detach()))
+        return equal, gap
+
+    def run_pair(label, config, plan, k=1, want=None, trace=None):
+        """Each (songs) call of ``plan`` on a captured state and on an eager
+        one, in turns; losses after every call and the whole state after
+        every apply against each other. ``want``: the launches of every
+        captured call (counters at 0 first). Returns a summary."""
+        states = {m: tr.create_train_state(config, device="cuda", seed=108)
+                  for m in ("captured", "eager")}
+        make = tr.make_train_step if k == 1 else (
+            lambda c, u, capture: tr.make_multi_train_step(
+                c, u, k, capture=capture))
+        fns = {}
+        times = {"replay": [], "capture": [], "eager": []}
+        full = {"replay": [], "eager": []}
+        peaks = {"captured": 0, "eager": 0}
+        worst, equal_all = 0.0, True
+        for i, group in enumerate(plan):
+            vecs = {}
+            for mode in ("captured", "eager"):
+                state = states[mode]
+                t_full = time.perf_counter()
+                batch = batch_of(group, config)
+                has_u = batch.unpitched is not None
+                if (mode, has_u) not in fns:
+                    fns[mode, has_u] = make(config, has_u,
+                                            capture=mode == "captured")
+                graphs = (0 if state.programs is None
+                          else len(state.programs.graphs))
+                applies = state.opt_step
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t0 = time.perf_counter()
+                _, vec = fns[mode, has_u](state, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                peaks[mode] = max(peaks[mode],
+                                  torch.cuda.max_memory_allocated())
+                vecs[mode] = vec
+                vec.cpu()
+                dt_full = time.perf_counter() - t_full
+                got = read_launches()
+                if mode == "eager":
+                    times["eager"].append(dt)
+                    full["eager"].append(dt_full)
+                    continue
+                captured = len(state.programs.graphs) > graphs
+                times["capture" if captured else "replay"].append(dt)
+                if not captured:
+                    full["replay"].append(dt_full)
+                if want is not None and got != {n: want.get(n, 0)
+                                                 for n in names}:
+                    raise AssertionError(f"phase 15: {label} call {i} "
+                                         f"launched {got}, want {want}")
+                applied = state.opt_step > applies
+            if not same(vecs["captured"], vecs["eager"]):
+                equal_all = False
+                worst = max(worst, _rel_err(vecs["captured"].cpu(),
+                                            vecs["eager"].cpu()))
+            if applied:
+                equal, gap = param_gap(states["captured"], states["eager"])
+                equal_all &= equal
+                worst = max(worst, gap)
+        reserved = torch.cuda.memory_reserved() / 2 ** 30
+        cap = states["captured"]
+        graphs = list(cap.programs.graphs.items())
+        if (cap.micro_step, cap.opt_step) != (states["eager"].micro_step,
+                                              states["eager"].opt_step):
+            raise AssertionError(f"phase 15: {label}: counters differ")
+        log(f"phase 15: {label}: {len(plan)} calls, captured against eager "
+            f"in turns: losses after every call and the state after every "
+            f"apply {'bit-equal' if equal_all else f'differ by {worst:.3g} relative (bound {CAPTURE_RTOL})'}"
+            f"; {len(graphs)} graphs held; peak device memory allocated "
+            f"in a call: captured {peaks['captured'] / 2 ** 30:.3f} GiB "
+            f"(a replay allocates nothing: its work lies in the graphs' "
+            f"pool), eager {peaks['eager'] / 2 ** 30:.3f} GiB; "
+            f"{reserved:.3f} GiB reserved in all ({smi})")
+        if not worst <= CAPTURE_RTOL:
+            raise AssertionError(f"phase 15: {label}: captured and eager "
+                                 f"differ by {worst} > {CAPTURE_RTOL}")
+        for ckey, g in graphs:
+            shapes = [sig[0] for sig in ckey[2] if sig is not None][:3]
+            log(f"  graph {g.key} {dict(ckey[3])} inputs {shapes}: "
+                f"capture cost: first (real) step {g.warmup_s * 1e3:.3f} ms "
+                f"+ capture {g.capture_s * 1e3:.3f} ms; a replay launches "
+                f"{dict((n, c) for n, c in zip(names, g.launches) if c)}")
+
+        def spread(v):
+            if not v:
+                return "none"
+            return (f"median {statistics.median(v) * 1e3:.3f} ms (min "
+                    f"{min(v) * 1e3:.3f}, max {max(v) * 1e3:.3f}, n "
+                    f"{len(v)})")
+
+        log(f"  ms per call: replayed {spread(times['replay'])}; eager "
+            f"{spread(times['eager'])}; first calls (real step + capture) "
+            f"{spread(times['capture'])}")
+        log(f"  with the batch build and the loss fetch: replayed "
+            f"{spread(full['replay'])}; eager {spread(full['eager'])} "
+            f"({smi})")
+        return dict(states=states, fns=fns)
+
+    def policy(bf16):
+        return (dict(storage_dtype="bfloat16", compute_dtype="bfloat16")
+                if bf16 else {})
+
+    # 10 batch-1 micro-steps, iter_size 2, the rate decaying every 2 applies
+    plan = [[songs[i % len(songs)]] for i in range(10)]
+    launches = {}
+    results = {}
+    for bf16 in (False, True):
+        config = Config(model=ModelConfig(**policy(bf16)),
+                        train=TrainConfig(lr_decay_every=2))
+        sfx = "_bf16" if bf16 else ""
+        want = {"grid_tail" + sfx: 1, "grid_tail_bwd" + sfx: 1}
+        label = f"10 batch-1 {'bf16' if bf16 else 'fp32'} micro-steps"
+        results[bf16] = run_pair(label, config, plan, want=want)
+        launches.update({n: launches.get(n, 0) + want.get(n, 0)
+                         for n in names})
+        if results[bf16]["states"]["captured"].opt_step != 5:
+            raise AssertionError("phase 15: 5 applies expected")
+
+    # a traced replayed pair (fp32): the plan goes on with songs 4, 5, 0,
+    # each call on a key steps 4, 5 and 0 captured; the first warms the
+    # tracer up
+    run = results[False]
+    state = run["states"]["captured"]
+    config = Config(train=TrainConfig(lr_decay_every=2))
+    trace = os.path.join(tmp, "trace_captured_pair")
+    cursor = [10]
+
+    def call():
+        song = songs[cursor[0] % len(songs)]
+        batch = batch_of([song], config)
+        fn = run["fns"]["captured", batch.unpitched is not None]
+        held = len(state.programs.graphs)
+        fn(state, batch)
+        cursor[0] += 1
+        if len(state.programs.graphs) != held:
+            raise AssertionError("phase 15: a traced call captured")
+
+    def take():
+        with profiler_trace(trace) as end_warmup:
+            call()
+            torch.cuda.synchronize()
+            end_warmup()
+            t0 = time.perf_counter()
+            call()
+            call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return summarize(trace, 2, device="cuda"), wall
+
+    summary, wall = complete_trace("phase 15 traced replayed pair", take)
+    busy = summary["busy_ms_per_step"] * 2
+    host = host_launches(trace)
+    eager_host = host_launches(os.path.join(tmp, "trace_pair"))
+    got = {k: summary["by_category_launches"].get(k, 0)
+           for k in ("K1", "K2", "K3")}
+    log(f"phase 15: traced replayed pair of fp32 micro-steps: device busy "
+        f"{busy:.3f} ms of {wall * 1e3:.3f} ms wall "
+        f"({busy / (wall * 1e3):.1%}); launches a step by kernel name {got} "
+        f"(K1 builds the batch); host launch calls {sum(host.values())} "
+        f"{dict(host)}; phase 7's eager pair: {sum(eager_host.values())} "
+        f"({smi})")
+    if got != {"K1": 2, "K2": 1, "K3": 1}:
+        raise AssertionError(f"phase 15: the traced pair's device records "
+                             f"{got} a step, want K1 2, K2 1 and K3 1")
+    del results, run, state
+    torch.cuda.empty_cache()
+
+    # one bf16 remat micro-step pattern: 3 calls on one song (the third
+    # replays the first's graph); K2's bf16 form launches twice a call
+    config = Config(model=ModelConfig(**policy(True)),
+                    train=TrainConfig(remat=True))
+    run_pair("bf16 remat micro-steps", config, [[songs[0]]] * 3,
+             want={"grid_tail_bf16": 2, "grid_tail_bwd_bf16": 1})
+
+    # a k=2 stack of two songs of one beats-per-bar, 3 calls (the second
+    # and third replay), iter_size 2: each call applies once
+    pair = [s for s in songs if s.beats_per_bar == songs[0].beats_per_bar]
+    config = Config()
+    run_pair("k=2 stacks (fp32)", config, [pair[:2]] * 3, k=2,
+             want={"grid_tail": 2, "grid_tail_bwd": 2})
+    torch.cuda.empty_cache()
+
+    # the CLI: captured and --no-capture give the same rows; a captured
+    # --resume gives the uninterrupted run's rows again
+    data = os.path.join(ROOT, "mst_torch", "assets", "smoke")
+    base = ["--data", data, "--save-interval", "4", "--seed", "108"]
+    t_cli = time.perf_counter()
+    out = {}
+    for name, extra in (("captured", []), ("eager", ["--no-capture"])):
+        t0 = time.perf_counter()
+        stdout = _run_cli(base + ["--iters", "12", "--csv",
+                                  os.path.join(tmp, f"cli_{name}.csv"),
+                                  "--snapshots",
+                                  os.path.join(tmp, f"cli_{name}")] + extra,
+                          f"train-model-torch.py ({name})")
+        want_line = ("Steps: captured as CUDA graphs" if name == "captured"
+                     else "Steps: eager")
+        if want_line not in stdout:
+            raise AssertionError(f"phase 15: the {name} CLI did not say "
+                                 f"{want_line!r}")
+        out[name] = time.perf_counter() - t0
+    cap_rows = _csv(os.path.join(tmp, "cli_captured.csv"))
+    eager_rows = _csv(os.path.join(tmp, "cli_eager.csv"))
+    if cap_rows != eager_rows or len(cap_rows) != 12:
+        raise AssertionError("phase 15: the CLI's captured and --no-capture "
+                             "rows differ")
+    _run_cli(base + ["--iters", "16", "--resume", "--csv",
+                     os.path.join(tmp, "cli_captured.csv"), "--snapshots",
+                     os.path.join(tmp, "cli_captured")],
+             "train-model-torch.py --resume (captured)")
+    rows = _csv(os.path.join(tmp, "cli_captured.csv"))
+    again = [r for r in rows[12:] if int(r["iteration"]) < 12]
+    if not again or again != cap_rows[-len(again):] or \
+            [r["iteration"] for r in rows[12:]] != [
+                str(i) for i in range(16 - len(rows[12:]), 16)]:
+        raise AssertionError(f"phase 15: the captured resume's rows differ "
+                             f"from the uninterrupted run's")
+    log(f"phase 15: train-model-torch.py --iters 12, captured "
+        f"({out['captured']:.1f} s) and --no-capture ({out['eager']:.1f} "
+        f"s): 12 CSV rows equal; a captured --resume to 16 repeats "
+        f"iterations {[r['iteration'] for r in again]} with the "
+        f"uninterrupted run's rows ({time.perf_counter() - t_cli:.1f} s "
+        f"for the three runs)")
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s ({smi})")
     return launches
 
 
@@ -2498,7 +2856,11 @@ def main():
         phase_profile(torch, serve_flops, fp32, bf16, comps, styles, tmp,
                       smi)
         torch.cuda.empty_cache()
-        captured = phase_captured(torch, comps, styles, tmp, smi)
+        captured = phase_captured(torch, comps, styles, tmp, smi,
+                                  serve_flops["request"])
+        torch.cuda.empty_cache()
+        train_captured = phase_train_captured(torch, comps + styles, tmp,
+                                              smi)
     log(f"training, bf16 storage and compute against fp32 (one call): "
         f"batch-1 step {bf16['b1_ms']:.3f} ms against {fp32['b1_ms']:.3f}; "
         f"batch-6 steps {[round(v, 3) for v in bf16['b6_ms']]} against "
@@ -2518,7 +2880,9 @@ def main():
                        parallel[name],
                    "2-seq-rank bar-sharded micro-steps, rank 0": seq[name],
                    "captured transfer request (one replay)":
-                       captured[name]}
+                       captured[name],
+                   "captured micro-steps (one fp32 and one bf16 replay)":
+                       train_captured[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "

@@ -176,6 +176,7 @@ def make_sharded_train_step(config: Config, has_unpitched: bool,
     """The micro-step on this rank's rows and bars of the global batch: the
     losses of the global batch, gradients summed over the mesh, the same
     Adam update on every rank. It is
-    ``mst_torch.runtime.train.make_train_step(..., mesh=mesh)`` and exists
-    only so that mst_tpu.parallel.mesh's API carries over."""
-    return make_train_step(config, has_unpitched, mesh=mesh)
+    ``mst_torch.runtime.train.make_train_step(..., mesh=mesh)``, run
+    eagerly (a step over a mesh is not captured), and exists only so that
+    mst_tpu.parallel.mesh's API carries over."""
+    return make_train_step(config, has_unpitched, mesh=mesh, capture=False)

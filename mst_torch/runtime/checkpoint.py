@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from mst_torch.runtime.train import TrainState
+from mst_torch.runtime.train import TrainState, prepare_state
 
 _CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -72,7 +72,10 @@ def load_state_dict_into(state: TrainState, saved: dict) -> TrainState:
     """Load ``state_dict_of``'s output into ``state`` (in place, on the
     state's devices) and return it. A scheduler state is the ``LambdaLR``'s
     or the ``StepLR``'s of older checkpoints (``_load_step_lr``); any other
-    raises."""
+    raises. The optimizer takes the form of the state's device whatever
+    form wrote the checkpoint (``prepare_state``), and the state's
+    captured step programs are dropped: they read the tensors this
+    replaces."""
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     scheduler = saved["scheduler"]
@@ -87,7 +90,7 @@ def load_state_dict_into(state: TrainState, saved: dict) -> TrainState:
         p.grad = saved["accum_grads"][name].to(p.device, p.dtype).clone()
     state.micro_step = int(saved["micro_step"])
     state.opt_step = int(saved["opt_step"])
-    return state
+    return prepare_state(state)
 
 
 class CheckpointManager:

@@ -98,11 +98,38 @@ def count_matmul_flops(fn, *args, **kwargs) -> int:
     step counted this way is a step taken. Its time is not the time of an
     uncounted call, so a caller that times a step times another call than
     the one it counts. Count a request with
-    ``count_matmul_flops(transfer_styles, bundle, comps, styles, out)``;
-    there is no call log to replay."""
+    ``count_matmul_flops(transfer_styles, bundle, comps, styles, out)`` on
+    an uncaptured bundle, or replay its ``call_log``
+    (``replay_log_flops``): a replayed graph runs no Python, so the
+    counter sees nothing of it."""
     with MatmulFlops() as count:
         fn(*args, **kwargs)
     return count.total
+
+
+def _signature(x):
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    return x
+
+
+def replay_log_flops(bundle, call_log) -> int:
+    """Matmul FLOPs of a ``ModelBundle.call_log``, a list of ``(key,
+    inputs, statics)`` program calls (mst_tpu's ``replay_log_flops``,
+    mst_tpu/runtime/flops.py:128-149). Each distinct (key, shapes and
+    dtypes of the inputs, statics) runs once more, uncaptured and
+    unlogged, under the counter; the log's total sums over its calls."""
+    counts = {}
+    total = 0
+    for key, inputs, statics in call_log:
+        sig = (key, _signature(inputs), tuple(sorted(statics.items())))
+        if sig not in counts:
+            counts[sig] = count_matmul_flops(bundle.run, key, inputs,
+                                             statics, False)
+        total += counts[sig]
+    return total
 
 
 def device_peak_flops(compute_dtype="bfloat16", device=None) -> float:

@@ -44,6 +44,22 @@ and the rest), and a replay runs no Python. So the launches a capture
 records are taken back from the counters when the capture ends and added
 to them on each replay. The warm-up's launches are real and stay counted.
 
+Stateful programs (``run(..., stateful=True)``: the training step of
+mst_torch.runtime.train, mst_tpu's jitted step and K-step scan). Such a
+program mutates state, so four more rules hold:
+
+- The state lies outside the pool, in tensors allocated before any
+  capture: the parameters, their ``.grad`` buffers, Adam's moments and
+  step count, and its learning-rate tensor. A replay updates them in
+  place, as ``donate_argnums`` lets XLA do.
+- A key's first call is the real call: the program runs once, eagerly,
+  on the side stream, and its outputs are returned. The capture then only
+  records it; later calls replay. (A warm-up followed by a replay would
+  apply the step twice.)
+- The caller keeps its host bookkeeping (step counters, the schedule's
+  counter) out of ``fn``: a capture runs ``fn``'s Python once more.
+- The program runs with autograd on, not under ``inference_mode``.
+
 A replayed graph carries no ``record_function`` scope, so a trace cannot
 attribute its kernels to model components; the profile tools run the
 programs with ``capture=False``.
@@ -138,15 +154,18 @@ class Programs:
         self._pool = None
         self._stream = None
 
-    def run(self, key: str, fn, args, statics: dict, capture: bool):
+    def run(self, key: str, fn, args, statics: dict, capture: bool,
+            stateful: bool = False):
         """``fn(*args, **statics)`` as program ``key`` (see the module's
         docstring), captured on the card when ``capture``. ``args``:
-        tensors (on any device) or None, in tuples. Returns the program's
-        output tensor(s) on the device."""
+        tensors (on any device) or None, in tuples. ``stateful``: ``fn``
+        updates state outside the pool and runs with autograd on (the
+        module's "Stateful programs"). Returns the program's output
+        tensor(s) on the device."""
         self.runs[key] += 1
         leaves = []
         spec = _flatten(tuple(args), leaves)
-        with torch.inference_mode():
+        with torch.enable_grad() if stateful else torch.inference_mode():
             if self.device.type != "cuda" or not capture:
                 moved = [None if x is None else x.to(self.device)
                          for x in leaves]
@@ -156,8 +175,10 @@ class Programs:
                     (precision.compute_dtype(), precision.storage_dtype()))
             graph = self.graphs.get(ckey)
             if graph is None:
-                graph = self._capture(key, fn, spec, leaves, statics)
+                graph, first = self._capture(key, fn, spec, leaves, statics)
                 self.graphs[ckey] = graph
+                if stateful:
+                    return first
             else:
                 for buf, leaf in zip(graph.inputs, leaves):
                     if buf is not None:
@@ -175,7 +196,9 @@ class Programs:
         _load(buf, leaf)
         return buf
 
-    def _capture(self, key, fn, spec, leaves, statics) -> Graph:
+    def _capture(self, key, fn, spec, leaves, statics):
+        """Run ``fn`` once eagerly on the side stream, then capture it:
+        (its ``Graph``, the eager run's outputs)."""
         inputs = [None if x is None else self._static_input(x)
                   for x in leaves]
         args = _unflatten(spec, inputs)
@@ -186,7 +209,7 @@ class Programs:
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
         with torch.cuda.stream(self._stream):
-            fn(*args, **statics)
+            first = fn(*args, **statics)
         current.wait_stream(self._stream)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
@@ -204,4 +227,4 @@ class Programs:
         out_spec = _flatten(out, outputs)
         return Graph(key=key, graph=graph, inputs=inputs, outputs=outputs,
                      out_spec=out_spec, launches=recorded, warmup_s=t1 - t0,
-                     capture_s=time.perf_counter() - t1)
+                     capture_s=time.perf_counter() - t1), first

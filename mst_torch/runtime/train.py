@@ -13,15 +13,39 @@ Counterpart of mst_tpu/runtime/train.py (parity target: train-model.py:
 - the loss call uses normalize=True (train-model.py:118).
 
 optax updates every parameter at every apply; torch Adam skips a parameter
-whose ``.grad`` is None. After micro-steps with no percussion the unpitched
-branch has no gradient, so every parameter gets a zero ``.grad`` before the
-update: moments, bias correction and updates then match optax's.
+whose ``.grad`` is None. So every parameter holds a ``.grad`` buffer from
+the start (``prepare_state``), zero until a backward adds into it; after
+micro-steps with no percussion the unpitched branch's buffers stay zero,
+and moments, bias correction and updates match optax's.
 
-PyTorch runs eagerly, so ``make_train_step`` is a plain function and
-``make_multi_train_step`` runs K steps in a loop with one stacked loss
-tensor (the JAX package scans them in one program; tests/test_multi_step.py
-pins that the two are the same). The state is mutated in place and also
-returned, to keep the JAX package's call shape.
+The step as a program (mst_tpu's ``jax.jit(step, donate_argnums=(0,))``
+and the K-step ``lax.scan``). On the card ``make_train_step`` and
+``make_multi_train_step`` run their body as a program of the state's
+``Programs`` (mst_torch.runtime.programs, ``stateful``): captured once
+per capture key as a CUDA graph and replayed. The key holds the batch's
+structure, shapes and dtypes, the precision policy, K and the apply
+pattern (which of the call's micro-steps apply Adam, mst_tpu's
+``lax.cond``). What makes the body capturable:
+
+- every state tensor is allocated before any capture and updated in
+  place: the ``.grad`` buffers (backward adds into them; the apply zeroes
+  them, never sets them to None), Adam's moments and step count, created
+  up front, and the learning rate, a one-element tensor on the card;
+- Adam runs with ``capturable=True`` on the card: its step count lives on
+  the device and the bias corrections are taken there in fp32, as optax
+  takes them (the CPU refuses ``capturable``; there the float64 bias
+  correction of torch's default form stays);
+- the schedule's rate of each apply of the call is an input (``rates``),
+  copied into the optimizer's rate before that apply, so a K-step call
+  may cross a decay boundary (``lr_decay_every``);
+- the host's bookkeeping, ``micro_step``, ``opt_step`` and the
+  scheduler's count, runs after the body, outside the program.
+
+``capture=False`` runs the same body eagerly (the profile tools and FLOP
+counting need it: a replay has no ``record_function`` scope and runs no
+Python); on the CPU it always runs eagerly. A capture that fails raises.
+The state is mutated in place and also returned, to keep the JAX
+package's call shape.
 
 On the card each batch's rasters are built by K1 (``device_batch_from_songs``)
 and the pitched applier's note-grid tail runs forward through K2 and
@@ -70,6 +94,7 @@ from mst_torch.ops import precision, seq_context
 from mst_torch.ops.losses import LossDict, total_loss
 from mst_torch.ops.shapes import split_note_features
 from mst_torch.device import strict_fp32
+from mst_torch.runtime.programs import Programs
 
 ADAM_BETAS = (0.9, 0.999)   # torch Adam defaults (train-model.py:89), optax's
 ADAM_EPS = 1e-8
@@ -102,13 +127,16 @@ class Batch(NamedTuple):
 class TrainState:
     """Model, optimizer, schedule and counters. ``micro_step`` counts
     iterations, ``opt_step`` optimizer applications (scheduler steps); the
-    accumulated gradient lives in the parameters' ``.grad``."""
+    accumulated gradient lives in the parameters' ``.grad``. ``programs``
+    holds the step programs captured on this state's tensors (None until
+    the first captured step; a restore drops them)."""
 
     model: StyleTransferModel
     optimizer: torch.optim.Adam
     scheduler: LambdaLR
     micro_step: int = 0
     opt_step: int = 0
+    programs: Optional[Programs] = None
 
 
 def make_lr_schedule(config: Config):
@@ -123,17 +151,58 @@ def make_lr_schedule(config: Config):
     return schedule
 
 
+def _capturable(device) -> bool:
+    """Adam's form on ``device``: ``capturable`` (step count and rate on
+    the device) on the card; torch refuses it on the CPU."""
+    return torch.device(device).type == "cuda"
+
+
 def make_optimizer(model: StyleTransferModel, config: Config):
     """(Adam, scheduler): the scheduler sets the rates of
     ``make_lr_schedule`` and is stepped once per optimizer application, as
-    optax's update count is (parity: train-model.py:89-90)."""
+    optax's update count is (parity: train-model.py:89-90). On the card
+    Adam is ``capturable``; ``prepare_state`` gives it its rate tensor and
+    its state."""
     t = config.train
+    device = next(model.parameters()).device
     optimizer = torch.optim.Adam(model.parameters(), lr=t.learning_rate,
-                                 betas=ADAM_BETAS, eps=ADAM_EPS)
-    schedule = make_lr_schedule(config)
-    scheduler = LambdaLR(optimizer,
-                         lambda step: schedule(step) / t.learning_rate)
+                                 betas=ADAM_BETAS, eps=ADAM_EPS,
+                                 capturable=_capturable(device))
+    # the first step of each program runs uncaptured by design
+    optimizer._warned_capturable_if_run_uncaptured = True
+    scheduler = LambdaLR(optimizer, lambda step: t.lr_decay_gamma ** (
+        step // t.lr_decay_every))
     return optimizer, scheduler
+
+
+def prepare_state(state: TrainState) -> TrainState:
+    """Give ``state`` its device's form, with every tensor a captured step
+    updates allocated now, before any capture: a zero ``.grad`` buffer for
+    each parameter that has none, Adam's moments and step count (the step
+    count on the device where Adam is ``capturable``), and there the rate
+    as a one-element fp32 tensor (a float on the CPU). Drops the state's
+    captured programs, which read the tensors this may replace. Returns
+    ``state``."""
+    optimizer = state.optimizer
+    for group in optimizer.param_groups:
+        device = group["params"][0].device
+        capturable = _capturable(device)
+        group["capturable"] = capturable
+        rate = float(group["lr"])
+        group["lr"] = (torch.tensor(rate, dtype=torch.float32, device=device)
+                       if capturable else rate)
+        step_device = device if capturable else "cpu"
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            adam = optimizer.state[p]
+            if not adam:
+                adam["exp_avg"] = torch.zeros_like(p)
+                adam["exp_avg_sq"] = torch.zeros_like(p)
+                adam["step"] = torch.zeros((), dtype=torch.float32)
+            adam["step"] = adam["step"].to(step_device, torch.float32)
+    state.programs = None
+    return state
 
 
 def create_train_state(config: Config, device="cuda",
@@ -147,7 +216,8 @@ def create_train_state(config: Config, device="cuda",
             config.train.seed if seed is None else seed)
     model = model.to(device).train()
     optimizer, scheduler = make_optimizer(model, config)
-    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
+    return prepare_state(TrainState(model=model, optimizer=optimizer,
+                                    scheduler=scheduler))
 
 
 def _bar_positions(n_bars: int, device):
@@ -193,17 +263,40 @@ def loss_fn(model: StyleTransferModel, batch: Batch, has_unpitched: bool,
         song_group=song_group)
 
 
+def _apply(optimizer: torch.optim.Adam, rate=None) -> None:
+    """Adam with the summed gradients, then zero them in place. ``rate``:
+    this apply's rate, copied into the optimizer's rate tensor on the card
+    (a one-element tensor), set as a float on the CPU; None keeps the rate
+    the scheduler left."""
+    if rate is not None:
+        for group in optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].copy_(rate)
+            else:
+                group["lr"] = rate
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=False)
+
+
+def _advance(state: TrainState, micro_steps: int, applies: int) -> None:
+    """The host's bookkeeping of ``micro_steps`` micro-steps, ``applies``
+    of which applied Adam."""
+    state.micro_step += micro_steps
+    for _ in range(applies):
+        state.scheduler.step()
+        state.opt_step += 1
+
+
 def apply_updates(state: TrainState) -> None:
-    """One optimizer application with the summed gradients, then clear
-    them. A parameter without a gradient gets a zero one first, so that
-    Adam updates it as optax does."""
+    """One optimizer application with the summed gradients at the rate the
+    scheduler set, then clear them in place. A parameter without a
+    gradient gets a zero one first, so that Adam updates it as optax
+    does."""
     for p in state.model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    state.optimizer.step()
-    state.scheduler.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    state.opt_step += 1
+    _apply(state.optimizer)
+    _advance(state, 0, 1)
 
 
 def _backward_summed(model: StyleTransferModel, total, group) -> None:
@@ -228,9 +321,14 @@ def _backward_summed(model: StyleTransferModel, total, group) -> None:
             p.grad = acc if p.grad is None else acc.add_(p.grad)
 
 
-def _make_step_fn(config: Config, has_unpitched: bool, mesh=None):
-    """The micro-step shared by make_train_step and make_multi_train_step."""
-    iter_size = config.train.iter_size
+def _make_body(config: Config, has_unpitched: bool, k: int, mesh=None,
+               b_major: bool = False):
+    """The body of a K-micro-step call, shared by make_train_step (K = 1)
+    and make_multi_train_step: ``body(state, kbatch, rates, pattern=...)``
+    runs K micro-steps on the K batches of ``kbatch`` (``b_major``: laid
+    out ``b*K + k``, else ``k*B + b``), applies Adam after micro-step
+    ``i`` where ``pattern[i]``, at the next rate of ``rates``, and returns
+    the (K, n_losses) losses. It touches no host counter."""
     group = None if mesh is None else mesh.group
     song_group = None if mesh is None else mesh.data_group
     compute, storage = config.model.compute_dtype, config.model.storage_dtype
@@ -246,8 +344,7 @@ def _make_step_fn(config: Config, has_unpitched: bool, mesh=None):
                 seq_context.sequence_sharding(mesh):
             yield
 
-    def step(state: TrainState, batch: Batch):
-        model = state.model
+    def micro_step(model: StyleTransferModel, batch: Batch):
         with forward_context():
             batch = batch._replace(
                 pitched=precision.cast_storage(batch.pitched),
@@ -260,8 +357,11 @@ def _make_step_fn(config: Config, has_unpitched: bool, mesh=None):
                 # device thread, which does not see this thread's context
                 # variables. Every rank recomputes the same graph in the
                 # same order, so the collectives of the recompute match.
+                # The model draws no random numbers, so no RNG state is
+                # saved (reading the card's would refuse a capture).
                 losses = torch.utils.checkpoint.checkpoint(
                     objective, model, batch, use_reentrant=False,
+                    preserve_rng_state=False,
                     context_fn=lambda: (contextlib.nullcontext(),
                                         forward_context()))
             else:
@@ -270,54 +370,116 @@ def _make_step_fn(config: Config, has_unpitched: bool, mesh=None):
                 losses.total.backward()
             else:
                 _backward_summed(model, losses.total, group)
-        state.micro_step += 1
-        if state.micro_step % iter_size == 0:
-            apply_updates(state)
         # one stacked loss vector -> one host fetch for all metrics
-        return state, torch.stack([v.detach().float() for v in losses])
+        return torch.stack([v.detach().float() for v in losses])
 
-    return step
+    def split(x, i):
+        if x is None:
+            return None
+        if b_major:
+            return x.reshape((x.shape[0] // k, k) + tuple(x.shape[1:]))[:, i]
+        return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
+
+    def body(state: TrainState, kbatch, rates, *, pattern):
+        rows, applied = [], 0
+        for i, apply in enumerate(pattern):
+            rows.append(micro_step(state.model,
+                                   Batch(*(split(f, i) for f in kbatch))))
+            if apply:
+                _apply(state.optimizer, rates[applied])
+                applied += 1
+        return torch.stack(rows)
+
+    return body
 
 
-def make_train_step(config: Config, has_unpitched: bool, mesh=None):
+def _make_program(config: Config, has_unpitched: bool, k: int, mesh,
+                  capture: bool, b_major: bool):
+    """``run(state, kbatch) -> (state, (K, n_losses) losses)``: the body of
+    ``_make_body`` as a program of ``state.programs`` on the card (module
+    docstring), eagerly elsewhere or without ``capture``, then the host's
+    bookkeeping."""
+    if capture and mesh is not None:
+        raise ValueError(
+            "capture over a process mesh is not ported: gloo, which ranks "
+            "that share a card use, cannot be recorded in a CUDA graph, "
+            "and the capture of NCCL collectives is not ported; pass "
+            "capture=False")
+    body = _make_body(config, has_unpitched, k, mesh, b_major)
+    iter_size = config.train.iter_size
+    schedule = make_lr_schedule(config)
+    compute, storage = config.model.compute_dtype, config.model.storage_dtype
+    key = (f"train_step:k={k}:unpitched={int(has_unpitched)}"
+           f":remat={int(config.train.remat)}")
+
+    def run(state: TrainState, kbatch: Batch):
+        pattern = tuple((state.micro_step + i + 1) % iter_size == 0
+                        for i in range(k))
+        rates = [schedule(state.opt_step + a) for a in range(sum(pattern))]
+        lr = state.optimizer.param_groups[0]["lr"]
+        if isinstance(lr, torch.Tensor):
+            # the card's form: the rates as one small fp32 input
+            rates = (torch.tensor(rates, dtype=torch.float32) if rates
+                     else None)
+        on_card = isinstance(lr, torch.Tensor) and lr.device.type == "cuda"
+        if capture and on_card:
+            if state.programs is None:
+                state.programs = Programs(lr.device)
+            # the policy is part of the capture key
+            with precision.precision(compute, storage=storage):
+                losses = state.programs.run(
+                    key, functools.partial(body, state),
+                    (tuple(kbatch), rates), {"pattern": pattern},
+                    capture=True, stateful=True)
+        else:
+            if on_card and rates is not None:
+                rates = rates.pin_memory().to(lr.device, non_blocking=True)
+            losses = body(state, kbatch, rates, pattern=pattern)
+        _advance(state, k, sum(pattern))
+        return state, losses
+
+    return run
+
+
+def make_train_step(config: Config, has_unpitched: bool, mesh=None,
+                    capture: bool = True):
     """One micro-step: grad, accumulate (sum), apply Adam every
     ``iter_size`` micro-steps with the decayed learning rate. Returns
     ``(state, losses)`` with the losses as one device vector in
     ``LossDict`` order (``LossDict(*vec.tolist())`` reads it), so the caller
     decides when to wait for the device: the CLI fetches each step's vector
     one iteration later, while the next step runs. With ``mesh`` the batch
-    holds this rank's rows of the global batch (module docstring)."""
-    return _make_step_fn(config, has_unpitched, mesh)
+    holds this rank's rows of the global batch (module docstring).
+
+    ``capture``: on the card, run the step as a program captured once per
+    capture key and replayed (module docstring); False runs it eagerly.
+    With ``mesh``, capture raises ``ValueError``: pass False."""
+    run = _make_program(config, has_unpitched, 1, mesh, capture, False)
+
+    def step(state: TrainState, batch: Batch):
+        state, losses = run(state, batch)
+        return state, losses[0]
+
+    return step
 
 
 def make_multi_train_step(config: Config, has_unpitched: bool, k: int,
-                          mesh=None):
+                          mesh=None, capture: bool = True,
+                          b_major: Optional[bool] = None):
     """K micro-steps per call: the input is a :class:`Batch` whose leaves
     carry a leading ``K*B`` axis laid out ``k*B + b`` (one rasterize launch
     per note family for the whole stack, ``device_batch_from_songs`` over
     K*B songs). Returns ``(state, (K, n_losses) loss matrix)``. Semantics
-    are K sequential :func:`make_train_step` calls.
+    are K sequential :func:`make_train_step` calls; on the card the K
+    micro-steps are one captured program (mst_tpu's scan), ``capture`` as
+    make_train_step's.
 
-    With ``mesh`` the stack is laid out ``b*K + k`` (mst_tpu's
-    ``b_major``): a data rank's rows of it are then whole ``b`` blocks,
-    its own rows of every one of the K batches."""
-    step = _make_step_fn(config, has_unpitched, mesh)
-
-    def split(x, i):
-        if x is None:
-            return None
-        if mesh is not None:
-            return x.reshape((x.shape[0] // k, k) + tuple(x.shape[1:]))[:, i]
-        return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
-
-    def multi(state: TrainState, kbatch: Batch):
-        rows = []
-        for i in range(k):
-            state, vec = step(state, Batch(*(split(f, i) for f in kbatch)))
-            rows.append(vec)
-        return state, torch.stack(rows)
-
-    return multi
+    ``b_major`` (default: whether there is a ``mesh``): the stack is laid
+    out ``b*K + k`` (mst_tpu's ``b_major``): a data rank's rows of it are
+    then whole ``b`` blocks, its own rows of every one of the K
+    batches."""
+    return _make_program(config, has_unpitched, k, mesh, capture,
+                         mesh is not None if b_major is None else b_major)
 
 
 def window_sort(stream, window: int, signature):

@@ -39,7 +39,9 @@ bar buckets are kept, so shapes and masks match the JAX programs one to
 one. Deliberate difference: the packed words and the fetched buffer are
 int64 tensors holding mst_tpu's uint32 values (the host views the buffer
 as uint32). Serving over a device mesh (mst_tpu's ``ModelBundle.mesh``)
-and its ``call_log`` are not ported.
+is not ported. ``ModelBundle.call_log``, set to a list, records every
+program call, and ``runtime.flops.replay_log_flops`` counts the log's
+matmul FLOPs, which a replayed graph cannot show to the counter.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``ModelBundle(device=None)`` resolves to ``cuda`` and raises without it.
@@ -174,7 +176,10 @@ class ModelBundle:
     - ``capture``: on the card, capture each program as a CUDA graph and
       replay it (mst_torch.runtime.programs); False runs the same programs
       eagerly, for the profile tools, whose traces need the model's
-      ``record_function`` scopes."""
+      ``record_function`` scopes.
+    - ``call_log``: None, or a list to which every program call appends
+      ``(key, inputs, statics)`` (mst_tpu's ``call_log``);
+      ``runtime.flops.replay_log_flops`` counts it."""
 
     model: StyleTransferModel
     device: Optional[object] = None
@@ -185,6 +190,7 @@ class ModelBundle:
     use_record_pool: bool = True
     fuse_requests: bool = True
     capture: bool = True
+    call_log: Optional[list] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -205,10 +211,20 @@ class ModelBundle:
     def fn(self, key: str):
         """The program ``key`` (mst_tpu's ``ModelBundle.fn``): a callable
         ``(*inputs, **statics)`` that runs it under its stage's policy
-        through ``self.programs``. Keys: ``raster_extract`` (the
-        extraction, at ``extract_storage_dtype``), ``fused:{capacity}:{Cb}
-        [:dense][:pool=PP,PU]`` (the apply of a batch of jobs) and
+        through ``self.programs`` (and logs the call in ``call_log``).
+        Keys: ``raster_extract`` (the extraction, at
+        ``extract_storage_dtype``), ``fused:{capacity}:{Cb}[:dense]
+        [:pool=PP,PU]`` (the apply of a batch of jobs) and
         ``transfer_fused:...`` (both in one program)."""
+        def program(*inputs, **statics):
+            if self.call_log is not None:
+                self.call_log.append((key, inputs, statics))
+            return self.run(key, inputs, statics, self.capture)
+        return program
+
+    def run(self, key: str, inputs, statics: dict, capture: bool):
+        """One call of program ``key``, captured on the card when
+        ``capture``; not logged."""
         if key == "raster_extract":
             body = functools.partial(_raster_extract_latents, self.model)
             storage = self.extract_storage_dtype
@@ -228,12 +244,9 @@ class ModelBundle:
             else:
                 raise KeyError(f"no program {key!r}")
             storage = None
-
-        def program(*inputs, **statics):
-            with self.policy(storage):
-                return self.programs.run(key, body, inputs, statics,
-                                         capture=self.capture)
-        return program
+        with self.policy(storage):
+            return self.programs.run(key, body, inputs, statics,
+                                     capture=capture)
 
     @classmethod
     def from_npz(cls, path: str = weights.SNAPSHOT_NPZ, device=None,

@@ -105,7 +105,7 @@ def train_state_from_flax(params: Mapping, mu: Mapping, nu: Mapping,
     pass ``"cpu"`` to build the state on the host."""
     from mst_torch.config import Config
     from mst_torch.models import StyleTransferModel
-    from mst_torch.runtime.train import create_train_state
+    from mst_torch.runtime.train import create_train_state, prepare_state
     from mst_torch.transfer import resolve_device
 
     device = resolve_device(device)
@@ -131,7 +131,7 @@ def train_state_from_flax(params: Mapping, mu: Mapping, nu: Mapping,
             state.scheduler.step()
     state.micro_step = int(micro_step)
     state.opt_step = int(opt_step)
-    return state
+    return prepare_state(state)
 
 
 def load_npz(path: str = SNAPSHOT_NPZ) -> Dict[str, np.ndarray]:

@@ -173,7 +173,8 @@ def job_data_parallel(rank, world, tmp):
                 mesh=mesh)
             model = StyleTransferModel(config.model)
             model.load_state_dict(weights)
-            multi = tr.make_multi_train_step(config, has_u, 2, mesh=mesh)
+            multi = tr.make_multi_train_step(config, has_u, 2, mesh=mesh,
+                                             capture=False)
             _, rec["stacked"] = multi(tr.create_train_state(
                 config, device="cpu", model=model), stack)
             model = StyleTransferModel(config.model)
@@ -322,7 +323,7 @@ def job_seq_model(rank, world, tmp):
             songs, spec["Cb"], spec["Rb"], bar_cap=spec["caps"],
             device="cpu", raster_dtype=dtype, mesh=mesh)
         step = tr.make_train_step(config, batch.unpitched is not None,
-                                  mesh=mesh)
+                                  mesh=mesh, capture=False)
         rec = {}
         for i in range(steps):
             _, vec = step(state, batch)

@@ -14,6 +14,14 @@ K2 and backward through K3.
     python train-model-torch.py --data corpus/ --storage-dtype bfloat16 \
         --compute-dtype bfloat16
 
+On the card each training step runs as a program captured once per
+shape key as a CUDA graph and replayed (mst_torch.runtime.train, the
+counterpart of the JAX package's jitted step); ``--no-capture`` runs the
+same step eagerly, op by op. Over a process mesh, and with
+``--profile-dir`` (a replay carries no ``record_function`` scope), the
+step runs with capture off, and the trainer says so. On the CPU the step
+always runs eagerly.
+
 ``--storage-dtype bfloat16`` stores the raster and the grid-scale
 activations as bf16 (K1 writes the bf16 raster; the tail runs the bf16
 forms of K2 and K3); ``--compute-dtype bfloat16`` rounds every matmul and
@@ -74,6 +82,9 @@ def parse_args(argv=None):
                         help="train on exact per-song shapes from the host "
                              "raster (the reference's behavior) instead of "
                              "padded shape buckets rasterized on the device")
+    parser.add_argument("--no-capture", action="store_true",
+                        help="run each training step eagerly instead of "
+                             "as a captured CUDA graph (the card's default)")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the latest snapshot if present")
     parser.add_argument("--profile-dir", default=None,
@@ -197,6 +208,19 @@ def train(args, distributed=False):
                              if device.type == "cuda" else ""))
     if mesh is not None:
         say(f"Process mesh: {mesh.shape} ({dist.get_backend()})")
+    capture = not args.no_capture
+    if capture and mesh is not None:
+        capture = False
+        say("Capture off: a step over a process mesh is not captured "
+            "(gloo, which ranks that share a card use, cannot be recorded "
+            "in a CUDA graph, and the capture of NCCL collectives is not "
+            "ported)")
+    if capture and args.profile_dir:
+        capture = False
+        say("Capture off: --profile-dir traces the eager step (a replayed "
+            "graph carries no record_function scope)")
+    if device.type == "cuda":
+        say("Steps: " + ("captured as CUDA graphs" if capture else "eager"))
     say("Listing data files")
     files = sorted(glob.glob(os.path.join(args.data, "**/*.mid"),
                              recursive=True))
@@ -315,7 +339,10 @@ def train(args, distributed=False):
                     batch = shard_batch(batch, mesh)
             else:
                 # K1 writes the rasters at the storage dtype; over ranks,
-                # each rank's rows and bars alone
+                # each rank's rows and bars alone. This thread launches K1
+                # on the card's default stream, the stream the main thread
+                # copies the batch into a captured step's inputs on, so the
+                # copy runs after K1
                 batch = tr.device_batch_from_songs(
                     songs_flat, Cb, Rb, bar_cap=caps, device=device,
                     raster_dtype=config.model.storage_dtype, mesh=mesh)
@@ -363,11 +390,15 @@ def train(args, distributed=False):
         has_unpitched = batch.unpitched is not None
         key = (has_unpitched, ksteps)
         if key not in step_fns:
+            # one step function per kind; a captured one holds a graph per
+            # shape key (the batch's shapes, dtypes and apply pattern) in
+            # state.programs
             step_fns[key] = (
-                tr.make_train_step(config, has_unpitched, mesh=mesh)
+                tr.make_train_step(config, has_unpitched, mesh=mesh,
+                                   capture=capture)
                 if ksteps == 1 else
                 tr.make_multi_train_step(config, has_unpitched, ksteps,
-                                         mesh=mesh))
+                                         mesh=mesh, capture=capture))
         if (args.profile_dir and lead and profile is None
                 and iteration >= 10):
             # this dispatch warms the tracer up; the next 5 iterations are
