@@ -228,6 +228,27 @@ Phases (any failure exits non-zero):
    Phase 14's bundle replays one request with its ``call_log`` on:
    ``replay_log_flops`` of the log must equal phase 12's count of the
    request.
+16. Serving over a device mesh (``ModelBundle(mesh=...)``, mst_torch.
+   parallel.create_device_mesh): every visible card up to 4 when there
+   are two or more, else two shards on cuda:0 (a log line says which).
+   On two or more cards K1, K2 and K3, in both forms, first launch on
+   every card against their plain versions at phase 4's shapes (each card
+   sets the kernels' shared-memory limit itself); on one card a log line
+   says this has nothing to show. The 12-job request captured over the
+   mesh: requests until one captures nothing; one replay, counters at 0,
+   must launch K1 twice and K2 once on each shard (taken around each
+   shard's own program calls) and write phase 14's replayed files byte
+   for byte, or with every fp32-boundary cell listed; the same request
+   uncaptured must write the replay's files bit for bit; with
+   ``extract_storage_dtype="bfloat16"`` K1's bf16 form must launch twice a
+   shard and the files meet phase 5's bf16 request's. Six replayed mesh
+   requests and six single-card replays, in turns, each bundle first in
+   every other turn: median and spread. A
+   traced replay: device busy (summed over the cards), K launches by
+   kernel name (2 K1 and 1 K2 a shard), host launch calls. Each card's
+   graphs, which must be captured on a stream of that card. The call log
+   of a replayed mesh request: ``replay_log_flops`` against phase 12's
+   count, equal unless pad rows explain the difference (then named).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 form; the last line is
@@ -764,7 +785,7 @@ def k3_kernel_ms(torch, case, modes):
     fn.restype = ctypes.c_int
     xo, xd, out, ct, w = case[:5]
     n = xo.numel() // 240
-    _, _, per_sm, rows = gk._bwd_entry()[1][xo.dtype]
+    _, _, per_sm, rows = gk.bwd_launch_info(0, xo.dtype)
     blocks = gk.bwd_grid(n, per_sm, torch.cuda.get_device_properties(
         0).multi_processor_count, rows)
     outs = [torch.empty_like(xo), torch.empty_like(xd),
@@ -797,7 +818,8 @@ def phase_k3(torch, L=(8, 8, 128, 4, 10)):
     for bf16 in (False, True):
         label = "K3 bf16" if bf16 else "K3"
         dtype = torch.bfloat16 if bf16 else torch.float32
-        smem, threads, per_sm, rows_per_tile = gk._bwd_entry()[1][dtype]
+        smem, threads, per_sm, rows_per_tile = gk.bwd_launch_info(
+            0, dtype)
         log(f"{label} launch: {threads} threads a block, {smem} B of "
             f"dynamic shared memory, {per_sm} blocks per SM, "
             f"{rows_per_tile} rows a tile")
@@ -2486,7 +2508,7 @@ def phase_captured(torch, comps, styles, tmp, smi, request_flops):
     bundle.call_log = None
     counted_flops = replay_log_flops(bundle, calls)
     log(f"phase 15: call_log of a replayed 12-job request: "
-        f"{[key for key, _, _ in calls]}; replay_log_flops {counted_flops} "
+        f"{[key for key, *_ in calls]}; replay_log_flops {counted_flops} "
         f"matmul FLOPs, phase 12's count of the request uncaptured "
         f"{request_flops}")
     if counted_flops != request_flops or len(programs.graphs) != held:
@@ -2498,6 +2520,309 @@ def phase_captured(torch, comps, styles, tmp, smi, request_flops):
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since "
         f"phase 14 began; phase 14 took {time.perf_counter() - t_phase:.1f} "
         f"s ({smi})")
+    return launches
+
+
+def mesh_devices(torch):
+    """Phase 16's mesh: every visible card, up to 4, when there are two or
+    more; else two shards on cuda:0."""
+    from mst_torch.parallel import create_device_mesh
+
+    n = min(torch.cuda.device_count(), 4)
+    if n >= 2:
+        return create_device_mesh(n), f"{n} cards, one shard each"
+    return (create_device_mesh(2, devices=["cuda:0"] * 2),
+            "one card: two shards on cuda:0")
+
+
+def phase_per_card_kernels(torch, songs):
+    """Phase 16, on two or more cards: K1, K2 and K3 in both forms on every
+    card against their plain versions, at phase 4's shapes (the smoke
+    songs' extraction raster, the 12-job apply, the 327,680-row budget).
+    Each card must set the kernels' shared-memory limit itself (K2 fp32
+    takes 93,504 B, above the 48 KB default). Returns the cards checked."""
+    from mst_torch.ops import grid_kernel as gk
+    from mst_torch.ops import raster_kernel as rk
+    from mst_torch.transfer import ModelBundle, _extract_inputs
+
+    inputs, statics, _ = _extract_inputs(
+        ModelBundle.from_npz(device="cpu"), songs, 4, True)
+    B, Cb, Rb, T = (statics[k] for k in ("B", "Cb", "Rb", "T"))
+    rows = B * Cb * Rb * T * 10
+    scale = (6.0, 1.0, 1.0, 1.0, 1.0)
+    cards = list(range(torch.cuda.device_count()))
+    for card in cards:
+        with torch.cuda.device(card):
+            dev = torch.device("cuda", card)
+            notes = tuple(t.to(dev) for t in inputs[0])
+            for dtype in (torch.float32, torch.bfloat16):
+                got = rk.rasterize(*notes, rows, 56, 5, dtype)
+                want = rk.segment_rasterize_plain(*notes, rows, 56, 5, dtype)
+                torch.cuda.synchronize(dev)
+                if got.device != dev or not raster_bits_equal(torch, got,
+                                                              want):
+                    raise AssertionError(f"phase 16: K1 {dtype} on card "
+                                         f"{card}: not bit-equal")
+            for bf16 in (False, True):
+                xo, xd, w, rest = tail_inputs(torch, (12, 8, 128, 4, 10), 2,
+                                              bf16=bf16)
+                got = gk.grid_tail_fwd(xo, xd, w, rest, scale)
+                want = gk.grid_tail_plain(xo, xd, w, rest, scale)
+                err = (got.float() - want.float()).abs().max().item()
+                if got.device != dev or not err <= K2_ATOL:
+                    raise AssertionError(f"phase 16: K2 bf16={bf16} on card "
+                                         f"{card}: max |err| {err}")
+                del xo, xd, w, rest, got, want
+                xo, xd, out, ct, w, _ = k3_case(torch, (8, 8, 128, 4, 10), 3,
+                                                bf16)
+                got = gk.grid_tail_bwd(xo, xd, out, ct, w, K3_SCALE)
+                want = gk.grid_tail_bwd_plain(xo, xd, out, ct, w, K3_SCALE)
+                torch.cuda.synchronize(dev)
+                for name, a, c in zip(("ct_xo", "ct_xd", "ct_y", "ct_w"), got,
+                                      want):
+                    err = (a.float() - c.float()).abs().max().item()
+                    tol = ((K3_W_RTOL if name == "ct_w" else K3_RTOL)
+                           * c.abs().max().item())
+                    if a.device != dev or not err <= tol:
+                        raise AssertionError(f"phase 16: K3 bf16={bf16} "
+                                             f"{name} on card {card}: max "
+                                             f"|err| {err} > {tol}")
+                info = gk.bwd_launch_info(card, xo.dtype)
+                del xo, xd, out, ct, w, got, want
+                log(f"phase 16: card {card}: K1, K2 and K3 "
+                    f"({'bf16' if bf16 else 'fp32'}) launched there and "
+                    f"agree with their plain versions; K3's launch info "
+                    f"there {info}")
+        torch.cuda.empty_cache()
+    return cards
+
+
+def phase_mesh(torch, comps, styles, songs, tmp, smi, request_flops):
+    """Phase 16: the smoke request over a device mesh
+    (``ModelBundle(mesh=create_device_mesh(...))``), captured, eager and
+    with bf16 extraction, against phase 14's captured single-card request;
+    K1 and K2 launches by shard; its time against the single-card replay
+    in turns; graphs per card; host launch calls and busy time of a traced
+    replay; ``replay_log_flops`` of its log against phase 12's count.
+    Returns the launches of one replayed mesh request, by kernel form."""
+    import statistics
+
+    from mst_torch import transfer as tr
+    from mst_torch.parity import midi_differences
+    from mst_torch.runtime.flops import replay_log_flops
+    from mst_torch.runtime.metrics import profiler_trace
+    from mst_torch.runtime.profile import summarize
+
+    t_phase = time.perf_counter()
+    mesh, layout = mesh_devices(torch)
+    n = mesh.shape["data"]
+    log(f"phase 16: mesh {mesh.shape} over {list(mesh.devices)} ({layout})")
+    if torch.cuda.device_count() >= 2:
+        cards = phase_per_card_kernels(torch, songs)
+        log(f"phase 16: the per-card launch setup (K2's and K3's "
+            f"shared-memory limit set on each card; each card's programs "
+            f"captured on a stream of that card) holds on cards {cards}")
+    else:
+        log("phase 16: one card: the per-card launch setup (shared-memory "
+            "limits, capture streams) has nothing to show here; it shows "
+            "only with two or more cards")
+    names = [name for name, _, _ in _counters()]
+    mesh_b = tr.ModelBundle.from_npz(mesh=mesh)
+    single = tr.ModelBundle.from_npz(device="cuda")
+    want_dir = os.path.join(tmp, "replay_4")      # phase 14's replay
+
+    def programs_of(b):
+        return list({id(b.replica(s)[2]): b.replica(s)[2]
+                     for s in range(b.data_axis_size())}.values())
+
+    def graphs_of(b):
+        return [g for p in programs_of(b) for g in p.graphs.values()]
+
+    def request(b, name):
+        t0 = time.perf_counter()
+        tr.transfer_styles(b, comps, styles, os.path.join(tmp, name))
+        for dev in dict.fromkeys(b.shard_devices):
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    def capture(b, label):
+        for r in range(3):
+            held = len(graphs_of(b))
+            wall = request(b, f"{label}_capture_{r}")
+            new = graphs_of(b)[held:]
+            for g in new:
+                log(f"phase 16: {label}: request {r} captured {g.key}: "
+                    f"warm-up {g.warmup_s * 1e3:.3f} ms, capture "
+                    f"{g.capture_s * 1e3:.3f} ms; a replay launches "
+                    f"{dict(zip(names, g.launches))}")
+            if not new:
+                return
+        raise AssertionError(f"phase 16: {label}: a third request still "
+                             f"captured")
+
+    def by_shard(b, name):
+        """One request with the counters at 0 and each shard's launches
+        taken around its own program calls; it may capture nothing."""
+        held = len(graphs_of(b))
+        run = b.run
+        shards = [dict.fromkeys(names, 0) for _ in range(n)]
+
+        def counted(key, inputs, statics, capture, shard=0):
+            before = read_launches()
+            out = run(key, inputs, statics, capture, shard)
+            for k, v in read_launches().items():
+                shards[shard][k] += v - before[k]
+            return out
+
+        b.run = counted
+        try:
+            reset_launches()
+            request(b, name)
+            total = read_launches()
+        finally:
+            del b.run
+        if len(graphs_of(b)) != held:
+            raise AssertionError(f"phase 16: {name} captured a program")
+        return total, shards
+
+    def against(root, want_root, label):
+        """Files against another run's: byte-equal, or every difference an
+        fp32-boundary cell, each listed."""
+        if mid_files(root) != mid_files(want_root):
+            raise AssertionError(f"phase 16: {label}: other files")
+        equal = 0
+        for name in mid_files(want_root):
+            with open(os.path.join(root, name), "rb") as fa, \
+                    open(os.path.join(want_root, name), "rb") as fb:
+                same, faults, borderline = midi_differences(fa.read(),
+                                                            fb.read())
+            if faults:
+                raise AssertionError(f"phase 16: {label}: {name}: {faults}")
+            equal += same
+            if not same:
+                log(f"phase 16: {label}: {name}: fp32-boundary note events "
+                    f"{borderline}")
+        log(f"phase 16: {label}: {equal} of {len(mid_files(want_root))} "
+            f"files byte-equal")
+        return equal
+
+    capture(mesh_b, "mesh fp32")
+    capture(single, "single fp32")
+    launches, shards = by_shard(mesh_b, "mesh_counted")
+    want_shard = {"raster": 2, "grid_tail": 1}
+    for s, got in enumerate(shards):
+        if any(got[k] != want_shard.get(k, 0) for k in names):
+            raise AssertionError(f"phase 16: shard {s} launched {got}, want "
+                                 f"{want_shard}")
+    log(f"phase 16: one replayed mesh request: launches {launches}; by "
+        f"shard {shards}")
+    against(os.path.join(tmp, "mesh_counted"), want_dir,
+            "replayed mesh request against phase 14's replay")
+
+    eager = tr.ModelBundle.from_npz(mesh=mesh, capture=False)
+    request(eager, "mesh_eager_warm")
+    e_launches, _ = by_shard(eager, "mesh_eager")
+    if e_launches != launches or graphs_of(eager):
+        raise AssertionError(f"phase 16: the uncaptured mesh request "
+                             f"launched {e_launches}")
+    if against(os.path.join(tmp, "mesh_eager"),
+               os.path.join(tmp, "mesh_counted"),
+               "uncaptured mesh request against the replayed one") \
+            != len(mid_files(want_dir)):
+        raise AssertionError("phase 16: the uncaptured mesh request is not "
+                             "bit-equal to the replayed one")
+
+    bf16 = tr.ModelBundle.from_npz(mesh=mesh,
+                                   extract_storage_dtype="bfloat16")
+    capture(bf16, "mesh bf16 extraction")
+    b_launches, b_shards = by_shard(bf16, "mesh_bf16")
+    for s, got in enumerate(b_shards):
+        if got["raster_bf16"] != 2 or got["raster"] or got["grid_tail"] != 1:
+            raise AssertionError(f"phase 16: bf16 extraction shard {s} "
+                                 f"launched {got}")
+    log(f"phase 16: replayed mesh request, bf16 extraction: launches "
+        f"{b_launches}")
+    against(os.path.join(tmp, "mesh_bf16"), os.path.join(tmp, "bf16"),
+            "bf16-extraction mesh request against phase 5's")
+    del bf16, eager
+
+    mesh_s, single_s = [], []
+    held = len(graphs_of(mesh_b)), len(graphs_of(single))
+    for r in range(6):          # each bundle first in every other turn
+        turn = [(mesh_b, mesh_s, "mesh"), (single, single_s, "single")]
+        for b, times, label in turn[::-1 if r % 2 else 1]:
+            times.append(request(b, f"{label}_timed_{r}"))
+    if (len(graphs_of(mesh_b)), len(graphs_of(single))) != held:
+        raise AssertionError("phase 16: a timed request captured")
+
+    def spread(v):
+        return (f"median {statistics.median(v) * 1e3:.3f} ms (min "
+                f"{min(v) * 1e3:.3f}, max {max(v) * 1e3:.3f}; "
+                f"{', '.join(f'{t * 1e3:.3f}' for t in v)})")
+
+    log(f"phase 16: 12-job request over the mesh ({layout}), replayed: "
+        f"{spread(mesh_s)}; the single-card replay, in turns: "
+        f"{spread(single_s)} ({smi})")
+
+    trace = os.path.join(tmp, "trace_mesh")
+    traced = {}
+
+    def take():
+        with profiler_trace(trace) as end_warmup:
+            request(mesh_b, "mesh_trace_warm")
+            end_warmup()
+            reset_launches()
+            wall = request(mesh_b, "mesh_traced")
+            traced["launches"] = read_launches()
+        return summarize(trace, 1, device="cuda"), wall
+
+    summary, wall = complete_trace("phase 16 traced mesh replay", take)
+    got = {k: summary["by_category_launches"].get(k, 0)
+           for k in ("K1", "K2", "K3")}
+    if got != {"K1": 2 * n, "K2": n, "K3": 0} or \
+            traced["launches"] != launches:
+        raise AssertionError(f"phase 16: the traced mesh replay's device "
+                             f"records {got}, counters {traced['launches']}")
+    busy = summary["busy_ms_per_step"]
+    host = host_launches(trace)
+    log(f"phase 16: traced replayed mesh request: device busy {busy:.3f} ms "
+        f"of {wall * 1e3:.3f} ms wall (summed over its cards); K launches "
+        f"by kernel name {got}; host launch calls {sum(host.values())} "
+        f"{dict(host)} ({smi})")
+    log("  device launches by category: " + "; ".join(
+        f"{k} {v} ({summary['by_category_ms'].get(k, 0.0):.3f} ms)"
+        for k, v in summary["by_category_launches"].items()))
+
+    for p in programs_of(mesh_b):
+        keys = [g.key for g in p.graphs.values()]
+        if p._capture_stream is None or \
+                p._capture_stream.device != p.device:
+            raise AssertionError(f"phase 16: programs of {p.device} "
+                                 f"captured on another card's stream")
+        log(f"phase 16: {p.device}: {len(keys)} graphs held {keys}, "
+            f"captured on a stream of {p._capture_stream.device}")
+
+    mesh_b.call_log = calls = []
+    request(mesh_b, "mesh_logged")
+    mesh_b.call_log = None
+    counted_flops = replay_log_flops(mesh_b, calls)
+    by_key = {}
+    for key, inputs, statics, shard in calls:
+        by_key.setdefault(key, []).append(shard)
+    log(f"phase 16: call_log of a replayed mesh request: {by_key}; "
+        f"replay_log_flops {counted_flops} matmul FLOPs, phase 12's count of "
+        f"the single-card request {request_flops}")
+    if counted_flops != request_flops:
+        pad_songs = -len(comps + styles) % n
+        pad_jobs = -len(comps) * (1 + len(styles)) % n
+        log(f"phase 16: the counts differ by {counted_flops - request_flops}: "
+            f"the mesh runs {sorted(by_key)} where phase 12 ran one "
+            f"transfer_fused program, with {pad_songs} pad songs in "
+            f"raster_extract and {pad_jobs} pad jobs in fused")
+        if not (pad_songs or pad_jobs):
+            raise AssertionError("phase 16: the counts differ without pad "
+                                 "rows")
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s ({smi})")
     return launches
 
 
@@ -2859,6 +3184,9 @@ def main():
         captured = phase_captured(torch, comps, styles, tmp, smi,
                                   serve_flops["request"])
         torch.cuda.empty_cache()
+        mesh = phase_mesh(torch, comps, styles, songs, tmp, smi,
+                          serve_flops["request"])
+        torch.cuda.empty_cache()
         train_captured = phase_train_captured(torch, comps + styles, tmp,
                                               smi)
     log(f"training, bf16 storage and compute against fp32 (one call): "
@@ -2881,6 +3209,8 @@ def main():
                    "2-seq-rank bar-sharded micro-steps, rank 0": seq[name],
                    "captured transfer request (one replay)":
                        captured[name],
+                   "captured mesh request (one replay a shard)":
+                       mesh[name],
                    "captured micro-steps (one fp32 and one bf16 replay)":
                        train_captured[name]}
         k["launches"] = sum(by_path.values())

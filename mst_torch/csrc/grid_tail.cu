@@ -442,14 +442,18 @@ grid_tail_kernel(const Elem<BF16>* __restrict__ xo,
 #undef MST_TERM
 
 // (dynamic shared memory bytes, threads per block, resident blocks per SM)
-// of K2's launch in the fp32 form (bf16 0) or the bf16 form (bf16 1). The
-// first call for a form sets its kernels' shared-memory limit.
+// of K2's launch in the fp32 form (bf16 0) or the bf16 form (bf16 1) on
+// the current card. The first call for a form on a card sets its kernels'
+// shared-memory limit there: the attribute belongs to that card's context.
 template <bool BF16>
 int launch_info(int* info) {
-  static int per_sm = 0;
+  static int per_sm_of[MAX_DEVICES] = {};   // by card ordinal; 0: not set
   constexpr int smem = Layout<BF16>::SMEM_BYTES;
   constexpr int threads = Shape<BF16>::THREADS;
-  cudaError_t err = cudaSuccess;
+  int device = 0;
+  cudaError_t err = current_device(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int& per_sm = per_sm_of[device];
   if (per_sm == 0) {
     const void* kernels[] = {
         reinterpret_cast<const void*>(grid_tail_kernel<FULL, BF16>),

@@ -514,13 +514,16 @@ grid_tail_bwd_kernel(const Elem<BF16>* __restrict__ xo,
 
 
 // (dynamic shared memory bytes, threads per block, resident blocks per SM,
-// rows per tile) of K3's launch in one form. The first call for a form
-// sets its kernels' shared-memory limit.
+// rows per tile) of K3's launch in one form on the current card. The first
+// call for a form on a card sets its kernels' shared-memory limit there.
 template <bool BF16>
 int launch_info(int* info) {
-  static int per_sm = 0;
+  static int per_sm_of[MAX_DEVICES] = {};   // by card ordinal; 0: not set
   constexpr int smem = Layout<BF16>::SMEM_BYTES;
-  cudaError_t err = cudaSuccess;
+  int device = 0;
+  cudaError_t err = current_device(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int& per_sm = per_sm_of[device];
   if (per_sm == 0) {
     const void* kernels[] = {
         reinterpret_cast<const void*>(grid_tail_bwd_kernel<FULL, BF16>),
@@ -584,8 +587,8 @@ int launch_form(int bf16, int mode, const void* xo, const void* xd,
 
 }  // namespace
 
-// The launch info of the fp32 form (bf16 0) or the bf16 form (bf16 1).
-// The wrapper sizes the ct_w partials by the grid it passes: min(blocks
+// The launch info of the fp32 form (bf16 0) or the bf16 form (bf16 1) on
+// the current card. The wrapper sizes the ct_w partials by the grid it passes: min(blocks
 // per SM x SMs, tiles).
 extern "C" int mst_grid_tail_bwd_info(int bf16, int* info) {
   return bf16 ? launch_info<true>(info) : launch_info<false>(info);

@@ -8,6 +8,10 @@
 // compute in place, fence, and one thread stores the stage back with bulk
 // stores and hands it to the producer on its `empty` barrier once the store
 // has read it (bulk_wait_read).
+//
+// On the host side, the kernels' launch setup: a kernel's shared-memory
+// limit is an attribute of the card's context, so each card that launches
+// it sets it once (`current_device`, a table by ordinal in each kernel).
 
 #pragma once
 
@@ -15,6 +19,19 @@
 #include <stdint.h>
 
 namespace tile_ring {
+
+// The most cards one process launches the kernels on: the size of their
+// per-card launch tables.
+constexpr int MAX_DEVICES = 64;
+
+// The calling thread's current card, an index into a per-card table.
+inline cudaError_t current_device(int* device) {
+  cudaError_t err = cudaGetDevice(device);
+  if (err == cudaSuccess && (*device < 0 || *device >= MAX_DEVICES)) {
+    err = cudaErrorInvalidDevice;
+  }
+  return err;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

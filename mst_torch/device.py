@@ -20,6 +20,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def as_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a card without an index is the
+    current card (``cuda`` -> ``cuda:0`` when card 0 is current)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def strict_fp32() -> None:
     """Full fp32 on the card: no TF32 in matmuls or cuDNN convolutions (the
     default would run the encoders' ``beats_conv`` in TF32)."""

@@ -90,26 +90,32 @@ def _entry():
 
 @functools.cache
 def _bwd_entry():
-    """(C entry point, launch info by form) of csrc/grid_tail_bwd.cu, built
-    and bound once. The info of the fp32 and the bf16 form (keyed by
-    dtype) is (dynamic shared memory bytes, threads per block, resident
-    blocks per SM, rows per tile)."""
+    """(C entry point, launch-info entry point) of csrc/grid_tail_bwd.cu,
+    built and bound once."""
     lib = cuda_build.load("grid_tail_bwd")
     fn = lib.mst_grid_tail_bwd
     fn.argtypes = [ctypes.c_void_p] * 5 + _SCALES + [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.mst_grid_tail_bwd_info.argtypes = [ctypes.c_int,
-                                           ctypes.POINTER(ctypes.c_int)]
-    lib.mst_grid_tail_bwd_info.restype = ctypes.c_int
-    infos = {}
-    for form in (FP32, BF16):
-        info = (ctypes.c_int * 4)()
-        rc = lib.mst_grid_tail_bwd_info(int(form == BF16), info)
-        if rc != 0:
-            raise RuntimeError(f"grid tail backward kernel: CUDA error {rc}")
-        infos[form] = tuple(info)
-    return fn, infos
+    info_fn = lib.mst_grid_tail_bwd_info
+    info_fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    info_fn.restype = ctypes.c_int
+    return fn, info_fn
+
+
+@functools.cache
+def bwd_launch_info(index: int, form) -> tuple:
+    """K3's launch info on card ``index`` in one form (``form``: the dtype
+    of xo): (dynamic shared memory bytes, threads per block, resident
+    blocks per SM, rows per tile). The first call on a card sets the
+    kernels' shared-memory limit there, so each card gets its own."""
+    _, info_fn = _bwd_entry()
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        rc = info_fn(int(form == BF16), info)
+    if rc != 0:
+        raise RuntimeError(f"grid tail backward kernel: CUDA error {rc}")
+    return tuple(info)
 
 
 @functools.cache
@@ -327,11 +333,11 @@ def grid_tail_bwd(xo, xd, out, ct, w, scale: Sequence[float]):
     form = _check_dtypes(xo, xd, w, saved=(("out", out), ("ct", ct)))
     if xo.device.type == "cpu":
         return grid_tail_bwd_plain(xo, xd, out, ct, w, scale)
-    launch, infos = _bwd_entry()
-    _, _, per_sm, rows_per_tile = infos[form]
+    launch, _ = _bwd_entry()
     if not xo.is_cuda:
         raise ValueError(f"grid_tail_bwd: unsupported device {xo.device}")
     dev = xo.device
+    _, _, per_sm, rows_per_tile = bwd_launch_info(dev.index, form)
     ins = [_aligned(t) for t in (xo, xd, out, ct, w)]
     n = math.prod(lead)
     ct_xo, ct_xd = (torch.empty_like(t) for t in ins[:2])

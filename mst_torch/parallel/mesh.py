@@ -24,6 +24,11 @@ rank and the collectives are written out:
   computes the global batch's loss, and all-reduces each micro-step's
   parameter gradients over the whole mesh, as JAX's psum does inside the
   step.
+
+Serving over a mesh needs no process group: one process drives the cards
+of a ``DeviceMesh`` (``create_device_mesh``), as JAX's single controller
+does, and ``mst_torch.transfer.ModelBundle(mesh=...)`` shards its batches
+over the mesh's data axis.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 from mst_torch.config import Config
-from mst_torch.device import resolve_device
+from mst_torch.device import as_device, resolve_device
 from mst_torch.runtime.train import make_train_step
 
 
@@ -88,6 +93,40 @@ def local_device(device=None) -> torch.device:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """Devices of one process along a data axis: shard i of a batch runs on
+    ``devices[i]`` (mst_tpu's ``jax.sharding.Mesh`` over ``("data",
+    "seq")`` with a seq axis of 1: serving shards rows alone)."""
+
+    devices: tuple               # n_data torch.devices
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices), "seq": 1}
+
+
+def create_device_mesh(n_data: Optional[int] = None,
+                       devices=None) -> DeviceMesh:
+    """A data axis over ``devices[:n_data]``, the counterpart of mst_tpu's
+    ``create_mesh(n_data, n_seq=1)`` (mst_tpu/parallel/mesh.py:34-49) over
+    ``jax.devices()``. ``devices``: default every visible card (without
+    one that is an error, never a fall back to the CPU); a device may
+    appear more than once (``["cpu"] * 4``, or two shards on one card).
+    ``n_data`` None or negative: every device."""
+    if devices is None:
+        resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [as_device(d) for d in devices]
+    if n_data is None or n_data < 0:
+        n_data = len(devices)
+    if not 1 <= n_data <= len(devices):
+        raise ValueError(f"a data axis of {n_data} does not fit "
+                         f"{len(devices)} devices")
+    return DeviceMesh(tuple(devices[:n_data]))
 
 
 def create_mesh(n_data: Optional[int] = None, n_seq: int = 1,

@@ -117,17 +117,18 @@ def _signature(x):
 
 def replay_log_flops(bundle, call_log) -> int:
     """Matmul FLOPs of a ``ModelBundle.call_log``, a list of ``(key,
-    inputs, statics)`` program calls (mst_tpu's ``replay_log_flops``,
+    inputs, statics, shard)`` program calls (mst_tpu's ``replay_log_flops``,
     mst_tpu/runtime/flops.py:128-149). Each distinct (key, shapes and
     dtypes of the inputs, statics) runs once more, uncaptured and
-    unlogged, under the counter; the log's total sums over its calls."""
+    unlogged, on its shard's replica, under the counter; the log's total
+    sums over its calls."""
     counts = {}
     total = 0
-    for key, inputs, statics in call_log:
+    for key, inputs, statics, shard in call_log:
         sig = (key, _signature(inputs), tuple(sorted(statics.items())))
         if sig not in counts:
             counts[sig] = count_matmul_flops(bundle.run, key, inputs,
-                                             statics, False)
+                                             statics, False, shard)
         total += counts[sig]
     return total
 

@@ -65,9 +65,10 @@ class StageTimer:
     ``with timer("name"): ...`` adds the block's seconds to
     ``times["name"]``. Stages nest: an inner stage's time is taken out of
     the stage around it, so the stages never count a second twice. On a
-    CUDA ``device`` a stage waits for the card at its exit, so it owns the
-    device work it queued; ``sync=False`` leaves that work to a later
-    stage. A CUDA device without a card raises."""
+    CUDA ``device`` (or a list of devices: a mesh's cards) a stage waits
+    for every card at its exit, so it owns the device work it queued;
+    ``sync=False`` leaves that work to a later stage. A CUDA device
+    without a card raises."""
 
     def __init__(self, device=None):
         self.times: Dict[str, float] = {}
@@ -75,12 +76,16 @@ class StageTimer:
         self._sync = None
         if device is not None:
             import torch
-            device = torch.device(device)
-            if device.type == "cuda":
+            devices = device if isinstance(device, (list, tuple)) \
+                else [device]
+            cards = list(dict.fromkeys(
+                d for d in map(torch.device, devices) if d.type == "cuda"))
+            if cards:
                 if not torch.cuda.is_available():
                     raise RuntimeError(f"StageTimer: no CUDA device for "
-                                       f"{device}")
-                self._sync = lambda: torch.cuda.synchronize(device)
+                                       f"{cards[0]}")
+                self._sync = lambda: [torch.cuda.synchronize(d)
+                                      for d in cards]
 
     @contextlib.contextmanager
     def __call__(self, name: str, sync: bool = True):

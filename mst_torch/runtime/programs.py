@@ -13,8 +13,9 @@ fn, args, statics)`` runs ``fn(*args, **statics)`` as program ``key``:
   static buffers, allocated outside the graphs' memory pool; runs the
   program once eagerly on a side stream (the warm-up, where cuBLAS and
   cuDNN set up their handles and K2 sets its kernels' shared-memory
-  limits); captures it into the pool that all graphs of one ``Programs``
-  share (``torch.cuda.graph_pool_handle()``); and replays it. A later
+  limits); captures it, on a capture stream of its own card, into the
+  pool that all graphs of one ``Programs`` share
+  (``torch.cuda.graph_pool_handle()``); and replays it. A later
   call copies its inputs into the static buffers and replays. Host
   inputs (the note records, the job rows) go through pinned memory and a
   copy that does not wait for the card.
@@ -25,6 +26,9 @@ fn, args, statics)`` runs ``fn(*args, **statics)`` as program ``key``:
   into the graph.
 - A failed capture raises. Nothing runs the program eagerly on the card
   in the graph's place.
+- A ``Programs`` belongs to one card, which is the current device while
+  any of its programs runs, is captured or replays. A bundle over a mesh
+  of cards keeps one per card (mst_torch.transfer).
 
 Sharing one pool. Graphs captured into one private pool may reuse the
 memory that an earlier capture freed, its intermediates, for their own
@@ -68,6 +72,7 @@ programs with ``capture=False``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
@@ -153,6 +158,7 @@ class Programs:
         self.runs = collections.Counter()
         self._pool = None
         self._stream = None
+        self._capture_stream = None
 
     def run(self, key: str, fn, args, statics: dict, capture: bool,
             stateful: bool = False):
@@ -165,7 +171,14 @@ class Programs:
         self.runs[key] += 1
         leaves = []
         spec = _flatten(tuple(args), leaves)
-        with torch.enable_grad() if stateful else torch.inference_mode():
+        # a card named by its index becomes current; "cuda" is the current
+        # card already, and the CPU has none
+        on_card = (torch.cuda.device(self.device.index)
+                   if self.device.type == "cuda"
+                   and self.device.index is not None
+                   else contextlib.nullcontext())
+        with on_card, (torch.enable_grad() if stateful
+                       else torch.inference_mode()):
             if self.device.type != "cuda" or not capture:
                 moved = [None if x is None else x.to(self.device)
                          for x in leaves]
@@ -204,6 +217,7 @@ class Programs:
         args = _unflatten(spec, inputs)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
+            self._capture_stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
@@ -215,7 +229,11 @@ class Programs:
         graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            # on this card's own stream: torch.cuda.graph's default stream
+            # is made once, on the card current at the process's first
+            # capture
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._capture_stream):
                 out = fn(*args, **statics)
             recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
         except Exception as e:

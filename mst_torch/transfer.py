@@ -38,10 +38,26 @@ runs the same programs eagerly, as the CPU always does. The channel and
 bar buckets are kept, so shapes and masks match the JAX programs one to
 one. Deliberate difference: the packed words and the fetched buffer are
 int64 tensors holding mst_tpu's uint32 values (the host views the buffer
-as uint32). Serving over a device mesh (mst_tpu's ``ModelBundle.mesh``)
-is not ported. ``ModelBundle.call_log``, set to a list, records every
+as uint32). ``ModelBundle.call_log``, set to a list, records every
 program call, and ``runtime.flops.replay_log_flops`` counts the log's
 matmul FLOPs, which a replayed graph cannot show to the counter.
+
+Over a device mesh (``ModelBundle(mesh=parallel.create_device_mesh(...))``,
+mst_tpu's ``ModelBundle.mesh``, transfer.py:460-518) one process drives
+every card of the mesh's data axis, as JAX's single controller does: the
+bundle holds a replica of the model and its own programs on each card,
+the extraction batch is padded with all-zero songs to a multiple of the
+axis and each shard's songs are rasterized (K1) and extracted on its
+card, the job rows are padded by repeating the last job and each shard's
+jobs are applied (K2) on its card, and the host fetches each card's rows
+in the per-job row layout. A replay or an eager launch on one card does
+not wait for another, so the cards work at once. Deliberate differences:
+the mesh has a data axis alone (JAX's has a ``seq`` axis too, over which
+it computes each row again); a request that mst_tpu runs as one
+``transfer_fused`` program runs as extraction on each card, a copy of the
+latents to every card (the gather XLA would insert, outside the graphs)
+and the apply on each card; the extracted latents come back on the
+mesh's first device; a device may appear in the mesh more than once.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``ModelBundle(device=None)`` resolves to ``cuda`` and raises without it.
@@ -57,6 +73,7 @@ process has set, so its packed outputs stay those of the fp32 path
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import os
@@ -73,7 +90,7 @@ from mst_torch.data.pipeline import Song, get_input
 from mst_torch.data.taxonomy import (
     INCLUDED_INSTRUMENTS, PERCUSSION_ID, category_feature_table,
     category_instrument)
-from mst_torch.device import resolve_device, strict_fp32
+from mst_torch.device import as_device, resolve_device, strict_fp32
 from mst_torch.exceptions import MidiFormatError
 from mst_torch.io import create_midi, load_midi_from_file, native
 from mst_torch.io.midi import bpm2tempo
@@ -160,7 +177,7 @@ def _program_key(kind: str, capacity: int, Cb: int, dense: bool,
 @dataclasses.dataclass
 class ModelBundle:
     """The model on its device, its programs and the sticky sizing of its
-    requests (mst_tpu's ModelBundle, transfer.py:459-611, without a mesh).
+    requests (mst_tpu's ModelBundle, transfer.py:459-611).
     ``device=None`` resolves to ``cuda``.
 
     - ``extract_storage_dtype``: the activation storage dtype of the
@@ -178,8 +195,16 @@ class ModelBundle:
       eagerly, for the profile tools, whose traces need the model's
       ``record_function`` scopes.
     - ``call_log``: None, or a list to which every program call appends
-      ``(key, inputs, statics)`` (mst_tpu's ``call_log``);
-      ``runtime.flops.replay_log_flops`` counts it."""
+      ``(key, inputs, statics, shard)`` (mst_tpu's ``call_log`` of ``(key,
+      inputs, statics)``, with the shard whose replica ran the call: 0
+      without a mesh); ``runtime.flops.replay_log_flops`` counts it.
+    - ``mesh``: None, or a ``parallel.mesh.DeviceMesh`` whose data axis
+      shards every batched serving stage (the module's docstring).
+      ``device`` is then the mesh's first device (a ``device`` passed must
+      name it: ``cuda`` does when card 0 is current); each other card of
+      the data axis gets a copy of ``model``, made here, and programs of
+      its own. ``use_record_pool`` does not apply: a mesh fetches the
+      per-job row layout, as in mst_tpu."""
 
     model: StyleTransferModel
     device: Optional[object] = None
@@ -191,15 +216,51 @@ class ModelBundle:
     fuse_requests: bool = True
     capture: bool = True
     call_log: Optional[list] = None
+    mesh: Optional[object] = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+            self.shard_devices = [self.device]
+        else:
+            self.shard_devices = list(self.mesh.devices)
+            if self.device is not None and \
+                    as_device(self.device) != self.shard_devices[0]:
+                raise ValueError(f"device {self.device} is not the mesh's "
+                                 f"first device {self.shard_devices[0]}")
+            self.device = self.shard_devices[0]
         if self.extract_storage_dtype is not None:
             precision.as_dtype(self.extract_storage_dtype)
         self.model = self.model.to(self.device).eval()
-        self._feature_table = torch.as_tensor(
-            category_feature_table(), dtype=torch.float32).to(self.device)
+        table = torch.as_tensor(category_feature_table(), dtype=torch.float32)
+        self._feature_table = table.to(self.device)
         self.programs = Programs(self.device)
+        # (model, feature table, programs) of each other card of the mesh
+        self._replicas = {
+            dev: (copy.deepcopy(self.model).to(dev).eval(), table.to(dev),
+                  Programs(dev))
+            for dev in dict.fromkeys(self.shard_devices) if dev != self.device}
+
+    def data_axis_size(self) -> int:
+        """The shards of a batch: the mesh's data axis, or 1."""
+        return 1 if self.mesh is None else self.mesh.shape["data"]
+
+    def shard_rows(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A batch-axis tensor, whose rows the data axis divides (pad it
+        first), as one row slice per shard (mst_tpu's ``shard_rows``: the
+        shards of its sharded array). The slices are views of ``x``: each
+        shard's program moves its inputs to its card."""
+        n = self.data_axis_size()
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not shard over {n}")
+        return list(x.split(x.shape[0] // n))
+
+    def replica(self, shard: int = 0):
+        """(model, feature table, programs) on shard ``shard``'s device."""
+        dev = self.shard_devices[shard]
+        if dev == self.device:
+            return self.model, self._feature_table, self.programs
+        return self._replicas[dev]
 
     def policy(self, storage=None):
         """The numeric policy of one stage: the model config's compute dtype
@@ -208,25 +269,27 @@ class ModelBundle:
         return precision.precision(self.model.config.compute_dtype,
                                    storage=storage or "float32")
 
-    def fn(self, key: str):
-        """The program ``key`` (mst_tpu's ``ModelBundle.fn``): a callable
-        ``(*inputs, **statics)`` that runs it under its stage's policy
-        through ``self.programs`` (and logs the call in ``call_log``).
-        Keys: ``raster_extract`` (the extraction, at
-        ``extract_storage_dtype``), ``fused:{capacity}:{Cb}[:dense]
-        [:pool=PP,PU]`` (the apply of a batch of jobs) and
+    def fn(self, key: str, shard: int = 0):
+        """The program ``key`` (mst_tpu's ``ModelBundle.fn``) on shard
+        ``shard``'s device: a callable ``(*inputs, **statics)`` that runs it
+        under its stage's policy through that device's programs (and logs
+        the call in ``call_log``). Keys: ``raster_extract`` (the
+        extraction, at ``extract_storage_dtype``), ``fused:{capacity}:{Cb}
+        [:dense][:pool=PP,PU]`` (the apply of a batch of jobs) and
         ``transfer_fused:...`` (both in one program)."""
         def program(*inputs, **statics):
             if self.call_log is not None:
-                self.call_log.append((key, inputs, statics))
-            return self.run(key, inputs, statics, self.capture)
+                self.call_log.append((key, inputs, statics, shard))
+            return self.run(key, inputs, statics, self.capture, shard)
         return program
 
-    def run(self, key: str, inputs, statics: dict, capture: bool):
-        """One call of program ``key``, captured on the card when
-        ``capture``; not logged."""
+    def run(self, key: str, inputs, statics: dict, capture: bool,
+            shard: int = 0):
+        """One call of program ``key`` on shard ``shard``'s replica,
+        captured on the card when ``capture``; not logged."""
+        model, table, programs = self.replica(shard)
         if key == "raster_extract":
-            body = functools.partial(_raster_extract_latents, self.model)
+            body = functools.partial(_raster_extract_latents, model)
             storage = self.extract_storage_dtype
         else:
             kind, cap, cb, *rest = key.split(":")
@@ -235,18 +298,16 @@ class ModelBundle:
                            pool=_pool_from_key(rest))
             if kind == "transfer_fused":
                 body = functools.partial(
-                    _fused_transfer_full, self.model, self._feature_table,
+                    _fused_transfer_full, model, table,
                     extract_storage=self.extract_storage_dtype, **options)
             elif kind == "fused":
-                body = functools.partial(
-                    _fused_transfer_apply, self.model, self._feature_table,
-                    **options)
+                body = functools.partial(_fused_transfer_apply, model, table,
+                                         **options)
             else:
                 raise KeyError(f"no program {key!r}")
             storage = None
         with self.policy(storage):
-            return self.programs.run(key, body, inputs, statics,
-                                     capture=capture)
+            return programs.run(key, body, inputs, statics, capture=capture)
 
     @classmethod
     def from_npz(cls, path: str = weights.SNAPSHOT_NPZ, device=None,
@@ -254,8 +315,7 @@ class ModelBundle:
                  ) -> "ModelBundle":
         """A bundle with the params of an npz export (default: the committed
         ``snapshots/4900`` export). ``options``: the bundle's other fields
-        (``extract_storage_dtype``, ``capture``, ...)."""
-        device = resolve_device(device)
+        (``extract_storage_dtype``, ``capture``, ``mesh``, ...)."""
         model = StyleTransferModel(config)
         model.load_state_dict(weights.state_dict_from_flax(
             weights.load_npz(path)))
@@ -270,7 +330,6 @@ class ModelBundle:
         (mst_tpu's load_trained_params). ``options``: as ``from_npz``'s."""
         from mst_torch.runtime.checkpoint import load_trained_params
 
-        device = resolve_device(device)
         state_dict, step = load_trained_params(directory)
         if state_dict is None:
             raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -571,13 +630,21 @@ def _fused_transfer_full(model: StyleTransferModel, feature_table, p_notes,
 
 
 # the stages of a request that ``transfer_styles(..., stage=timer)`` times,
-# by tools/profile_transfer.py's names; 2a and 6a are split out of 2 and 6
+# by tools/profile_transfer.py's names; 2a-2c, 5a-5d and 6a are split out
+# of 2, 5 and 6 (2b-2c and 5a-5d are the shards' stages: 2b runs over a
+# mesh alone; "{}" is the shard)
 STAGE_INGEST = "1 ingest (read_midi+get_input)"
 STAGE_EXTRACT_DISPATCH = "2 extract dispatch"
 STAGE_NOTE_RECORDS = "2a note-record prep (out of 2)"
+STAGE_LATENT_GATHER = "2b latent gather (out of 2)"
+STAGE_SHARD_EXTRACT = "2c extract dispatch, shard {} (out of 2)"
 STAGE_EXTRACT_BLOCK = "3 extract block"
 STAGE_ORIGINALS = "4 originals decode+write"
 STAGE_APPLY = "5 apply dispatch+fetch"
+STAGE_LATENT_COPY = "5a latent copy (out of 5)"
+STAGE_SHARD_APPLY = "5b apply dispatch, shard {} (out of 5)"
+STAGE_SHARD_FETCH = "5c fetch, shard {} (out of 5)"
+STAGE_FETCH_JOIN = "5d join and convert (out of 5)"
 STAGE_STYLED = "6 styled decode+write"
 STAGE_PACKED_DECODE = "6a packed-job decode (out of 6)"
 REQUEST_STAGES = (STAGE_INGEST, STAGE_EXTRACT_DISPATCH, STAGE_NOTE_RECORDS,
@@ -616,7 +683,8 @@ def get_model_input(path) -> Optional[Tuple[str, Song]]:
 
 @dataclasses.dataclass
 class LatentBatch:
-    """Latents of B songs sharing one (Cb, Rb, T) bucket."""
+    """Latents of B songs sharing one (Cb, Rb, T) bucket, on the bundle's
+    device (over a mesh, the real songs' rows gathered from the shards)."""
 
     style: torch.Tensor    # (B, S)
     melody: torch.Tensor   # (B, Rb, T, 10, 56, melody_size)
@@ -624,56 +692,83 @@ class LatentBatch:
     n_bars: List[int]      # per-song real bar count
 
 
-def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
+def _extract_shards(bundle: ModelBundle, songs: Sequence[Song], T: int,
                     has_unpitched: bool, stage=_untimed):
-    """The inputs of one extraction batch (mst_tpu's _extract_inputs,
-    transfer.py:731-797): every song's quantized note records are offset
-    into one flat row space (song b = channel block b*Cb..), so one scatter
-    materializes the whole (B, Cb, Rb, ...) raster batch. Returns
-    (inputs, statics, per-song real bar counts): ``inputs`` are host tensors
+    """The inputs of one extraction batch, by shard (mst_tpu's
+    _extract_inputs, transfer.py:731-797): every song's quantized note
+    records are offset into one flat row space (song b = channel block
+    b*Cb..), so one scatter materializes the whole (B, Cb, Rb, ...) raster
+    batch. Over a mesh the batch is padded to a multiple of the data axis
+    with all-zero songs of length 1 (transfer.py:741-744,779), and each
+    shard's records hold its own songs alone, rebased into its B/n x Cb
+    channel blocks (the scheme of ops.device_raster.
+    device_rasterize_batch_sharded), so K1 builds each shard's raster on
+    its card; Cb and Rb come from the whole batch. Returns (inputs of each
+    shard, statics, per-song real bar counts): ``inputs`` are host tensors
     in ``_raster_extract_latents``' order, the program moves them to the
-    device; ``statics`` are B, Cb, Rb and T. ``stage`` times the
-    note-record prep."""
-    B = len(songs)
+    device; ``statics`` are B (a shard's rows), Cb, Rb and T. ``stage``
+    times the note-record prep."""
+    B_real = len(songs)
+    n_shards = bundle.data_axis_size()
+    B = -(-B_real // n_shards)          # rows of one shard
     caps = [1000 // s.n_channels for s in songs]
     Cs = [s.pitched_shape[0] for s in songs]
     Rs = [min(s.pitched_shape[1], cap) for s, cap in zip(songs, caps)]
     Cb = _bucket(max(Cs), CHANNEL_BUCKETS)
     Rb = _bucket(max(Rs), BAR_BUCKETS)
 
-    def records(pitched):
+    def records(pitched, shard):
         with stage(STAGE_NOTE_RECORDS, sync=False):
             parts = []
-            for b, song in enumerate(songs):
+            first = shard * B
+            n_channels = Cb if pitched else 1
+            for b in range(first, min(first + B, B_real)):
+                song = songs[b]
                 rasterizer = Rasterizer(song.info)
                 note_arrays = (song.pitched_notes if pitched
                                else song.unpitched_notes)
-                n_channels = Cb if pitched else 1
                 for c, n in enumerate(note_arrays[:n_channels]):
                     q = rasterizer.quantize(n, pitched)
                     parts.append(encode_notes(
-                        rasterizer, q, b * n_channels + c, pitched,
+                        rasterizer, q, (b - first) * n_channels + c, pitched,
                         B * n_channels, Rb, valid_bars=Rs[b]))
             return concat_and_pad(parts).to("cpu")
 
-    instf = np.zeros((B, Cb, songs[0].instruments_features.shape[-1]),
+    rows = B * n_shards
+    instf = np.zeros((rows, Cb, songs[0].instruments_features.shape[-1]),
                      np.float32)
-    cmask = np.zeros((B, Cb), np.float32)
-    mode = np.zeros((B, 2), np.float32)
-    bpm = np.full((B,), 120.0, np.float32)
+    cmask = np.zeros((rows, Cb), np.float32)
+    mode = np.zeros((rows, 2), np.float32)
+    bpm = np.full((rows,), 120.0, np.float32)
     for b, song in enumerate(songs):
         instf[b, :Cs[b]] = song.instruments_features
         cmask[b, :Cs[b]] = 1.0
         mode[b] = [0.0, 1.0] if song.info.scale.is_minor else [1.0, 0.0]
         bpm[b] = song.info.bpm
-    inputs = (records(True), records(False) if has_unpitched else None,
-              torch.from_numpy(mode), torch.from_numpy(bpm),
-              torch.from_numpy(instf), torch.tensor(Rs, dtype=torch.int64),
-              torch.from_numpy(cmask),
-              # parity: prepare_input passes percussion whenever present,
-              # even all-zero (style_transfer.py:70-73)
-              torch.ones((B, 1)) if has_unpitched else None)
-    return inputs, dict(B=B, Cb=Cb, Rb=Rb, T=T), Rs
+    lengths = torch.tensor(Rs + [1] * (rows - B_real), dtype=torch.int64)
+    fields = zip(*(bundle.shard_rows(x) for x in (
+        torch.from_numpy(mode), torch.from_numpy(bpm),
+        torch.from_numpy(instf), lengths, torch.from_numpy(cmask))))
+    shards = [(records(True, shard),
+               records(False, shard) if has_unpitched else None,
+               *mine,
+               # parity: prepare_input passes percussion whenever present,
+               # even all-zero (style_transfer.py:70-73)
+               torch.ones((B, 1)) if has_unpitched else None)
+              for shard, mine in enumerate(fields)]
+    return shards, dict(B=B, Cb=Cb, Rb=Rb, T=T), Rs
+
+
+def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
+                    has_unpitched: bool, stage=_untimed):
+    """``_extract_shards`` of a bundle without a mesh: (inputs, statics,
+    per-song real bar counts) of its one shard."""
+    if bundle.mesh is not None:
+        raise ValueError("a bundle over a mesh extracts by shards "
+                         "(_extract_shards)")
+    (inputs,), statics, Rs = _extract_shards(bundle, songs, T,
+                                             has_unpitched, stage)
+    return inputs, statics, Rs
 
 
 def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
@@ -700,9 +795,10 @@ def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
                    stage=_untimed):
     """Batched latent extraction: songs are grouped by (beats-per-bar,
     percussion presence), and each group is one bucket-padded batch, run
-    as one ``raster_extract`` program. Returns (batches, locators): a list
-    of LatentBatch plus, per input song, its (batch_index, row).
-    ``stage``: as ``transfer_styles``'."""
+    as one ``raster_extract`` program (over a mesh, one on each shard's
+    device). Returns (batches, locators): a list of LatentBatch plus, per
+    input song, its (batch_index, row). ``stage``: as
+    ``transfer_styles``'."""
     group_keys = {}
     group_members = []
     locators = [None] * len(songs)
@@ -714,10 +810,22 @@ def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
         group_members[group_keys[key]].append(i)
     batches = []
     for (T, has_unpitched), members in zip(group_keys, group_members):
-        inputs, statics, Rs = _extract_inputs(
+        shards, statics, Rs = _extract_shards(
             bundle, [songs[i] for i in members], T, has_unpitched, stage)
-        style, melody, rhythm = bundle.fn("raster_extract")(*inputs,
-                                                            **statics)
+        outs = []
+        for shard, inputs in enumerate(shards):
+            with stage(STAGE_SHARD_EXTRACT.format(shard), sync=False):
+                outs.append(bundle.fn("raster_extract", shard)(*inputs,
+                                                               **statics))
+        if len(outs) == 1:
+            style, melody, rhythm = outs[0]
+        else:   # the real songs' rows, on the mesh's first device
+            with stage(STAGE_EXTRACT_BLOCK):
+                pass    # a timed request waits here: 2b is the gather alone
+            with stage(STAGE_LATENT_GATHER):
+                style, melody, rhythm = (
+                    torch.cat([t.to(bundle.device) for t in parts])[:len(Rs)]
+                    for parts in zip(*outs))
         for row, i in enumerate(members):
             locators[i] = (len(batches), row)
         batches.append(LatentBatch(style=style, melody=melody, rhythm=rhythm,
@@ -789,7 +897,8 @@ def unpack_job_records(buf: np.ndarray, B: int, Cb: int, capacity: int,
 
 def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
                    rhythm_mat, style_idx, comp_idx, n_instruments_list,
-                   n_bars_list, Cb: int, host_work=None, dispatch=None):
+                   n_bars_list, Cb: int, host_work=None, dispatch=None,
+                   stage=_untimed):
     """Run the fused apply program for B (style row, composition row) jobs,
     escalating through the capacity ladder until every job's output fits
     (mst_tpu/transfer.py:977-1095), and fetch its buffer (the one wait
@@ -807,31 +916,61 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
     - Counts beyond the top tier raise ``OverflowError``: the compaction
       has already dropped records.
 
+    Over a mesh (mst_tpu's ``transfer.py:1000-1023``) the job rows are
+    padded to a multiple of the data axis by repeating the last job, the
+    latents are copied whole to each shard's card (once, before the first
+    program), every shard's program is launched before ``host_work`` and
+    before any fetch, and the shards' buffers, in the per-job row layout,
+    are fetched card by card and joined in shard order without the pad
+    rows.
+
     ``host_work`` runs once, after the first program is launched and before
     its buffer is fetched. ``dispatch``: ``(job_rows, capacity, dense,
-    pool) -> device buffer``, the program to run (default ``fused:...``
-    on the given latents; the one-program request passes
-    ``transfer_fused:...``). Returns ``(buf, capacity, pool)``, ``buf``
-    as uint32; ``unpack_job_records(buf, B, Cb, capacity, pool)`` splits
-    it."""
+    pool) -> device buffers``, one a shard, the program to run (default
+    ``fused:...`` on the given latents; the one-program request of a
+    bundle without a mesh passes ``transfer_fused:...``). ``stage``: as
+    ``transfer_styles``' (5a-5d). Returns ``(buf, capacity, pool)``,
+    ``buf`` as uint32; ``unpack_job_records(buf, B, Cb, capacity, pool)``
+    splits it."""
     B = len(infos)
+    n_shards = bundle.data_axis_size()
+    B_pad = -(-B // n_shards) * n_shards
 
     def rows(values, dtype):
-        return torch.tensor(list(values), dtype=dtype)
+        values = list(values)
+        return torch.tensor(values + values[-1:] * (B_pad - B), dtype=dtype)
 
     job_rows = (rows(style_idx, torch.int64), rows(comp_idx, torch.int64),
                 rows(n_instruments_list, torch.int64),
                 rows(n_bars_list, torch.int64),
                 rows([i.ticks_per_beat for i in infos], torch.float32))
     if dispatch is None:
-        def dispatch(job_rows, capacity, dense, pool):
-            return bundle.fn(_program_key("fused", capacity, Cb, dense,
-                                          pool))(
-                style_mat, melody_mat, rhythm_mat, *job_rows)
-    use_pool = bundle.use_record_pool
+        with stage(STAGE_LATENT_COPY):
+            latents = {dev: tuple(t.to(dev) for t in (style_mat, melody_mat,
+                                                       rhythm_mat))
+                       for dev in dict.fromkeys(bundle.shard_devices)}
 
-    def fetch(buf_dev):
-        return buf_dev.cpu().numpy().astype(np.uint32)
+        def dispatch(job_rows, capacity, dense, pool):
+            key = _program_key("fused", capacity, Cb, dense, pool)
+            bufs = []
+            for shard, mine in enumerate(zip(*map(bundle.shard_rows,
+                                                   job_rows))):
+                with stage(STAGE_SHARD_APPLY.format(shard), sync=False):
+                    bufs.append(bundle.fn(key, shard)(
+                        *latents[bundle.shard_devices[shard]], *mine))
+            return bufs
+    use_pool = bundle.mesh is None and bundle.use_record_pool
+
+    def fetch(bufs):
+        """Every shard's buffer on the host, joined in shard order, without
+        the pad rows."""
+        host = []
+        for shard, buf in enumerate(bufs):
+            with stage(STAGE_SHARD_FETCH.format(shard), sync=False):
+                host.append(buf.cpu())
+        with stage(STAGE_FETCH_JOIN, sync=False):
+            buf = host[0] if len(host) == 1 else torch.cat(host)[:B]
+            return buf.numpy().astype(np.uint32)
 
     def pools_for(sum_p, sum_u):
         if max(sum_p, sum_u) > POOL_TIERS[-1]:
@@ -890,7 +1029,7 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
 
 def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
                style_idx, comp_idx, n_instruments_list, n_bars_list,
-               host_work=None):
+               host_work=None, stage=_untimed):
     """The device side of B (style row, composition row) jobs: the ``fused``
     program through the capacity ladder (``run_fused_jobs``), at fp32
     storage. ``host_work`` runs once the program is launched and before
@@ -898,11 +1037,12 @@ def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
     [bpm, mode, n_picked, has_unpitched, count_p, count_u, live_blocks_p,
     live_blocks_u], mst_tpu's header (transfer.py:108) — picked (Cb,)
     int32, rec_p (count_p, 2) uint32, rec_u (count_u, 2) uint32)`` and the
-    apply channel bucket Cb."""
+    apply channel bucket Cb. ``stage``: as ``transfer_styles``'."""
     Cb = _bucket(max(max(n_instruments_list), 1), CHANNEL_BUCKETS)
     buf, capacity, pool = run_fused_jobs(
         bundle, infos, style_mat, melody_mat, rhythm_mat, style_idx,
-        comp_idx, n_instruments_list, n_bars_list, Cb, host_work=host_work)
+        comp_idx, n_instruments_list, n_bars_list, Cb, host_work=host_work,
+        stage=stage)
     return unpack_job_records(buf, len(infos), Cb, capacity, pool), Cb
 
 
@@ -925,7 +1065,8 @@ def _apply_batch(bundle: ModelBundle, infos, style_mat, melody_mat,
     with stage(STAGE_APPLY), torch.inference_mode():
         views, Cb = apply_jobs(bundle, infos, style_mat, melody_mat,
                                rhythm_mat, style_idx, comp_idx,
-                               n_instruments_list, n_bars_list, host_work)
+                               n_instruments_list, n_bars_list, host_work,
+                               stage)
     _write_jobs(infos, views, Cb, rhythm_mat.shape[1], rhythm_mat.shape[2],
                 save_paths, stage)
 
@@ -939,15 +1080,16 @@ def _apply_batch_fused(bundle: ModelBundle, infos, ext_inputs, ext_statics,
     Cb = _bucket(max(max(n_instruments_list), 1), CHANNEL_BUCKETS)
 
     def dispatch(job_rows, capacity, dense, pool):
-        return bundle.fn(_program_key("transfer_fused", capacity, Cb, dense,
-                                      pool))(
-            *ext_inputs, *job_rows, **ext_statics)
+        with stage(STAGE_SHARD_APPLY.format(0), sync=False):
+            return [bundle.fn(_program_key("transfer_fused", capacity, Cb,
+                                           dense, pool))(
+                *ext_inputs, *job_rows, **ext_statics)]
 
     with stage(STAGE_APPLY), torch.inference_mode():
         buf, capacity, pool = run_fused_jobs(
             bundle, infos, None, None, None, style_idx, comp_idx,
             n_instruments_list, n_bars_list, Cb, host_work=host_work,
-            dispatch=dispatch)
+            dispatch=dispatch, stage=stage)
         views = unpack_job_records(buf, len(infos), Cb, capacity, pool)
     _write_jobs(infos, views, Cb, ext_statics["Rb"], ext_statics["T"],
                 save_paths, stage)
@@ -1143,12 +1285,13 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     1245-1374).
 
     When every song shares one extraction bucket (beats per bar,
-    percussion presence) and ``bundle.fuse_requests`` is set, the whole
-    request is one program, ``transfer_fused``: extraction and the apply of
-    every (reconstructed and styled) job. Otherwise the songs are extracted
-    in batches grouped by that bucket (``raster_extract`` each) and the jobs
-    of one composition group are one ``fused`` apply. The originals' decode
-    overlaps the first group's program.
+    percussion presence), ``bundle.fuse_requests`` is set and the bundle
+    has no mesh, the whole request is one program, ``transfer_fused``:
+    extraction and the apply of every (reconstructed and styled) job.
+    Otherwise the songs are extracted in batches grouped by that bucket
+    (``raster_extract`` each, on every shard of a mesh) and the jobs of one
+    composition group are one ``fused`` apply (on every shard). The
+    originals' decode overlaps the first group's programs.
 
     ``stage``: a ``runtime.profile.StageTimer`` that times the request by
     ``REQUEST_STAGES`` (tools/profile_transfer_torch.py, which runs with
@@ -1172,7 +1315,8 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     style_songs = songs[len(composition_paths):]
     group_keys = {(s.info.n_beats, s.unpitched_shape is not None)
                   for s in songs}
-    fuse = bundle.fuse_requests and len(group_keys) == 1
+    fuse = (bundle.fuse_requests and bundle.mesh is None
+            and len(group_keys) == 1)
 
     with stage(STAGE_EXTRACT_DISPATCH, sync=False), torch.inference_mode():
         if fuse:

@@ -428,9 +428,10 @@ def test_replay_log_flops_of_a_request(tmp_path, dtype):
                                        styles, str(tmp_path / "counted"))
     t_bundle.call_log = log = []
     tt.transfer_styles(t_bundle, comps, styles, str(tmp_path / "logged"))
-    assert [key for key, _, _ in log] == [
+    assert [key for key, *_ in log] == [
         key for key, _, _ in j_bundle.call_log]
-    assert [key.split(":")[0] for key, _, _ in log] == ["transfer_fused"]
+    assert [(key.split(":")[0], shard) for key, _, _, shard in log] == \
+        [("transfer_fused", 0)]
     got = flops.replay_log_flops(t_bundle, log)
     assert len(log) == 1
     assert got > 0

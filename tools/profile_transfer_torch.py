@@ -20,7 +20,12 @@ request runs stage 4 alone). Stages (``transfer.REQUEST_STAGES``):
 5. apply dispatch+fetch: the job grouping (``transfer.plan_jobs``) and
    each group's apply, records fetched;
 6. styled decode+write: each job's ``.mid`` write, without
-   6a. packed-job decode, its records decoded to MIDI messages.
+   6a. packed-job decode, its records decoded to MIDI messages;
+
+and out of 2 and 5 the stages of each shard (one here): 2c its
+extraction dispatch, 5a the latents' copy to its card, 5b its apply
+dispatch, 5c its fetch, and 5d the fetched buffer's conversion
+(tools/profile_mesh_torch.py times them over a device mesh).
 
 On a CUDA device each stage waits for the card at its exit (stage 2 and
 2a excepted, so stage 3 owns the extraction's device work). The bundle
@@ -91,8 +96,10 @@ def profile_rounds(bundle, compositions, styles, out, rounds):
                         os.path.join(out, f"request_{r}"))
         sync()
         request_s.append(time.perf_counter() - t0)
+    # every stage of REQUEST_STAGES, and the shards' stages (2c, 5a-5d)
+    names = sorted(set(REQUEST_STAGES) | set(timer.times))
     stages_ms = {name: timer.times.get(name, 0.0) / rounds * 1e3
-                 for name in REQUEST_STAGES}
+                 for name in names}
     return {
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
