@@ -1,7 +1,29 @@
-"""Profiling tools of the port: a wall-clock ``StageTimer``, model-scope
+"""Profiling tools of the port: always-on spans and counters (``span``,
+``count``, ``units``), a wall-clock ``StageTimer``, model-scope
 annotations for a trace (``model_scopes``), and ``summarize``, the summary
 of a ``runtime.metrics.profiler_trace`` Chrome trace by model component,
 by kernel category and by idle gap.
+
+Spans and counters. ``with span(name):`` times a block on the host clock
+(``@spanned(name)``: each call of a function).
+A span opened on a thread with no span open is a root span, and with all
+that opens inside it, one unit: one ``transfer_styles`` request
+(``transfer.request``), one training call (``train.step``), one batch
+build (``data.batch``). Each thread keeps its own stack of open spans, so a
+worker thread's units never nest under the main thread's. A span's self
+time is its duration less its children's (``StageTimer``'s rule).
+``count(name, n)`` adds to the open unit's counters; with no unit open it
+counts nothing.
+
+A finished unit goes into a ring of the last ``RING_UNITS`` units of its
+root's name (``units(root)``), holding its spans' self times, its
+counters, and whether a ``torch.profiler`` was recording in the process
+(started on any thread) when it began. A span that begins while a
+profiler records is also a ``torch.profiler.record_function`` range, with
+its unit's id as the argument, so a trace's idle gaps name the program's
+stages; with no profiler, no range is opened. Spans never synchronize, and none opens
+inside a captured program: they mark stage boundaries on the host, a few
+dozen a request. ``ENABLED = False`` turns spans and counters off.
 
 Counterpart of tools/parse_profile.py, which reads a jax.profiler trace,
 and of tools/profile_transfer.py's StageTimer. The JAX trace names each
@@ -33,7 +55,10 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import dataclasses
+import functools
 import gzip
+import itertools
 import json
 import os
 import threading
@@ -101,6 +126,145 @@ class StageTimer:
             self.times[name] = self.times.get(name, 0.0) + elapsed - inner
             if self._inner:
                 self._inner[-1] += elapsed
+
+
+# spans and counters (the module's docstring)
+ENABLED = True
+RING_UNITS = 8192       # units kept a root name: a 51 s window of 1.5k steps
+_local = threading.local()
+_unit_ids = itertools.count(1)
+_rings: Dict[str, collections.deque] = {}
+
+
+def profiler_active() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) records in this
+    process, whichever thread started it."""
+    from torch.autograd import profiler
+    return profiler._is_profiler_enabled
+
+
+@dataclasses.dataclass
+class Unit:
+    """A finished unit: its root span's name and id, its start
+    (``time.perf_counter`` seconds) and duration, the self seconds of its
+    spans by name (the root's included; spans of one name add up), its
+    counters, and whether a profiler recorded when it began."""
+
+    name: str
+    id: int
+    start: float
+    seconds: float
+    spans: Dict[str, float]
+    counters: Dict[str, int]
+    profiled: bool
+
+
+class _Open:
+    """The open unit of a root span."""
+
+    __slots__ = ("id", "profiled", "spans", "counters")
+
+    def __init__(self):
+        self.id = next(_unit_ids)
+        self.profiled = profiler_active()
+        self.spans: Dict[str, float] = {}
+        self.counters: Dict[str, int] = {}
+
+
+class span:
+    """``with span(name):`` the block as a span (the module's docstring)."""
+
+    __slots__ = ("name", "start", "parent", "unit", "inner", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        if not ENABLED:
+            self.unit = None
+            return self
+        stack = _local.__dict__.setdefault("stack", [])
+        self.parent = stack[-1] if stack else None
+        self.unit = _Open() if self.parent is None else self.parent.unit
+        self.inner = 0.0
+        self.range = None
+        if profiler_active():
+            from torch.profiler import record_function
+            self.range = record_function(self.name, str(self.unit.id))
+            self.range.__enter__()
+        stack.append(self)
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.unit is None:
+            return False
+        end = time.perf_counter()
+        _local.stack.pop()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        elapsed = end - self.start
+        unit = self.unit
+        unit.spans[self.name] = (unit.spans.get(self.name, 0.0) + elapsed
+                                 - self.inner)
+        if self.parent is not None:
+            self.parent.inner += elapsed
+            return False
+        ring = _rings.get(self.name)
+        if ring is None:
+            ring = _rings.setdefault(self.name,
+                                     collections.deque(maxlen=RING_UNITS))
+        ring.append(Unit(self.name, unit.id, self.start, elapsed,
+                         unit.spans, unit.counters, unit.profiled))
+        return False
+
+
+def spanned(name: str):
+    """Decorator: every call of the function as the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of this thread's open unit (none open:
+    nothing is counted)."""
+    stack = _local.__dict__.get("stack")
+    if ENABLED and stack:
+        counters = stack[0].unit.counters
+        counters[name] = counters.get(name, 0) + n
+
+
+def units(root: str) -> List[Unit]:
+    """The finished units of root span ``root`` that the ring holds,
+    oldest first."""
+    return list(_rings.get(root, ()))
+
+
+def stage_span(name: str, sync: bool = True) -> span:
+    """A request's stage as a span: the ``stage`` hook of
+    ``transfer_styles`` and its helpers when nothing times the request.
+    ``sync`` is ``StageTimer``'s; a span never synchronizes."""
+    return span(name)
+
+
+def stage_hook(timer: Optional["StageTimer"] = None):
+    """A request's ``stage(name, sync=True)`` hook: each stage a ``span``
+    (``stage_span``), and with ``timer`` also a stage of that
+    ``StageTimer`` (inside the span, so the span holds the timer's
+    synchronize)."""
+    if timer is None:
+        return stage_span
+
+    @contextlib.contextmanager
+    def stage(name: str, sync: bool = True):
+        with span(name), timer(name, sync):
+            yield
+    return stage
 
 
 @contextlib.contextmanager

@@ -67,6 +67,9 @@ program mutates state, so four more rules hold:
 A replayed graph carries no ``record_function`` scope, so a trace cannot
 attribute its kernels to model components; the profile tools run the
 programs with ``capture=False``.
+
+Each capture counts ``programs.captures`` in the caller's open unit
+(mst_torch.runtime.profile).
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from mst_torch.ops import grid_kernel, precision, raster_kernel
+from mst_torch.runtime.profile import count
 
 # (wrapper, counter attribute) of every kernel form
 COUNTERS = tuple((fn, attr)
@@ -188,6 +192,7 @@ class Programs:
                     (precision.compute_dtype(), precision.storage_dtype()))
             graph = self.graphs.get(ckey)
             if graph is None:
+                count("programs.captures")
                 graph, first = self._capture(key, fn, spec, leaves, statics)
                 self.graphs[ckey] = graph
                 if stateful:

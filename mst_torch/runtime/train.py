@@ -94,6 +94,7 @@ from mst_torch.ops import precision, seq_context
 from mst_torch.ops.losses import LossDict, total_loss
 from mst_torch.ops.shapes import split_note_features
 from mst_torch.device import strict_fp32
+from mst_torch.runtime.profile import spanned
 from mst_torch.runtime.programs import Programs
 
 ADAM_BETAS = (0.9, 0.999)   # torch Adam defaults (train-model.py:89), optax's
@@ -398,7 +399,8 @@ def _make_program(config: Config, has_unpitched: bool, k: int, mesh,
     """``run(state, kbatch) -> (state, (K, n_losses) losses)``: the body of
     ``_make_body`` as a program of ``state.programs`` on the card (module
     docstring), eagerly elsewhere or without ``capture``, then the host's
-    bookkeeping."""
+    bookkeeping. Each call is the span ``train.step``
+    (mst_torch.runtime.profile): its host time, the replay queued."""
     if capture and mesh is not None:
         raise ValueError(
             "capture over a process mesh is not ported: gloo, which ranks "
@@ -412,6 +414,7 @@ def _make_program(config: Config, has_unpitched: bool, k: int, mesh,
     key = (f"train_step:k={k}:unpitched={int(has_unpitched)}"
            f":remat={int(config.train.remat)}")
 
+    @spanned("train.step")
     def run(state: TrainState, kbatch: Batch):
         pattern = tuple((state.micro_step + i + 1) % iter_size == 0
                         for i in range(k))
@@ -632,6 +635,7 @@ def device_batch_from_song(song: Song, max_channels: int, max_bars: int,
                                    raster_dtype=raster_dtype)
 
 
+@spanned("data.batch")
 def device_batch_from_songs(songs, max_channels: int, max_bars: int,
                             bar_cap=None, max_uchannels: int = 1,
                             device="cuda", raster_dtype="float32",
@@ -654,7 +658,10 @@ def device_batch_from_songs(songs, max_channels: int, max_bars: int,
     (``device_rasterize_batch_sharded``); the per-song fields and the bar
     lengths stay whole. The unpitched raster and mask exist when any song
     of the global batch has percussion, so every rank runs the same model
-    path."""
+    path.
+
+    The build is the span ``data.batch`` (mst_torch.runtime.profile): on
+    the trainer's prefetch thread, a unit of that thread."""
     from mst_torch.ops.device_raster import (
         device_rasterize_batch, device_rasterize_batch_sharded)
     from mst_torch.ops.rasterize import Rasterizer

@@ -72,7 +72,6 @@ process has set, so its packed outputs stay those of the fp32 path
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import functools
@@ -100,6 +99,8 @@ from mst_torch.ops.device_raster import (
     concat_and_pad, encode_notes, segment_rasterize)
 from mst_torch.ops.events import SongInfo, read_midi
 from mst_torch.ops.rasterize import QNotes, Rasterizer
+from mst_torch.runtime.profile import (
+    count, spanned, stage_hook, stage_span)
 from mst_torch.runtime.programs import Programs
 from mst_torch.theory.scales import Scale
 
@@ -629,10 +630,12 @@ def _fused_transfer_full(model: StyleTransferModel, feature_table, p_notes,
         pool=pool)
 
 
-# the stages of a request that ``transfer_styles(..., stage=timer)`` times,
-# by tools/profile_transfer.py's names; 2a-2c, 5a-5d and 6a are split out
-# of 2, 5 and 6 (2b-2c and 5a-5d are the shards' stages: 2b runs over a
-# mesh alone; "{}" is the shard)
+# the stages of a request, by tools/profile_transfer.py's names: spans of
+# the request's unit (``REQUEST_SPAN``, mst_torch.runtime.profile), and the
+# stages that ``transfer_styles(..., stage=timer)`` times; 2a-2c, 5a-5d and
+# 6a are split out of 2, 5 and 6 (2b-2c and 5a-5d are the shards' stages:
+# 2b runs over a mesh alone; "{}" is the shard)
+REQUEST_SPAN = "transfer.request"
 STAGE_INGEST = "1 ingest (read_midi+get_input)"
 STAGE_EXTRACT_DISPATCH = "2 extract dispatch"
 STAGE_NOTE_RECORDS = "2a note-record prep (out of 2)"
@@ -650,11 +653,6 @@ STAGE_PACKED_DECODE = "6a packed-job decode (out of 6)"
 REQUEST_STAGES = (STAGE_INGEST, STAGE_EXTRACT_DISPATCH, STAGE_NOTE_RECORDS,
                   STAGE_EXTRACT_BLOCK, STAGE_ORIGINALS, STAGE_APPLY,
                   STAGE_STYLED, STAGE_PACKED_DECODE)
-
-
-def _untimed(name: str, sync: bool = True):
-    """The ``stage`` of a request that nobody times."""
-    return contextlib.nullcontext()
 
 
 def ingest_map(fn, paths):
@@ -693,7 +691,7 @@ class LatentBatch:
 
 
 def _extract_shards(bundle: ModelBundle, songs: Sequence[Song], T: int,
-                    has_unpitched: bool, stage=_untimed):
+                    has_unpitched: bool, stage=stage_span):
     """The inputs of one extraction batch, by shard (mst_tpu's
     _extract_inputs, transfer.py:731-797): every song's quantized note
     records are offset into one flat row space (song b = channel block
@@ -760,7 +758,7 @@ def _extract_shards(bundle: ModelBundle, songs: Sequence[Song], T: int,
 
 
 def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
-                    has_unpitched: bool, stage=_untimed):
+                    has_unpitched: bool, stage=stage_span):
     """``_extract_shards`` of a bundle without a mesh: (inputs, statics,
     per-song real bar counts) of its one shard."""
     if bundle.mesh is not None:
@@ -792,7 +790,7 @@ def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
 
 
 def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
-                   stage=_untimed):
+                   stage=stage_span):
     """Batched latent extraction: songs are grouped by (beats-per-bar,
     percussion presence), and each group is one bucket-padded batch, run
     as one ``raster_extract`` program (over a mesh, one on each shard's
@@ -898,7 +896,7 @@ def unpack_job_records(buf: np.ndarray, B: int, Cb: int, capacity: int,
 def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
                    rhythm_mat, style_idx, comp_idx, n_instruments_list,
                    n_bars_list, Cb: int, host_work=None, dispatch=None,
-                   stage=_untimed):
+                   stage=stage_span):
     """Run the fused apply program for B (style row, composition row) jobs,
     escalating through the capacity ladder until every job's output fits
     (mst_tpu/transfer.py:977-1095), and fetch its buffer (the one wait
@@ -915,6 +913,10 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
       again (an overflowed table under-reports them).
     - Counts beyond the top tier raise ``OverflowError``: the compaction
       has already dropped records.
+
+    Each run after the first counts ``transfer.redispatch.<reason>`` in the
+    request's unit (mst_torch.runtime.profile): ``capacity`` (the ladder's
+    next tier), ``pool`` (the exact pool tier) or ``dense``.
 
     Over a mesh (mst_tpu's ``transfer.py:1000-1023``) the job rows are
     padded to a multiple of the data axis by repeating the last job, the
@@ -978,13 +980,20 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
         return (_pick_pool_tier(max(sum_p, 1)),
                 _pick_pool_tier(max(sum_u, 1)))
 
+    def launch(capacity, dense, pool, redo):
+        """The program's buffers; ``redo``: why it runs again, or None."""
+        if redo is not None:
+            count(f"transfer.redispatch.{redo}")
+        return dispatch(job_rows, capacity, dense, pool)
+
     pool = pools_for(bundle.pool_hint_p or B * 2048,
                      bundle.pool_hint_u or B * 512) if use_pool else None
     ladder = [c for c in COMPACT_CAPACITIES if c >= bundle.capacity_hint] \
         or [COMPACT_CAPACITIES[-1]]
+    redo = None
     for capacity in ladder:
         while True:
-            buf_dev = dispatch(job_rows, capacity, False, pool)
+            buf_dev = launch(capacity, False, pool, redo)
             if host_work is not None:
                 host_work()      # overlaps the device work launched above
                 host_work = None
@@ -994,9 +1003,11 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
             live_p, live_u = int(hdr[:, 6].max()), int(hdr[:, 7].max())
             sum_p, sum_u = int(hdr[:, 4].sum()), int(hdr[:, 5].sum())
             if not _fits(capacity, count_p, count_u, live_p, live_u):
+                redo = "capacity"
                 break            # the next capacity tier
             if pool is not None and (sum_p > pool[0] or sum_u > pool[1]):
                 pool = pools_for(sum_p, sum_u)
+                redo = "pool"
                 continue
             bundle.capacity_hint = next(
                 c for c in COMPACT_CAPACITIES
@@ -1008,14 +1019,16 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
     if count_p <= capacity and count_u <= capacity // 4:
         # the records fit but the live-block routing table overflowed: the
         # dense compaction, whose header carries the true counts
+        redo = "dense"
         while True:
-            buf = fetch(dispatch(job_rows, capacity, True, pool))
+            buf = fetch(launch(capacity, True, pool, redo))
             hdr = _header_table(buf, B, Cb, pool)
             count_p, count_u = int(hdr[:, 4].max()), int(hdr[:, 5].max())
             sum_p, sum_u = int(hdr[:, 4].sum()), int(hdr[:, 5].sum())
             if pool is None or (sum_p <= pool[0] and sum_u <= pool[1]):
                 break
             pool = pools_for(sum_p, sum_u)
+            redo = "pool"
     if count_p > capacity or count_u > capacity // 4:
         raise OverflowError(
             f"style application produced {count_p} pitched / {count_u} "
@@ -1029,7 +1042,7 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
 
 def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
                style_idx, comp_idx, n_instruments_list, n_bars_list,
-               host_work=None, stage=_untimed):
+               host_work=None, stage=stage_span):
     """The device side of B (style row, composition row) jobs: the ``fused``
     program through the capacity ladder (``run_fused_jobs``), at fp32
     storage. ``host_work`` runs once the program is launched and before
@@ -1047,7 +1060,7 @@ def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
 
 
 def _write_jobs(infos, views, Cb: int, Rb: int, T: int, save_paths,
-                stage=_untimed) -> None:
+                stage=stage_span) -> None:
     """Decode each job's records and write its ``.mid``."""
     for info, view, path in zip(infos, views, save_paths):
         with stage(STAGE_PACKED_DECODE):
@@ -1059,7 +1072,7 @@ def _write_jobs(infos, views, Cb: int, Rb: int, T: int, save_paths,
 def _apply_batch(bundle: ModelBundle, infos, style_mat, melody_mat,
                  rhythm_mat, style_idx, comp_idx, n_instruments_list,
                  save_paths, n_bars_list, host_work=None,
-                 stage=_untimed) -> None:
+                 stage=stage_span) -> None:
     """The ``fused`` program for B jobs on extracted latents, each job's
     records decoded to its ``.mid`` (mst_tpu/transfer.py:1098-1110)."""
     with stage(STAGE_APPLY), torch.inference_mode():
@@ -1073,7 +1086,7 @@ def _apply_batch(bundle: ModelBundle, infos, style_mat, melody_mat,
 
 def _apply_batch_fused(bundle: ModelBundle, infos, ext_inputs, ext_statics,
                        style_idx, comp_idx, n_instruments_list, save_paths,
-                       n_bars_list, host_work=None, stage=_untimed) -> None:
+                       n_bars_list, host_work=None, stage=stage_span) -> None:
     """``_apply_batch`` as one program that also rasterizes and extracts
     the latents (``transfer_fused:...``, mst_tpu/transfer.py:1113-1137),
     through the same ladder."""
@@ -1278,6 +1291,7 @@ def transfer_style(bundle: ModelBundle, composition_path, style_paths,
                            output_path)
 
 
+@spanned(REQUEST_SPAN)
 def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
                     output_path, stage=None) -> List[str]:
     """Batched transfer_style over many compositions (same per-song outputs
@@ -1293,14 +1307,17 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     composition group are one ``fused`` apply (on every shard). The
     originals' decode overlaps the first group's programs.
 
-    ``stage``: a ``runtime.profile.StageTimer`` that times the request by
-    ``REQUEST_STAGES`` (tools/profile_transfer_torch.py, which runs with
+    The request is one unit of spans, ``REQUEST_SPAN`` with its stages
+    (``REQUEST_STAGES`` and the shards' stages) inside
+    (mst_torch.runtime.profile). ``stage``: a ``runtime.profile.StageTimer``
+    that also times the request by its stages, synchronizing the card at
+    each one's exit (tools/profile_transfer_torch.py, which runs with
     ``fuse_requests=False`` to time extraction and apply apart). The
     originals are then decoded alone, between the extraction and the
     apply, so that no stage hides another; the files are the same."""
     strict_fp32()
     timed = stage is not None
-    stage = stage or _untimed
+    stage = stage_hook(stage)
     all_paths = list(composition_paths) + list(style_paths)
     if not all_paths:
         return []
@@ -1333,13 +1350,16 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
             n_bars = [b.n_bars for b in batches]
             style_mat = torch.cat([b.style for b in batches], dim=0)
     names, style_names = song_names(composition_paths), song_names(style_paths)
-    host_work = functools.partial(write_originals, comps, style_songs, names,
-                                  style_names, output_path)
+
+    def host_work():
+        with stage(STAGE_ORIGINALS):
+            write_originals(comps, style_songs, names, style_names,
+                            output_path)
+
     if timed:
         with stage(STAGE_EXTRACT_BLOCK):
             pass                      # the extraction's device work
-        with stage(STAGE_ORIGINALS):
-            host_work()
+        host_work()
         host_work = None
     with stage(STAGE_APPLY):
         jobs_per_group, written = plan_jobs(
