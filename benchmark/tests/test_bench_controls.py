@@ -33,3 +33,12 @@ def test_train_control_fails(card, name, seed):
     readings = controls.train_control(cell, seed)
     for kind, reading in readings.items():
         assert _fails(reading, cell.workload["check"]), (kind, reading)
+
+
+@pytest.mark.card
+def test_b1_seed_3141592713_meets_its_limits(card):
+    """A sound seed whose ``loss_gap`` (1.439e-5) failed b1's first limit,
+    1e-5, on every tree it ran on."""
+    cell = harness.Cell("train.fp32.b1")
+    reading = controls.program_reading(cell, 3141592713, 2.0)
+    assert not _fails(reading, cell.workload["check"]), reading
