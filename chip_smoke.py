@@ -38,7 +38,13 @@ Phases (any failure exits non-zero):
    value within the fp32-reassociation rule (``K4_RTOL``, ``K4_ATOL``,
    ``K4_MAX_REL``; under bf16, where rounding flips of h carry, within
    ``K4_BF16_MAX_REL`` of the largest |value|); one launch must not synchronise; each shape's time,
-   the loop's, the bound, the time a step and the launch plan.
+   the loop's, the bound, the time a step and the launch plan. Then K4's
+   training form and backward at ``K4_BWD_SHAPES``, the batch-1 training
+   step's recurrences (``phase_k4_bwd``): the training form's outputs
+   bit-equal to the serving form's, the backward's gate cotangents and the
+   weight gradient against their plain versions under the same rules, no
+   synchronisation, and each shape's time against the loop's forward and
+   backward through autograd.
 5. The serving path: ``transfer_styles`` with the ``snapshots/4900``
    weights on 3 compositions x 3 styles (12 jobs) on ``cuda``, its programs
    uncaptured (``capture=False``; phase 14 captures them), once to warm
@@ -70,8 +76,9 @@ Phases (any failure exits non-zero):
    steps through ``create_train_state``, ``device_batch_from_songs`` and
    ``make_train_step`` (Adam with a ``LambdaLR`` over
    ``make_lr_schedule``, iter_size 2), with every launch
-   counter at 0 first; each of K1, K2 and K3 must launch, K4 must not
-   (training's recurrence is the loop) and every loss must be finite. Three more batch-1 micro-steps run from the run's
+   counter at 0 first; each of K1, K2, K3 and K4's forward and backward
+   must launch and every loss must be finite. Three more batch-1
+   micro-steps run from the run's
    state under ``runtime.metrics.profiler_trace`` and ``model_scopes``:
    one that warms the tracer up, then a traced pair on the songs of steps
    1 and 2 (the first applies Adam), for phases 12 and 13. It prints the
@@ -92,9 +99,14 @@ Phases (any failure exits non-zero):
    that differ from the fp32 request is printed. Then the training run of
    phase 7 again with ``ModelConfig(storage_dtype="bfloat16",
    compute_dtype="bfloat16")``: the bf16 forms of K1, K2 and K3 must each
-   launch and no fp32 tail kernel may, nor K4 in either form; every loss finite; the first step
+   launch, K4's forward and backward among them, and no fp32 form may;
+   every loss finite; the first step
    against the CPU's within ``TRAIN_BF16_LOSS_TOL`` and
-   ``TRAIN_BF16_GRAD_TOL``; ms per step, device-busy share and peak memory
+   ``TRAIN_BF16_GRAD_TOL`` (the gradients against the CPU step along the
+   card's route for the recurrences, ``LstmRecur``'s plain versions, since
+   the card's bf16 weight gradient sums the steps in fp32 where the loop
+   adds bf16 products in bf16; the loop's gap is printed beside); ms per
+   step, device-busy share and peak memory
    beside the fp32 run's. The bf16 forms of K2 and K3 must give their
    plain versions' bits (0 values differ; ct_w within ``K3_W_RTOL``), also
    on an edge-value case (``bf16_edge_values``: sums on bf16 rounding
@@ -177,7 +189,8 @@ Phases (any failure exits non-zero):
    the model must have device time under ``[fwd]`` (in the micro-step,
    under ``[fwd]`` and ``[bwd]``), the share of ``other`` must stay under
    ``OTHER_SHARE_MAX``, the K1, K2, K3 and K4 launches must be the path's
-   (request: 2, 1, 0, ``K4_PER_REQUEST``; micro-step: 2, 1, 1, 0; phases
+   (request: 2, 1, 0, ``K4_PER_REQUEST``; micro-step: 2, 1, 1 and
+   ``K4_PER_STEP`` launches of K4's forward and of its backward; phases
    5, 7 and 8 take a
    trace again, up to 3 in all, when the tracer lost the device record of
    a launch, and log each loss), and the sum over its
@@ -324,8 +337,11 @@ PROFILE_SUM_RTOL = 1e-3
 # 6.2% for a micro-step on an H100; a broken host-device or forward-backward
 # link puts most kernels there). Since K4 took the recurrences the request
 # reads 29.4%: the same 5-6 ms outside the model (the compactions, the
-# packing, copies) over a busy time that fell from 28.5 to 19.8 ms
-OTHER_SHARE_MAX = {"request": 0.40, "micro-step": 0.10}
+# packing, copies) over a busy time that fell from 28.5 to 19.8 ms. Since
+# K4 took training's recurrences too the micro-step reads 25.8%: 2.1 ms
+# outside every model component (about 1.8 ms before) over a busy time
+# that fell from 28.6 to 8.1 ms
+OTHER_SHARE_MAX = {"request": 0.40, "micro-step": 0.35}
 STAGE_SUM_RTOL = 0.1      # phase 13: stages' sum vs the staged wall time
 TRACE_TAKES = 3           # traces of a run, until one has every device record
 RANK_TIMEOUT = 600        # seconds the phase-10 and 11 ranks may take
@@ -338,6 +354,12 @@ CAPTURE_RTOL = 1e-6
 # pitched and unpitched beat LSTMs and bar BiLSTMs and the style LSTM of
 # extraction, song info's beat and bar LSTMs of the apply
 K4_PER_REQUEST = 7
+# K4 launches a batch-1 training micro-step of a smoke song: the same seven
+# recurrences, each once forward (the training form) and once backward; on
+# a sequence rank (phase 11) only the three beat LSTMs (the bar axis runs
+# mst_torch.parallel.seq_lstm)
+K4_PER_STEP = 7
+K4_PER_SEQ_STEP = 3
 # phase 14: the replayed 12-job request's elementwise/reduce device
 # records before K4 took the recurrences (measured on an NVIDIA H100 80GB
 # HBM3); with K4 at least this many fewer
@@ -385,7 +407,8 @@ def _counters():
     wrappers = (("raster", raster_kernel.rasterize),
                 ("grid_tail", grid_kernel.grid_tail),
                 ("grid_tail_bwd", grid_kernel.grid_tail_bwd),
-                ("lstm_recur", lstm_kernel.lstm_recur))
+                ("lstm_recur", lstm_kernel.lstm_recur),
+                ("lstm_recur_bwd", lstm_kernel.lstm_recur_bwd))
     return [(name + suffix, fn, attr) for name, fn in wrappers
             for suffix, attr in (("", "launches"),
                                  ("_bf16", "launches_bf16"))]
@@ -1182,6 +1205,131 @@ def phase_k4(torch):
     return entries
 
 
+# K4's backward at the batch-1 training step's recurrences, (K, N, T, H):
+# the bar BiLSTMs, the style LSTM, song info's bar LSTM, the pitched beat
+# LSTMs at 2 and 4 channels, the unpitched one, song info's beat LSTM
+K4_BWD_SHAPES = ((2, 1, 128, 64), (1, 1, 128, 192), (1, 1, 128, 8),
+                 (1, 256, 4, 64), (1, 512, 4, 64), (1, 128, 4, 64),
+                 (1, 128, 4, 9))
+
+
+def k4_bwd_bound_ms(k, n, t, h):
+    """K4's backward's bound at one shape: dout, the saved activations and
+    c read once and dgates written once (fp32), W_hh read once; the
+    carried dh's products, 2 K N (T - 1) H 4H operations."""
+    n_bytes = 4 * (k * n * t * 10 * h + k * h * 4 * h)
+    return bound_ms(n_bytes, 2 * k * n * (t - 1) * h * 4 * h)
+
+
+def phase_k4_bwd(torch):
+    """K4's training form and backward (csrc/lstm_recur.cu) at
+    ``K4_BWD_SHAPES`` under fp32 and bf16 compute: the training form's
+    outputs bit-equal to the serving form's; the backward's dgates and the
+    weight gradient from the kernel's own saved gates against the plain
+    versions (``recur_bwd_plain``, ``weight_grad``) on the card, within
+    the fp32-reassociation rule (under bf16 ``K4_BF16_MAX_REL`` of the
+    largest |value|); no host sync in a training forward and backward;
+    each shape's time: the forward's training form, the backward, the
+    weight gradient's product, and the recurrence forward and backward
+    through ``LstmRecur`` against the loop's through autograd. Returns
+    the entries of the backward's two forms, timed at the bar BiLSTM's
+    shape."""
+    from mst_torch.ops import lstm_kernel as lk
+    from mst_torch.ops.precision import precision
+
+    entries = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for compute in ("float32", "bfloat16"):
+        bf16 = compute == "bfloat16"
+        label = "K4 bwd bf16" if bf16 else "K4 bwd"
+        max_err, detail, head = 0.0, {}, None
+        for shape in K4_BWD_SHAPES:
+            k, n, t, h = shape
+            g = torch.Generator().manual_seed(sum(shape))
+            gates = torch.randn(k, n, t, 4 * h, generator=g).cuda()
+            w = ((torch.rand(k, h, 4 * h, generator=g) * 2 - 1)
+                 / h ** 0.5).cuda()
+            dout = torch.randn(k, n, t, h, generator=g).cuda()
+            p = lk.plan(k, n, h, bf16, sms, bwd=True)
+            with precision(compute), torch.no_grad():
+                serve = lk.lstm_recur(gates, w)
+                out, acts, cs = lk._launch(gates, w, bf16, train=True)
+                dg = lk.lstm_recur_bwd(dout, acts, cs, w, p, bf16)
+                want = lk.recur_bwd_plain(dout, acts, cs, w, bf16)
+                dw = lk.weight_grad(out, dg, bf16)
+                want_dw = lk.weight_grad(out, want, bf16)
+            torch.cuda.synchronize()
+            if not torch.equal(serve, out):
+                raise AssertionError(f"{label} {shape}: the training form's "
+                                     f"outputs differ from the serving "
+                                     f"form's")
+            bad, errs = 0, []
+            for got, ref in ((dg, want), (dw, want_dw)):
+                diff = (got - ref).abs()
+                top = ref.abs().max().item()
+                max_err = max(max_err, diff.max().item())
+                if bf16:
+                    bad += int((diff > K4_BF16_MAX_REL * top).sum())
+                else:
+                    bad += int((diff > K4_RTOL * ref.abs() + K4_ATOL
+                                + K4_MAX_REL * top).sum())
+                errs.append(diff.max().item() / max(top, 1e-30))
+            gl = gates.clone().requires_grad_()
+            wl = w.clone().requires_grad_()
+
+            def through(fn):
+                gl.grad = wl.grad = None
+                with precision(compute):
+                    (fn(gl, wl) * dout).sum().backward()
+
+            fwd_ms = cuda_ms(lambda: lk._launch(gates, w, bf16, train=True),
+                             20)
+            ms = cuda_ms(lambda: lk.lstm_recur_bwd(dout, acts, cs, w, p,
+                                                   bf16), 20)
+            dw_ms = cuda_ms(lambda: lk.weight_grad(out, dg, bf16), 20)
+            both_ms = cuda_ms(lambda: through(lk.lstm_recur_train), 20)
+            loop_ms = cuda_ms(lambda: through(lk.recur_plain), 3, warmup=1)
+            if shape == K4_BWD_SHAPES[0]:
+                def launches():
+                    o, a, c = lk._launch(gates, w, bf16, train=True)
+                    lk.lstm_recur_bwd(dout, a, c, w, p, bf16)
+                assert_no_sync(torch, f"{label} at {shape}", launches)
+            b_ms, b_by = k4_bwd_bound_ms(*shape)
+            key = "x".join(map(str, shape))
+            detail[key] = {"ms": ms, "fwd_ms": fwd_ms, "dw_ms": dw_ms,
+                           "fwd_bwd_ms": both_ms, "loop_fwd_bwd_ms": loop_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "us_a_step": ms * 1e3 / t,
+                           "dgates_rel_err": errs[0], "dw_rel_err": errs[1],
+                           "plan": [p.cluster, p.units, p.split,
+                                    p.rows_per_thread, p.groups,
+                                    p.blocks(k, n)]}
+            log(f"{label} {shape}: dgates {errs[0]:.3g}, dW {errs[1]:.3g} "
+                f"of the largest |value| from the plain versions', {bad} "
+                f"values outside the {compute} rule; backward {ms:.4f} ms "
+                f"({ms * 1e3 / t:.3f} us a step), training forward "
+                f"{fwd_ms:.4f} ms, dW product {dw_ms:.4f} ms; forward and "
+                f"backward {both_ms:.4f} ms against the loop's {loop_ms:.4f} "
+                f"ms ({loop_ms / both_ms:.1f}x); bound {b_ms:.4f} ms by "
+                f"{b_by} ({b_ms / ms:.1%}); plan cluster {p.cluster}, "
+                f"{p.units} units, split {p.split}, {p.rows_per_thread} rows "
+                f"a thread, {p.groups} groups, {p.blocks(k, n)} blocks")
+            if bad:
+                raise AssertionError(f"{label} {shape}: {bad} values outside "
+                                     f"the {compute} rule")
+            if head is None:
+                head = (ms, loop_ms, b_ms, b_by)
+            del gates, w, dout, out, acts, cs, dg, want, dw, want_dw
+        ms, plain, b_ms, b_by = head
+        entries.append(dict(
+            name="lstm_recur_bwd_bf16" if bf16 else "lstm_recur_bwd",
+            route="cuda", source="mst_torch/csrc/lstm_recur.cu",
+            replaces="none: autodiff of mst_tpu/ops/lstm.py's lax.scan",
+            max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, detail=detail))
+    return entries
+
+
 def differing_share(paths_a, paths_b):
     """(note-on events of a pair of file sets that have no exact match in
     the other set, all of their note-on events)."""
@@ -1610,14 +1758,10 @@ def phase_train(torch, paths, tmp, bf16=False):
     run_wall = time.perf_counter() - t_run
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # each training kernel of the run's form launches; the other form's
-    # never do, nor does K4: training's recurrence is the loop
+    # each training kernel of the run's form launches, K4's forward and
+    # backward among them; the other form's never do
     for name, count in launches.items():
-        if name.startswith("lstm_recur"):
-            if count:
-                raise AssertionError(f"{label} launched {name} {count} "
-                                     f"times")
-        elif name.endswith("_bf16") == bf16 and count == 0:
+        if name.endswith("_bf16") == bf16 and count == 0:
             raise AssertionError(f"{label} launched no {name} kernel")
         if name.endswith("_bf16") != bf16 and count != 0:
             raise AssertionError(f"{label} launched {name} {count} times")
@@ -1702,13 +1846,44 @@ def phase_train(torch, paths, tmp, bf16=False):
     if not ok:
         raise AssertionError(f"{label}: first step GPU vs CPU losses beyond "
                              f"the tolerance")
-    worst = (0.0, "")
-    for name, p in cpu_state.model.named_parameters():
-        want = p.grad if p.grad is not None else torch.zeros_like(p)
-        got = first_grads.get(name, torch.zeros_like(want))
-        err = (got - want).abs().max().item() / max(
-            want.abs().max().item(), 1e-30)
-        worst = max(worst, (err, name))
+    def worst_leaf(state):
+        worst = (0.0, "")
+        for name, p in state.model.named_parameters():
+            want = p.grad if p.grad is not None else torch.zeros_like(p)
+            got = first_grads.get(name, torch.zeros_like(want))
+            err = (got - want).abs().max().item() / max(
+                want.abs().max().item(), 1e-30)
+            worst = max(worst, (err, name))
+        return worst
+
+    worst = worst_leaf(cpu_state)
+    if bf16:
+        # the card's bf16 weight gradient of a recurrence sums its steps in
+        # fp32 and rounds once (lstm_kernel.weight_grad); the CPU's loop
+        # rounds each step's product to bf16 and adds them in bf16. The
+        # gradients are held to the same step on the CPU along the card's
+        # route (lstm_kernel.LstmRecur's plain versions); the loop's gap is
+        # printed beside
+        from mst_torch.ops import lstm as lstm_ops
+        from mst_torch.ops.lstm_kernel import lstm_recur_train
+        loop_worst, dense = worst, lstm_ops._recur
+
+        def card_route(gates_x, w_hh_t):
+            if lstm_ops._needs_grad(gates_x, w_hh_t):
+                return lstm_recur_train(gates_x, w_hh_t)
+            return dense(gates_x, w_hh_t)
+
+        lstm_ops._recur = card_route
+        try:
+            cpu_state = tr.create_train_state(config, device="cpu", seed=108)
+            run_step(cpu_state, plan[0][1], "cpu")
+        finally:
+            lstm_ops._recur = dense
+        worst = worst_leaf(cpu_state)
+        log(f"{label}: first step GPU vs CPU per-leaf gradients, the CPU's "
+            f"recurrences on the loop: within {loop_worst[0]:.3g} of each "
+            f"leaf's largest |grad| (worst {loop_worst[1]}); on the card's "
+            f"route:")
     log(f"{label}: first step GPU vs CPU per-leaf gradients within "
         f"{worst[0]:.3g} of each leaf's largest |grad| (worst {worst[1]}, "
         f"tolerance {grad_tol})")
@@ -1771,11 +1946,10 @@ def phase_remat(torch, paths):
         results[remat] = (vec, grads, launches)
     (vec_a, grads_a, _), (vec_b, grads_b, launches) = (results[False],
                                                        results[True])
-    # the bf16 tails launch (K2 twice: the forward and its recompute); no
-    # fp32 form does, nor K4 (training's recurrence is the loop)
+    # the bf16 forms launch (K2 twice: the forward and its recompute), K4's
+    # forward and backward among them; no fp32 form does
     for name, count in launches.items():
-        bad = (count == 0 if name.endswith("_bf16")
-               and not name.startswith("lstm_recur") else count != 0)
+        bad = count == 0 if name.endswith("_bf16") else count != 0
         if bad:
             raise AssertionError(f"bf16 remat step launched {name} {count} "
                                  f"times")
@@ -1972,12 +2146,15 @@ def phase_parallel(torch, paths, tmp, smi):
                 f"one-process rasters: {'bit-equal' if ok else 'DIFFER'}")
             if not ok:
                 raise AssertionError(f"rank {r}'s {dtype} raster differs")
-        want = {"raster": 4, "grid_tail": 2, "grid_tail_bwd": 2}
+        want = {"raster": 4, "grid_tail": 2, "grid_tail_bwd": 2,
+                "lstm_recur": 2 * K4_PER_STEP,
+                "lstm_recur_bwd": 2 * K4_PER_STEP}
         got = rec["launches"]
         log(f"  rank {r}: launches over 2 micro-steps {got}")
         if any(got[k] != want.get(k, 0) for k in got):
-            raise AssertionError(f"rank {r} launched {got}, want K1 2, K2 1 "
-                                 f"and K3 1 a micro-step")
+            raise AssertionError(f"rank {r} launched {got}, want K1 2, K2 1, "
+                                 f"K3 1 and K4 {K4_PER_STEP} forward and "
+                                 f"backward a micro-step")
         if rec["opt_step"] != 1:
             raise AssertionError(f"rank {r}: {rec['opt_step']} applies")
     differ = [n for n, q in ranks[0]["params"].items()
@@ -2199,12 +2376,15 @@ def phase_seq(torch, paths, tmp, smi):
             if not ok:
                 raise AssertionError(f"seq rank {r}'s {form} tail rows "
                                      f"differ")
-        want = {"raster": 4, "grid_tail": 2, "grid_tail_bwd": 2}
+        want = {"raster": 4, "grid_tail": 2, "grid_tail_bwd": 2,
+                "lstm_recur": 2 * K4_PER_SEQ_STEP,
+                "lstm_recur_bwd": 2 * K4_PER_SEQ_STEP}
         got = rec["launches"]
         log(f"  seq rank {r}: launches over 2 micro-steps {got}")
         if any(got[k] != want.get(k, 0) for k in got):
             raise AssertionError(f"seq rank {r} launched {got}, want K1 2, "
-                                 f"K2 1 and K3 1 a micro-step")
+                                 f"K2 1, K3 1 and K4 {K4_PER_SEQ_STEP} "
+                                 f"forward and backward a micro-step")
         if rec["opt_step"] != 1:
             raise AssertionError(f"seq rank {r}: {rec['opt_step']} applies")
     for form in ("fp32", "bf16"):
@@ -2298,7 +2478,8 @@ def phase_profile(torch, serve, fp32, bf16, comps, styles, tmp, smi):
              ("batch-1 fp32 micro-step (pair)", fp32["pair"],
               fp32["children"], ("[fwd]", "[bwd]"),
               OTHER_SHARE_MAX["micro-step"],
-              {"K1": 2, "K2": 1, "K3": 1, "K4": 0}))
+              {"K1": 2, "K2": 1, "K3": 1, "K4": K4_PER_STEP,
+               "K4 bwd": K4_PER_STEP}))
     for label, s, children, phases, other_max, want in cases:
         busy = s["busy_ms_per_step"]
         comps_ms, cats_ms = s["by_component_ms"], s["by_category_ms"]
@@ -3160,7 +3341,9 @@ def phase_train_captured(torch, paths, tmp, smi):
         config = Config(model=ModelConfig(**policy(bf16)),
                         train=TrainConfig(lr_decay_every=2))
         sfx = "_bf16" if bf16 else ""
-        want = {"grid_tail" + sfx: 1, "grid_tail_bwd" + sfx: 1}
+        want = {"grid_tail" + sfx: 1, "grid_tail_bwd" + sfx: 1,
+                "lstm_recur" + sfx: K4_PER_STEP,
+                "lstm_recur_bwd" + sfx: K4_PER_STEP}
         label = f"10 batch-1 {'bf16' if bf16 else 'fp32'} micro-steps"
         results[bf16] = run_pair(label, config, plan, want=want)
         launches.update({n: launches.get(n, 0) + want.get(n, 0)
@@ -3204,16 +3387,18 @@ def phase_train_captured(torch, paths, tmp, smi):
     host = host_launches(trace)
     eager_host = host_launches(os.path.join(tmp, "trace_pair"))
     got = {k: summary["by_category_launches"].get(k, 0)
-           for k in ("K1", "K2", "K3", "K4")}
+           for k in ("K1", "K2", "K3", "K4", "K4 bwd")}
     log(f"phase 15: traced replayed pair of fp32 micro-steps: device busy "
         f"{busy:.3f} ms of {wall * 1e3:.3f} ms wall "
         f"({busy / (wall * 1e3):.1%}); launches a step by kernel name {got} "
         f"(K1 builds the batch); host launch calls {sum(host.values())} "
         f"{dict(host)}; phase 7's eager pair: {sum(eager_host.values())} "
         f"({smi})")
-    if got != {"K1": 2, "K2": 1, "K3": 1, "K4": 0}:
+    want = {"K1": 2, "K2": 1, "K3": 1, "K4": K4_PER_STEP,
+            "K4 bwd": K4_PER_STEP}
+    if got != want:
         raise AssertionError(f"phase 15: the traced pair's device records "
-                             f"{got} a step, want K1 2, K2 1, K3 1, K4 0")
+                             f"{got} a step, want {want}")
     del results, run, state
     torch.cuda.empty_cache()
 
@@ -3222,14 +3407,18 @@ def phase_train_captured(torch, paths, tmp, smi):
     config = Config(model=ModelConfig(**policy(True)),
                     train=TrainConfig(remat=True))
     run_pair("bf16 remat micro-steps", config, [[songs[0]]] * 3,
-             want={"grid_tail_bf16": 2, "grid_tail_bwd_bf16": 1})
+             want={"grid_tail_bf16": 2, "grid_tail_bwd_bf16": 1,
+                   "lstm_recur_bf16": 2 * K4_PER_STEP,
+                   "lstm_recur_bwd_bf16": K4_PER_STEP})
 
     # a k=2 stack of two songs of one beats-per-bar, 3 calls (the second
     # and third replay), iter_size 2: each call applies once
     pair = [s for s in songs if s.beats_per_bar == songs[0].beats_per_bar]
     config = Config()
     run_pair("k=2 stacks (fp32)", config, [pair[:2]] * 3, k=2,
-             want={"grid_tail": 2, "grid_tail_bwd": 2})
+             want={"grid_tail": 2, "grid_tail_bwd": 2,
+                   "lstm_recur": 2 * K4_PER_STEP,
+                   "lstm_recur_bwd": 2 * K4_PER_STEP})
     torch.cuda.empty_cache()
 
     # the CLI: captured and --no-capture give the same rows; a captured
@@ -3303,7 +3492,7 @@ def main():
     # phase 14; phase 14 captures them
     bundle = ModelBundle.from_npz(device="cuda", capture=False)
     kernels = (phase_k1(torch, bundle, songs) + phase_k2(torch)
-               + phase_k4(torch))
+               + phase_k4(torch) + phase_k4_bwd(torch))
     with tempfile.TemporaryDirectory() as tmp:
         serve, serve_bf16, serve_flops = phase_main(torch, bundle, comps,
                                                     styles, tmp)

@@ -7,12 +7,13 @@ nn.LSTM's names and layouts — ``weight_ih_l0`` (4H, D), ``weight_hh_l0``
 backward direction — and gate order (i, f, g, o). The arithmetic follows the
 JAX scan step for step: ``x @ W_ih^T + (b_ih + b_hh)`` for every step at
 once, then per step ``gates = gx + h @ W_hh^T``. The JAX package has no
-Pallas kernel here (its recurrence is a ``lax.scan``). Where no gradient
-is needed on the card the recurrence is K4, one hand-written CUDA kernel
-that runs every step (mst_torch.ops.lstm_kernel); on the CPU, and where
-autograd records (training's step), it is a Python loop of plain tensor
-ops, ``lstm_kernel.recur_plain``: training's recurrence stays on the loop
-until K4 has a backward kernel over saved gates. Both products run under
+Pallas kernel here (its recurrence is a ``lax.scan``). On the card the
+recurrence is K4, one hand-written CUDA kernel that runs every step
+(mst_torch.ops.lstm_kernel): where no gradient is needed (serving) its
+plain form, and where autograd records (training's step) its training
+form, which saves the gates of every step for K4's backward kernel
+(``lstm_kernel.lstm_recur_train``). On the CPU it is a Python loop of
+plain tensor ops, ``lstm_kernel.recur_plain``. Both products run under
 the compute dtype (mst_torch.ops.precision), with W_hh cast once before
 the loop; the carries stay fp32 even when ``x`` arrives at a bf16 storage
 dtype (mst_tpu/ops/lstm.py:91-127,180-184).
@@ -44,7 +45,8 @@ from torch import nn
 
 from mst_torch.ops import precision
 from mst_torch.ops.init import uniform_
-from mst_torch.ops.lstm_kernel import lstm_recur, recur_plain
+from mst_torch.ops.lstm_kernel import (lstm_recur, lstm_recur_train,
+                                       recur_plain)
 from mst_torch.ops.seq_context import (count_once, current_seq_mesh,
                                        last_step, masked_flip_bars)
 from mst_torch.ops.shapes import masked_flip
@@ -85,13 +87,16 @@ def _needs_grad(*tensors) -> bool:
 def _recur(gates_x, w_hh_t):
     """Run the recurrence. ``gates_x``: (K, N, T, 4H) for K independent
     directions, ``w_hh_t``: (K, H, 4H). Returns outputs (K, N, T, H).
-    CUDA tensors that need no gradient (serving, under
-    ``torch.inference_mode``) run K4, one launch for every step
-    (mst_torch.ops.lstm_kernel); the CPU, and the card where autograd
-    records (training), run the loop, which K4 lacks a backward for."""
-    if gates_x.is_cuda and not _needs_grad(gates_x, w_hh_t):
-        return lstm_recur(gates_x, w_hh_t)
-    return recur_plain(gates_x, w_hh_t)
+    CUDA tensors run K4, one launch for every step
+    (mst_torch.ops.lstm_kernel): where no gradient is needed (serving,
+    under ``torch.inference_mode``) its plain form, where autograd records
+    (training) its training form and, in the backward, K4's backward
+    kernel. The CPU runs the loop."""
+    if not gates_x.is_cuda:
+        return recur_plain(gates_x, w_hh_t)
+    if _needs_grad(gates_x, w_hh_t):
+        return lstm_recur_train(gates_x, w_hh_t)
+    return lstm_recur(gates_x, w_hh_t)
 
 
 def _sharded_scan(gates_x, w_hh_t, mesh, reverse: bool = False):

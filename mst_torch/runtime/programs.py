@@ -26,6 +26,13 @@ fn, args, statics)`` runs ``fn(*args, **statics)`` as program ``key``:
   into the graph.
 - A failed capture raises. Nothing runs the program eagerly on the card
   in the graph's place.
+- A capture checks only its own thread's CUDA calls
+  (``capture_error_mode="thread_local"``). The trainer's prefetch thread
+  builds the next batch meanwhile, on its own stream and tensors: its
+  pageable copies and their stream synchronisation would invalidate a
+  capture in the default ``"global"`` mode, which happened on the card
+  once a step's eager run became short enough for the build to overlap
+  the capture.
 - A ``Programs`` belongs to one card, which is the current device while
   any of its programs runs, is captured or replays. A bundle over a mesh
   of cards keeps one per card (mst_torch.transfer).
@@ -89,7 +96,8 @@ from mst_torch.runtime.profile import count
 COUNTERS = tuple((fn, attr)
                  for fn in (raster_kernel.rasterize, grid_kernel.grid_tail,
                             grid_kernel.grid_tail_bwd,
-                            lstm_kernel.lstm_recur)
+                            lstm_kernel.lstm_recur,
+                            lstm_kernel.lstm_recur_bwd)
                  for attr in ("launches", "launches_bf16"))
 
 
@@ -239,7 +247,8 @@ class Programs:
             # is made once, on the card current at the process's first
             # capture
             with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._capture_stream):
+                                  stream=self._capture_stream,
+                                  capture_error_mode="thread_local"):
                 out = fn(*args, **statics)
             recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
         except Exception as e:

@@ -1,8 +1,9 @@
 """K4, the LSTM recurrence kernel (mst_torch.ops.lstm_kernel), and the
 dispatch of mst_torch.ops.lstm that sends serving's recurrences to it.
 
-On the CPU: the dispatch takes the plain loop on the CPU and wherever
-autograd records, and K4 on a CUDA tensor that needs no gradient; the
+On the CPU: the dispatch takes the plain loop on the CPU, K4 on a CUDA
+tensor that needs no gradient, and K4 with its backward
+(``lstm_recur_train``) on a CUDA tensor where autograd records; the
 wrapper runs ``recur_plain`` for CPU tensors, bit for bit, and refuses a
 width above ``MAX_FEATURES``; ``plan`` gives a launch shape the kernel
 takes for every width up to the limit; the launch counters are registered
@@ -91,16 +92,18 @@ class _FakeCuda:
 @pytest.mark.parametrize("where,grad,needs,want", [
     ("cpu", False, False, "loop"),
     ("cpu", True, True, "loop"),
-    ("cuda", True, True, "loop"),
+    ("cuda", True, True, "train"),
     ("cuda", True, False, "kernel"),
     ("cuda", False, True, "kernel"),
 ], ids=["cpu-no-grad", "cpu-grad", "cuda-grad", "cuda-grad-but-no-leaf",
         "cuda-no-grad"])
 def test_dispatch(monkeypatch, where, grad, needs, want):
-    """K4 on the card where no gradient is needed; the loop on the CPU and
-    where autograd records (training)."""
+    """K4 on the card where no gradient is needed, K4 with its backward
+    where autograd records (training); the loop on the CPU."""
     kernel, loop = _Recorder("kernel"), _Recorder("loop")
+    train = _Recorder("train")
     monkeypatch.setattr(lstm, "lstm_recur", kernel)
+    monkeypatch.setattr(lstm, "lstm_recur_train", train)
     monkeypatch.setattr(lstm, "recur_plain", loop)
     if where == "cpu":
         gates, w = _inputs(1, 2, 3, 4)
