@@ -225,8 +225,8 @@ Phases (any failure exits non-zero):
    and share and the host's launch calls beside phase 5's uncaptured
    request's. A request whose first capacity tier is 1024 must escalate
    through the ladder to the request's own tier, and one with a starved
-   pool hint (a 16-record tier) must run again at its exact tier; both
-   write phase 5's files. A bundle with
+   pool hint (a 16-record tier) must pack its records again at its exact
+   tier (the ``repack`` program); both write phase 5's files. A bundle with
    ``extract_storage_dtype="bfloat16"`` captures its programs, launches
    K1's bf16 form twice in a replay and writes phase 5's bf16 request's
    files. It prints the graphs held and the peak device memory.
@@ -2805,10 +2805,11 @@ def phase_captured(torch, comps, styles, tmp, smi, request_flops):
     ran = ladder("starved pool (tier 16)", "ladder_pool",
                  {"POOL_TIERS": (16,) + tr.POOL_TIERS},
                  {"pool_hint_p": 1, "pool_hint_u": 1})
+    repack = steady.replace("transfer_fused", "repack", 1)
     if len(ran) != 2 or not ran[0].endswith(":pool=16,16") \
-            or ran[1] != steady:
-        raise AssertionError(f"phase 14: the starved pool did not run again "
-                             f"at {steady}: {ran}")
+            or ran[1] != repack:
+        raise AssertionError(f"phase 14: the starved pool's records were "
+                             f"not packed again as {repack}: {ran}")
 
     # bf16 extraction: the policy a capture bakes in
     bf16 = tr.ModelBundle.from_npz(device="cuda",

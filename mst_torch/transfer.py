@@ -27,10 +27,12 @@ extraction bucket, both run as one program (``transfer_fused:...``).
 Each program returns one buffer in mst_tpu's layout, fetched once; its
 header holds the record counts and the live-block counts that the
 capacity ladder (``run_fused_jobs``) reads to escalate through
-``COMPACT_CAPACITIES``, to re-dispatch at the exact record-pool tier
-(``POOL_TIERS``), to fall back to the dense compaction when the block
-routing table overflows, and to raise ``OverflowError`` where notes would
-be lost. The host decodes the records to ``.mid``.
+``COMPACT_CAPACITIES``, to pack the records again at the exact
+record-pool tier (``POOL_TIERS``; a small ``repack`` program on the
+records the run left on the device, where mst_tpu runs its program
+again), to fall back to the dense compaction when the block routing table
+overflows, and to raise ``OverflowError`` where notes would be lost. The
+host decodes the records to ``.mid``.
 
 On the card each program is captured once per shape key as a CUDA graph
 and replayed (mst_torch.runtime.programs); ``ModelBundle.capture=False``
@@ -276,8 +278,10 @@ class ModelBundle:
         under its stage's policy through that device's programs (and logs
         the call in ``call_log``). Keys: ``raster_extract`` (the
         extraction, at ``extract_storage_dtype``), ``fused:{capacity}:{Cb}
-        [:dense][:pool=PP,PU]`` (the apply of a batch of jobs) and
-        ``transfer_fused:...`` (both in one program)."""
+        [:dense][:pool=PP,PU]`` (the apply of a batch of jobs),
+        ``transfer_fused:...`` (both in one program) and
+        ``repack:{capacity}:{Cb}:pool=PP,PU`` (a pooled run's records packed
+        again at another pool tier, ``_pooled_buffer``)."""
         def program(*inputs, **statics):
             if self.call_log is not None:
                 self.call_log.append((key, inputs, statics, shard))
@@ -297,7 +301,10 @@ class ModelBundle:
             options = dict(capacity=int(cap), max_channels=int(cb),
                            dense_compaction="dense" in rest,
                            pool=_pool_from_key(rest))
-            if kind == "transfer_fused":
+            if kind == "repack":
+                body = functools.partial(_pooled_buffer,
+                                         pool=options["pool"])
+            elif kind == "transfer_fused":
                 body = functools.partial(
                     _fused_transfer_full, model, table,
                     extract_storage=self.extract_storage_dtype, **options)
@@ -548,6 +555,18 @@ def _pack_pool(rec, counts, pool_cap: int):
     return torch.where(on[:, None], rec[job, idx], 0)
 
 
+def _pooled_buffer(head, rec_p, count_p, rec_u, count_u, *, pool):
+    """B jobs' flat pooled buffer ``[B*(8+Cb) headers and picks | PP*2
+    pitched pool | PU*2 unpitched pool]`` (``_pack_pool`` of each family)
+    from the header and pick rows ``head`` (B, 8 + Cb) and each family's
+    per-job records (B, cap, 2) and counts (B,). The pool layout's tail of
+    the ``fused`` program and the whole ``repack`` program, so a re-pack at
+    a tier is bit-equal to a whole run's buffer at that tier."""
+    return torch.cat([head.reshape(-1),
+                      _pack_pool(rec_p, count_p, pool[0]).reshape(-1),
+                      _pack_pool(rec_u, count_u, pool[1]).reshape(-1)])
+
+
 def _fused_transfer_apply(model: StyleTransferModel, feature_table, style,
                           melody, rhythm, style_idx, comp_idx,
                           n_instruments, bar_lengths, tpb, *, capacity: int,
@@ -561,13 +580,16 @@ def _fused_transfer_apply(model: StyleTransferModel, feature_table, style,
     ``dense_compaction``). ``n_instruments`` and ``bar_lengths`` (B,)
     int64, ``tpb`` (B,) float32 ticks per beat.
 
-    Returns one int64 tensor holding uint32 values in mst_tpu's layout:
+    Returns an int64 tensor holding uint32 values in mst_tpu's layout:
     with ``pool=None`` (B, 8 + Cb + capacity*2 + (capacity//4)*2), per job
     ``[header(8) | picked(Cb) | pitched records | unpitched records]``;
     with ``pool=(PP, PU)`` the flat ``[B*(8+Cb) headers and picks | PP*2
-    pitched pool | PU*2 unpitched pool]`` (``_pack_pool``). The header is
-    ``[bpm, mode, n_picked, has_unpitched, count_p, count_u, live_blocks_p,
-    live_blocks_u]``; picked is -1 past n_picked (0xFFFFFFFF as uint32)."""
+    pitched pool | PU*2 unpitched pool]`` (``_pooled_buffer``), and with it
+    that buffer's inputs ``(head, rec_p, count_p, rec_u, count_u)``, which
+    stay on the device for a re-pack at another pool tier (``repack``
+    programs). The header is ``[bpm, mode, n_picked, has_unpitched,
+    count_p, count_u, live_blocks_p, live_blocks_u]``; picked is -1 past
+    n_picked (0xFFFFFFFF as uint32)."""
     style = style[style_idx]
     melody = melody[comp_idx]
     rhythm = rhythm[comp_idx]
@@ -599,13 +621,12 @@ def _fused_transfer_apply(model: StyleTransferModel, feature_table, style,
         torch.round(bpm_pred).to(torch.int64),
         torch.argmax(mode_pred, dim=-1), n_picked, u_channels,
         count_p, count_u, live_p, live_u], dim=1)
+    head = torch.cat([header, picked], dim=1)
     if pool is None:
-        return torch.cat([header, picked, rec_p.reshape(B, -1),
-                          rec_u.reshape(B, -1)], dim=1)
-    return torch.cat([
-        torch.cat([header, picked], dim=1).reshape(-1),
-        _pack_pool(rec_p, count_p, pool[0]).reshape(-1),
-        _pack_pool(rec_u, count_u, pool[1]).reshape(-1)])
+        return torch.cat([head, rec_p.reshape(B, -1), rec_u.reshape(B, -1)],
+                         dim=1)
+    kept = (head, rec_p, count_p, rec_u, count_u)
+    return _pooled_buffer(*kept, pool=pool), kept
 
 
 def _fused_transfer_full(model: StyleTransferModel, feature_table, p_notes,
@@ -906,17 +927,23 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
       next tier when a job's record or live-block counts do not fit; the
       hint then becomes the smallest tier the counts fit (it may step
       back down).
-    - Through the record pool, a total above the pool tier runs the
-      program again at the exact tier (the header sums are exact).
+    - Through the record pool, a total above the pool tier packs the
+      records of the run again at the exact tier (the header sums are
+      exact): the ``repack`` program, on the run's records, which stay on
+      the device (``_pooled_buffer``; its buffer is the one a whole run at
+      that tier gives). A total beyond the top pool tier runs the program
+      again in the per-job row layout.
     - When the routing table overflows at the top tier while the records
       fit, the dense compaction runs, and its true counts are checked
       again (an overflowed table under-reports them).
     - Counts beyond the top tier raise ``OverflowError``: the compaction
       has already dropped records.
 
-    Each run after the first counts ``transfer.redispatch.<reason>`` in the
-    request's unit (mst_torch.runtime.profile): ``capacity`` (the ladder's
-    next tier), ``pool`` (the exact pool tier) or ``dense``.
+    Each whole run after the first counts ``transfer.redispatch.<reason>``
+    in the request's unit (mst_torch.runtime.profile): ``capacity`` (the
+    ladder's next tier), ``pool`` (beyond the top pool tier) or ``dense``;
+    each re-pack counts ``transfer.repack``, which a request through the
+    pool holds even at 0.
 
     Over a mesh (mst_tpu's ``transfer.py:1000-1023``) the job rows are
     padded to a multiple of the data axis by repeating the last job, the
@@ -928,9 +955,11 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
 
     ``host_work`` runs once, after the first program is launched and before
     its buffer is fetched. ``dispatch``: ``(job_rows, capacity, dense,
-    pool) -> device buffers``, one a shard, the program to run (default
+    pool) -> device outputs``, one a shard, of the program to run (default
     ``fused:...`` on the given latents; the one-program request of a
-    bundle without a mesh passes ``transfer_fused:...``). ``stage``: as
+    bundle without a mesh passes ``transfer_fused:...``); in the pool
+    layout the output is the buffer and its records
+    (``_fused_transfer_apply``). ``stage``: as
     ``transfer_styles``' (5a-5d). Returns ``(buf, capacity, pool)``,
     ``buf`` as uint32; ``unpack_job_records(buf, B, Cb, capacity, pool)``
     splits it."""
@@ -962,6 +991,8 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
                         *latents[bundle.shard_devices[shard]], *mine))
             return bufs
     use_pool = bundle.mesh is None and bundle.use_record_pool
+    if use_pool:
+        count("transfer.repack", 0)
 
     def fetch(bufs):
         """Every shard's buffer on the host, joined in shard order, without
@@ -981,10 +1012,37 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
                 _pick_pool_tier(max(sum_u, 1)))
 
     def launch(capacity, dense, pool, redo):
-        """The program's buffers; ``redo``: why it runs again, or None."""
+        """The program's buffers, one a shard, and in the pool layout the
+        records it leaves on the device (else None); ``redo``: why it runs
+        again, or None."""
         if redo is not None:
             count(f"transfer.redispatch.{redo}")
-        return dispatch(job_rows, capacity, dense, pool)
+        bufs = dispatch(job_rows, capacity, dense, pool)
+        if pool is None:
+            return bufs, None
+        (buf, kept), = bufs
+        return [buf], kept
+
+    def counts(buf, pool):
+        """The header's (count_p, count_u, live_p, live_u, sum_p, sum_u)."""
+        hdr = _header_table(buf, B, Cb, pool)
+        return (int(hdr[:, 4].max()), int(hdr[:, 5].max()),
+                int(hdr[:, 6].max()), int(hdr[:, 7].max()),
+                int(hdr[:, 4].sum()), int(hdr[:, 5].sum()))
+
+    def exact_pool(buf, capacity, dense, pool, kept, sum_p, sum_u):
+        """``(buf, pool)`` at a pool tier that holds the sums: as fetched,
+        re-packed, or beyond the top tier run again in the per-job rows."""
+        if pool is None or (sum_p <= pool[0] and sum_u <= pool[1]):
+            return buf, pool
+        pool = pools_for(sum_p, sum_u)
+        if pool is None:
+            return fetch(launch(capacity, dense, None, "pool")[0]), None
+        count("transfer.repack")
+        with stage(STAGE_SHARD_APPLY.format(0), sync=False):
+            out = bundle.fn(_program_key("repack", capacity, Cb, False,
+                                         pool))(*kept)
+        return fetch([out]), pool
 
     pool = pools_for(bundle.pool_hint_p or B * 2048,
                      bundle.pool_hint_u or B * 512) if use_pool else None
@@ -992,49 +1050,37 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
         or [COMPACT_CAPACITIES[-1]]
     redo = None
     for capacity in ladder:
-        while True:
-            buf_dev = launch(capacity, False, pool, redo)
-            if host_work is not None:
-                host_work()      # overlaps the device work launched above
-                host_work = None
-            buf = fetch(buf_dev)
-            hdr = _header_table(buf, B, Cb, pool)
-            count_p, count_u = int(hdr[:, 4].max()), int(hdr[:, 5].max())
-            live_p, live_u = int(hdr[:, 6].max()), int(hdr[:, 7].max())
-            sum_p, sum_u = int(hdr[:, 4].sum()), int(hdr[:, 5].sum())
-            if not _fits(capacity, count_p, count_u, live_p, live_u):
-                redo = "capacity"
-                break            # the next capacity tier
-            if pool is not None and (sum_p > pool[0] or sum_u > pool[1]):
-                pool = pools_for(sum_p, sum_u)
-                redo = "pool"
-                continue
-            bundle.capacity_hint = next(
-                c for c in COMPACT_CAPACITIES
-                if _fits(c, count_p, count_u, live_p, live_u))
-            if use_pool:
-                bundle.pool_hint_p, bundle.pool_hint_u = sum_p, sum_u
-            return buf, capacity, pool
+        bufs, kept = launch(capacity, False, pool, redo)
+        if host_work is not None:
+            host_work()      # overlaps the device work launched above
+            host_work = None
+        buf = fetch(bufs)
+        count_p, count_u, live_p, live_u, sum_p, sum_u = counts(buf, pool)
+        if not _fits(capacity, count_p, count_u, live_p, live_u):
+            redo = "capacity"
+            continue             # the next capacity tier
+        buf, pool = exact_pool(buf, capacity, False, pool, kept, sum_p,
+                               sum_u)
+        bundle.capacity_hint = next(
+            c for c in COMPACT_CAPACITIES
+            if _fits(c, count_p, count_u, live_p, live_u))
+        if use_pool:
+            bundle.pool_hint_p, bundle.pool_hint_u = sum_p, sum_u
+        return buf, capacity, pool
     capacity = COMPACT_CAPACITIES[-1]
     if count_p <= capacity and count_u <= capacity // 4:
         # the records fit but the live-block routing table overflowed: the
         # dense compaction, whose header carries the true counts
-        redo = "dense"
-        while True:
-            buf = fetch(launch(capacity, True, pool, redo))
-            hdr = _header_table(buf, B, Cb, pool)
-            count_p, count_u = int(hdr[:, 4].max()), int(hdr[:, 5].max())
-            sum_p, sum_u = int(hdr[:, 4].sum()), int(hdr[:, 5].sum())
-            if pool is None or (sum_p <= pool[0] and sum_u <= pool[1]):
-                break
-            pool = pools_for(sum_p, sum_u)
-            redo = "pool"
+        bufs, kept = launch(capacity, True, pool, "dense")
+        buf = fetch(bufs)
+        count_p, count_u, _, _, sum_p, sum_u = counts(buf, pool)
     if count_p > capacity or count_u > capacity // 4:
         raise OverflowError(
             f"style application produced {count_p} pitched / {count_u} "
             f"unpitched notes, beyond the largest compaction capacity "
             f"{COMPACT_CAPACITIES[-1]}; the device compaction already "
             f"dropped records, so decoding would silently lose notes")
+    buf, pool = exact_pool(buf, capacity, True, pool, kept, sum_p, sum_u)
     if use_pool and pool is not None:
         bundle.pool_hint_p, bundle.pool_hint_u = sum_p, sum_u
     return buf, capacity, pool

@@ -207,6 +207,8 @@ def fused_buffers(j_bundle, fused_case):
             *(torch.tensor(x) for x in latents),
             *(torch.from_numpy(r.astype(np.int64)) for r in rows[:4]),
             torch.from_numpy(rows[4]))
+        if pool is not None:     # the buffer, and the records it packs
+            got, _ = got
         out[name] = (np.asarray(want), got.numpy().astype(np.uint32))
     return out
 
@@ -320,7 +322,7 @@ def test_record_pool_matches_per_job_layout(request_paths, tmp_path,
                                             monkeypatch):
     """The pool layout is a transport choice only: the files equal the
     per-job row layout's, also when the first program's pool tier is too
-    small and the ladder runs it again at the exact tier."""
+    small and the ladder packs its records again at the exact tier."""
     comps, styles = request_paths
     rows = tt.ModelBundle.from_npz(device="cpu", use_record_pool=False)
     written_rows = tt.transfer_style(rows, comps[0], styles,
@@ -333,7 +335,7 @@ def test_record_pool_matches_per_job_layout(request_paths, tmp_path,
     assert pooled.pool_hint_p > 16
     assert list(pooled.programs.runs) == [
         "transfer_fused:16384:8:pool=16,16",
-        "transfer_fused:16384:8:pool=8192,8192"]
+        "repack:16384:8:pool=8192,8192"]
     assert all(":pool" not in k for k in rows.programs.runs)
     assert len(written_rows) == len(written_pool) == 4
     for a, b in zip(written_rows, written_pool):
@@ -398,10 +400,11 @@ class _HostRoundTrips(TorchDispatchMode):
 
 
 def test_programs_make_no_host_round_trip(request_paths, monkeypatch):
-    """The ``transfer_fused`` program's body, on the CPU at narrow widths,
-    runs no op that waits for the device or copies a host tensor in
-    (either would synchronise on the card, and a capture refuses it); the
-    kernels' plain versions are left out."""
+    """The ``transfer_fused`` program's body and the ``repack`` program's
+    on its records, on the CPU at narrow widths, run no op that waits for
+    the device or copies a host tensor in (either would synchronise on
+    the card, and a capture refuses it); the kernels' plain versions are
+    left out."""
     mode = _HostRoundTrips()
 
     def outside(plain):
@@ -429,8 +432,11 @@ def test_programs_make_no_host_round_trip(request_paths, monkeypatch):
         assert mode.found == ["aten.lift_fresh.default"]
         mode.found.clear()
         for dense in (False, True):
-            buf = bundle.fn(tt._program_key("transfer_fused", 16384, 8,
-                                            dense, (8192, 8192)))(
+            buf, kept = bundle.fn(tt._program_key("transfer_fused", 16384, 8,
+                                                  dense, (8192, 8192)))(
                 *inputs, *rows, **statics)
+            repacked = bundle.fn(tt._program_key("repack", 16384, 8, False,
+                                                 (16384, 8192)))(*kept)
     assert mode.found == []
     assert buf.shape == (2 * 16 + 2 * 8192 * 2,)
+    assert repacked.shape == (2 * 16 + 16384 * 2 + 8192 * 2,)

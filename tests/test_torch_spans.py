@@ -8,9 +8,9 @@
 - a span is a ``user_annotation`` range of a ``torch.profiler`` trace
   only while a profiler records, and its unit says so, on any thread;
 - a CPU ``transfer_styles`` records one ``transfer.request`` unit with
-  its stages and one ``transfer.redispatch`` for each program run after
-  the first; the ``stage`` hook feeds a ``StageTimer`` and the spans
-  alike;
+  its stages, one ``transfer.repack`` for the records packed again at the
+  exact pool tier, and no ``transfer.redispatch``; the ``stage`` hook
+  feeds a ``StageTimer`` and the spans alike;
 - the benchmark's span readers read the window's units and leave out
   the ones a profiler saw.
 """
@@ -202,8 +202,8 @@ def test_stage_hook_feeds_the_timer_and_the_spans():
 def test_a_cpu_request_is_one_unit(tmp_path, monkeypatch):
     """One composition and one style of 12 bars (a 16-bar bucket) through
     the one-program request, with the record pool's first tier too
-    small, so the ladder runs the program again: one unit with the
-    request's stages, its program runs and the re-dispatch."""
+    small, so the ladder packs the records again: one unit with the
+    request's stages, its program run, the re-pack and no re-dispatch."""
     import mst_torch.transfer as tt
 
     from benchmark.gen import songs
@@ -222,11 +222,12 @@ def test_a_cpu_request_is_one_unit(tmp_path, monkeypatch):
     tt.transfer_styles(bundle, [comp], [style], str(tmp_path / "out"))
     assert len(tp.units(tt.REQUEST_SPAN)) == before + 1
     unit = _last(tt.REQUEST_SPAN)
-    runs = sum(bundle.programs.runs.values())
-    assert runs == 2
-    assert unit.counters["transfer.redispatch.pool"] == runs - 1
-    assert sum(v for k, v in unit.counters.items()
-               if k.startswith("transfer.redispatch")) == runs - 1
+    runs = bundle.programs.runs
+    assert [k.split(":")[0] for k in runs] == ["transfer_fused", "repack"]
+    assert sum(runs.values()) == 2
+    assert unit.counters["transfer.repack"] == 1
+    assert not any(k.startswith("transfer.redispatch")
+                   for k in unit.counters)
     stages = {tt.STAGE_INGEST, tt.STAGE_EXTRACT_DISPATCH,
               tt.STAGE_NOTE_RECORDS, tt.STAGE_APPLY,
               tt.STAGE_SHARD_APPLY.format(0), tt.STAGE_SHARD_FETCH.format(0),
@@ -276,6 +277,8 @@ def _units(root, spans, counters, n, monkeypatch, profiled=False):
     ("transfer.request", "redispatches.serve", {},
      {"transfer.redispatch.pool": lambda i: int(i < 2),
       "transfer.redispatch.capacity": lambda i: int(i == 0)}, 0.6),
+    ("transfer.request", "repacks.serve", {},
+     {"transfer.repack": lambda i: int(i % 2 == 0)}, 0.6),
     ("transfer.request", "captures.serve", {},
      {"programs.captures": lambda i: int(i == 3)}, 1),
     ("data.batch", "batch_build_ms.train",
