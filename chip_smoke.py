@@ -552,9 +552,9 @@ def phase_k1(torch, bundle, songs):
     K1 against the zero-fill alone. Returns the kernels-line entries of
     the two forms."""
     from mst_torch.ops import raster_kernel as rk
-    from mst_torch.transfer import _extract_inputs
+    from mst_torch.transfer import _extract_shards
 
-    inputs, statics, _ = _extract_inputs(bundle, songs, 4, True)
+    (inputs,), statics, _ = _extract_shards(bundle, songs, 4, True)
     B, Cb, Rb, T = (statics[k] for k in ("B", "Cb", "Rb", "T"))
     p_notes, u_notes = (tuple(t.cuda() for t in notes)
                         for notes in inputs[:2])
@@ -2869,9 +2869,9 @@ def phase_per_card_kernels(torch, songs):
     takes 93,504 B, above the 48 KB default). Returns the cards checked."""
     from mst_torch.ops import grid_kernel as gk
     from mst_torch.ops import raster_kernel as rk
-    from mst_torch.transfer import ModelBundle, _extract_inputs
+    from mst_torch.transfer import ModelBundle, _extract_shards
 
-    inputs, statics, _ = _extract_inputs(
+    (inputs,), statics, _ = _extract_shards(
         ModelBundle.from_npz(device="cpu"), songs, 4, True)
     B, Cb, Rb, T = (statics[k] for k in ("B", "Cb", "Rb", "T"))
     rows = B * Cb * Rb * T * 10

@@ -1,8 +1,8 @@
 """Profiling tools of the port: always-on spans and counters (``span``,
-``count``, ``units``), a wall-clock ``StageTimer``, model-scope
-annotations for a trace (``model_scopes``), and ``summarize``, the summary
-of a ``runtime.metrics.profiler_trace`` Chrome trace by model component,
-by kernel category and by idle gap.
+``count``, ``units``), ``StageTimer``, a synchronizing reader of the
+spans, model-scope annotations for a trace (``model_scopes``), and
+``summarize``, the summary of a ``runtime.metrics.profiler_trace`` Chrome
+trace by model component, by kernel category and by idle gap.
 
 Spans and counters. ``with span(name):`` times a block on the host clock
 (``@spanned(name)``: each call of a function).
@@ -11,7 +11,7 @@ that opens inside it, one unit: one ``transfer_styles`` request
 (``transfer.request``), one training call (``train.step``), one batch
 build (``data.batch``). Each thread keeps its own stack of open spans, so a
 worker thread's units never nest under the main thread's. A span's self
-time is its duration less its children's (``StageTimer``'s rule).
+time is its duration less its children's.
 ``count(name, n)`` adds to the open unit's counters; with no unit open it
 counts nothing.
 
@@ -21,9 +21,16 @@ counters, and whether a ``torch.profiler`` was recording in the process
 (started on any thread) when it began. A span that begins while a
 profiler records is also a ``torch.profiler.record_function`` range, with
 its unit's id as the argument, so a trace's idle gaps name the program's
-stages; with no profiler, no range is opened. Spans never synchronize, and none opens
-inside a captured program: they mark stage boundaries on the host, a few
-dozen a request. ``ENABLED = False`` turns spans and counters off.
+stages; with no profiler, no range is opened. None opens inside a
+captured program: spans mark stage boundaries on the host, a few dozen a
+request. ``ENABLED = False`` turns spans and counters off, and with them
+every ``StageTimer``.
+
+``StageTimer`` reads the spans of one thread: while it reads
+(``timer.reading(unsynced)``; ``transfer_styles(..., stage=timer)`` reads
+its request), each span waits for the timer's cards before it closes,
+unless its name is in ``unsynced``, and its self time adds up under its
+name in ``timer.times``. Spans synchronize only then.
 
 Counterpart of tools/parse_profile.py, which reads a jax.profiler trace,
 and of tools/profile_transfer.py's StageTimer. The JAX trace names each
@@ -88,18 +95,18 @@ IDLE_GAPS = 10
 
 
 class StageTimer:
-    """Wall time per named stage (tools/profile_transfer.py's StageTimer):
-    ``with timer("name"): ...`` adds the block's seconds to
-    ``times["name"]``. Stages nest: an inner stage's time is taken out of
-    the stage around it, so the stages never count a second twice. On a
-    CUDA ``device`` (or a list of devices: a mesh's cards) a stage waits
-    for every card at its exit, so it owns the device work it queued;
-    ``sync=False`` leaves that work to a later stage. A CUDA device
-    without a card raises."""
+    """Wall time per named stage (tools/profile_transfer.py's StageTimer),
+    read from the spans (the module's docstring): ``times[name]`` sums the
+    self seconds of the spans ``name`` that opened while the timer read
+    them. On a CUDA ``device`` (or a list of devices: a mesh's cards) each
+    such span waits for every card before it closes, so it owns the device
+    work it queued; a CUDA device without a card raises. ``with
+    timer("name"):`` times a block as the span ``name``. One thread at a
+    time reads a timer."""
 
     def __init__(self, device=None):
         self.times: Dict[str, float] = {}
-        self._inner: List[float] = []
+        self._unsynced = frozenset()
         self._sync = None
         if device is not None:
             import torch
@@ -115,19 +122,26 @@ class StageTimer:
                                       for d in cards]
 
     @contextlib.contextmanager
-    def __call__(self, name: str, sync: bool = True):
-        t0 = time.perf_counter()
-        self._inner.append(0.0)
+    def reading(self, unsynced=()):
+        """While open, the spans that open on this thread are the timer's
+        stages; those named in ``unsynced`` leave their device work to a
+        later stage and close without waiting for the cards."""
+        outer = (_local.__dict__.get("timer"), self._unsynced)
+        _local.timer, self._unsynced = self, frozenset(unsynced)
         try:
             yield
         finally:
-            if sync and self._sync is not None:
-                self._sync()
-            elapsed = time.perf_counter() - t0
-            inner = self._inner.pop()
-            self.times[name] = self.times.get(name, 0.0) + elapsed - inner
-            if self._inner:
-                self._inner[-1] += elapsed
+            _local.timer, self._unsynced = outer
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        with self.reading(), span(name):
+            yield
+
+    def wait(self, name: str) -> None:
+        """Wait for the cards as the stage ``name`` closes."""
+        if self._sync is not None and name not in self._unsynced:
+            self._sync()
 
 
 # spans and counters (the module's docstring)
@@ -176,7 +190,8 @@ class _Open:
 class span:
     """``with span(name):`` the block as a span (the module's docstring)."""
 
-    __slots__ = ("name", "start", "parent", "unit", "inner", "range")
+    __slots__ = ("name", "start", "parent", "unit", "inner", "range",
+                 "timer")
 
     def __init__(self, name: str):
         self.name = name
@@ -190,6 +205,7 @@ class span:
         self.unit = _Open() if self.parent is None else self.parent.unit
         self.inner = 0.0
         self.range = None
+        self.timer = _local.__dict__.get("timer")
         if profiler_active():
             from torch.profiler import record_function
             self.range = record_function(self.name, str(self.unit.id))
@@ -201,14 +217,19 @@ class span:
     def __exit__(self, *exc):
         if self.unit is None:
             return False
+        timer = self.timer
+        if timer is not None:
+            timer.wait(self.name)
         end = time.perf_counter()
         _local.stack.pop()
         if self.range is not None:
             self.range.__exit__(None, None, None)
         elapsed = end - self.start
+        own = elapsed - self.inner
         unit = self.unit
-        unit.spans[self.name] = (unit.spans.get(self.name, 0.0) + elapsed
-                                 - self.inner)
+        unit.spans[self.name] = unit.spans.get(self.name, 0.0) + own
+        if timer is not None:
+            timer.times[self.name] = timer.times.get(self.name, 0.0) + own
         if self.parent is not None:
             self.parent.inner += elapsed
             return False
@@ -245,28 +266,6 @@ def units(root: str) -> List[Unit]:
     """The finished units of root span ``root`` that the ring holds,
     oldest first."""
     return list(_rings.get(root, ()))
-
-
-def stage_span(name: str, sync: bool = True) -> span:
-    """A request's stage as a span: the ``stage`` hook of
-    ``transfer_styles`` and its helpers when nothing times the request.
-    ``sync`` is ``StageTimer``'s; a span never synchronizes."""
-    return span(name)
-
-
-def stage_hook(timer: Optional["StageTimer"] = None):
-    """A request's ``stage(name, sync=True)`` hook: each stage a ``span``
-    (``stage_span``), and with ``timer`` also a stage of that
-    ``StageTimer`` (inside the span, so the span holds the timer's
-    synchronize)."""
-    if timer is None:
-        return stage_span
-
-    @contextlib.contextmanager
-    def stage(name: str, sync: bool = True):
-        with span(name), timer(name, sync):
-            yield
-    return stage
 
 
 @contextlib.contextmanager

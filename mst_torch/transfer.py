@@ -32,7 +32,10 @@ record-pool tier (``POOL_TIERS``; a small ``repack`` program on the
 records the run left on the device, where mst_tpu runs its program
 again), to fall back to the dense compaction when the block routing table
 overflows, and to raise ``OverflowError`` where notes would be lost. The
-host decodes the records to ``.mid``.
+ladder decides; a launcher runs and fetches its programs:
+``_CardLauncher`` on the bundle's one card (the ``fused`` apply on
+extracted latents, or the whole request as ``transfer_fused``), and
+``_MeshLauncher`` over a mesh. The host decodes the records to ``.mid``.
 
 On the card each program is captured once per shape key as a CUDA graph
 and replayed (mst_torch.runtime.programs); ``ModelBundle.capture=False``
@@ -52,14 +55,17 @@ the extraction batch is padded with all-zero songs to a multiple of the
 axis and each shard's songs are rasterized (K1) and extracted on its
 card, the job rows are padded by repeating the last job and each shard's
 jobs are applied (K2) on its card, and the host fetches each card's rows
-in the per-job row layout. A replay or an eager launch on one card does
-not wait for another, so the cards work at once. Deliberate differences:
-the mesh has a data axis alone (JAX's has a ``seq`` axis too, over which
-it computes each row again); a request that mst_tpu runs as one
-``transfer_fused`` program runs as extraction on each card, a copy of the
-latents to every card (the gather XLA would insert, outside the graphs)
-and the apply on each card; the extracted latents come back on the
-mesh's first device; a device may appear in the mesh more than once.
+in the per-job row layout; every step of the apply that the mesh adds
+(the padded job rows, the latent copies, each shard's launch, the fetch
+card by card and the join) is ``_MeshLauncher``'s, and the extraction's
+shard split is ``_extract_shards``'. A replay or an eager launch on one
+card does not wait for another, so the cards work at once. Deliberate
+differences: the mesh has a data axis alone (JAX's has a ``seq`` axis
+too, over which it computes each row again); a request that mst_tpu runs
+as one ``transfer_fused`` program runs as extraction on each card, a copy
+of the latents to every card (the gather XLA would insert, outside the
+graphs) and the apply on each card; the extracted latents come back on
+the mesh's first device; a device may appear in the mesh more than once.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``ModelBundle(device=None)`` resolves to ``cuda`` and raises without it.
@@ -74,6 +80,7 @@ process has set, so its packed outputs stay those of the fp32 path
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -101,8 +108,7 @@ from mst_torch.ops.device_raster import (
     concat_and_pad, encode_notes, segment_rasterize)
 from mst_torch.ops.events import SongInfo, read_midi
 from mst_torch.ops.rasterize import QNotes, Rasterizer
-from mst_torch.runtime.profile import (
-    count, spanned, stage_hook, stage_span)
+from mst_torch.runtime.profile import count, span, spanned
 from mst_torch.runtime.programs import Programs
 from mst_torch.theory.scales import Scale
 
@@ -652,10 +658,10 @@ def _fused_transfer_full(model: StyleTransferModel, feature_table, p_notes,
 
 
 # the stages of a request, by tools/profile_transfer.py's names: spans of
-# the request's unit (``REQUEST_SPAN``, mst_torch.runtime.profile), and the
-# stages that ``transfer_styles(..., stage=timer)`` times; 2a-2c, 5a-5d and
-# 6a are split out of 2, 5 and 6 (2b-2c and 5a-5d are the shards' stages:
-# 2b runs over a mesh alone; "{}" is the shard)
+# the request's unit (``REQUEST_SPAN``, mst_torch.runtime.profile), which
+# ``transfer_styles(..., stage=timer)`` also times; 2a-2c, 5a-5d and 6a are
+# split out of 2, 5 and 6 (2b-2c and 5a-5d are the shards' stages: 2b runs
+# over a mesh alone; "{}" is the shard)
 REQUEST_SPAN = "transfer.request"
 STAGE_INGEST = "1 ingest (read_midi+get_input)"
 STAGE_EXTRACT_DISPATCH = "2 extract dispatch"
@@ -674,6 +680,11 @@ STAGE_PACKED_DECODE = "6a packed-job decode (out of 6)"
 REQUEST_STAGES = (STAGE_INGEST, STAGE_EXTRACT_DISPATCH, STAGE_NOTE_RECORDS,
                   STAGE_EXTRACT_BLOCK, STAGE_ORIGINALS, STAGE_APPLY,
                   STAGE_STYLED, STAGE_PACKED_DECODE)
+# the stages that leave their device work to a later stage: a timed
+# request waits for the cards as each other stage closes
+UNSYNCED_STAGES = (STAGE_EXTRACT_DISPATCH, STAGE_NOTE_RECORDS,
+                   STAGE_SHARD_EXTRACT, STAGE_SHARD_APPLY, STAGE_SHARD_FETCH,
+                   STAGE_FETCH_JOIN)
 
 
 def ingest_map(fn, paths):
@@ -712,7 +723,7 @@ class LatentBatch:
 
 
 def _extract_shards(bundle: ModelBundle, songs: Sequence[Song], T: int,
-                    has_unpitched: bool, stage=stage_span):
+                    has_unpitched: bool):
     """The inputs of one extraction batch, by shard (mst_tpu's
     _extract_inputs, transfer.py:731-797): every song's quantized note
     records are offset into one flat row space (song b = channel block
@@ -725,8 +736,8 @@ def _extract_shards(bundle: ModelBundle, songs: Sequence[Song], T: int,
     its card; Cb and Rb come from the whole batch. Returns (inputs of each
     shard, statics, per-song real bar counts): ``inputs`` are host tensors
     in ``_raster_extract_latents``' order, the program moves them to the
-    device; ``statics`` are B (a shard's rows), Cb, Rb and T. ``stage``
-    times the note-record prep."""
+    device; ``statics`` are B (a shard's rows), Cb, Rb and T. Without a
+    mesh there is one shard."""
     B_real = len(songs)
     n_shards = bundle.data_axis_size()
     B = -(-B_real // n_shards)          # rows of one shard
@@ -737,7 +748,7 @@ def _extract_shards(bundle: ModelBundle, songs: Sequence[Song], T: int,
     Rb = _bucket(max(Rs), BAR_BUCKETS)
 
     def records(pitched, shard):
-        with stage(STAGE_NOTE_RECORDS, sync=False):
+        with span(STAGE_NOTE_RECORDS):
             parts = []
             first = shard * B
             n_channels = Cb if pitched else 1
@@ -778,18 +789,6 @@ def _extract_shards(bundle: ModelBundle, songs: Sequence[Song], T: int,
     return shards, dict(B=B, Cb=Cb, Rb=Rb, T=T), Rs
 
 
-def _extract_inputs(bundle: ModelBundle, songs: Sequence[Song], T: int,
-                    has_unpitched: bool, stage=stage_span):
-    """``_extract_shards`` of a bundle without a mesh: (inputs, statics,
-    per-song real bar counts) of its one shard."""
-    if bundle.mesh is not None:
-        raise ValueError("a bundle over a mesh extracts by shards "
-                         "(_extract_shards)")
-    (inputs,), statics, Rs = _extract_shards(bundle, songs, T,
-                                             has_unpitched, stage)
-    return inputs, statics, Rs
-
-
 def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
                             mode, bpm, instf, lengths, cmask, umask, *, B,
                             Cb, Rb, T):
@@ -810,14 +809,12 @@ def _raster_extract_latents(model: StyleTransferModel, p_notes, u_notes,
                                uchannel_mask=umask)
 
 
-def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
-                   stage=stage_span):
+def extract_styles(bundle: ModelBundle, songs: Sequence[Song]):
     """Batched latent extraction: songs are grouped by (beats-per-bar,
     percussion presence), and each group is one bucket-padded batch, run
     as one ``raster_extract`` program (over a mesh, one on each shard's
     device). Returns (batches, locators): a list of LatentBatch plus, per
-    input song, its (batch_index, row). ``stage``: as
-    ``transfer_styles``'."""
+    input song, its (batch_index, row)."""
     group_keys = {}
     group_members = []
     locators = [None] * len(songs)
@@ -830,18 +827,18 @@ def extract_styles(bundle: ModelBundle, songs: Sequence[Song],
     batches = []
     for (T, has_unpitched), members in zip(group_keys, group_members):
         shards, statics, Rs = _extract_shards(
-            bundle, [songs[i] for i in members], T, has_unpitched, stage)
+            bundle, [songs[i] for i in members], T, has_unpitched)
         outs = []
         for shard, inputs in enumerate(shards):
-            with stage(STAGE_SHARD_EXTRACT.format(shard), sync=False):
+            with span(STAGE_SHARD_EXTRACT.format(shard)):
                 outs.append(bundle.fn("raster_extract", shard)(*inputs,
                                                                **statics))
         if len(outs) == 1:
             style, melody, rhythm = outs[0]
         else:   # the real songs' rows, on the mesh's first device
-            with stage(STAGE_EXTRACT_BLOCK):
+            with span(STAGE_EXTRACT_BLOCK):
                 pass    # a timed request waits here: 2b is the gather alone
-            with stage(STAGE_LATENT_GATHER):
+            with span(STAGE_LATENT_GATHER):
                 style, melody, rhythm = (
                     torch.cat([t.to(bundle.device) for t in parts])[:len(Rs)]
                     for parts in zip(*outs))
@@ -914,14 +911,11 @@ def unpack_job_records(buf: np.ndarray, B: int, Cb: int, capacity: int,
     return out
 
 
-def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
-                   rhythm_mat, style_idx, comp_idx, n_instruments_list,
-                   n_bars_list, Cb: int, host_work=None, dispatch=None,
-                   stage=stage_span):
-    """Run the fused apply program for B (style row, composition row) jobs,
-    escalating through the capacity ladder until every job's output fits
-    (mst_tpu/transfer.py:977-1095), and fetch its buffer (the one wait
-    for the device).
+def run_fused_jobs(bundle: ModelBundle, launcher, B: int, Cb: int,
+                   host_work=None):
+    """Run B jobs' apply program through the capacity ladder until every
+    job's output fits (mst_tpu/transfer.py:977-1095), and fetch its buffer
+    (the one wait for the device).
 
     - The ladder starts at the sticky ``capacity_hint`` and breaks to the
       next tier when a job's record or live-block counts do not fit; the
@@ -945,83 +939,28 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
     each re-pack counts ``transfer.repack``, which a request through the
     pool holds even at 0.
 
-    Over a mesh (mst_tpu's ``transfer.py:1000-1023``) the job rows are
-    padded to a multiple of the data axis by repeating the last job, the
-    latents are copied whole to each shard's card (once, before the first
-    program), every shard's program is launched before ``host_work`` and
-    before any fetch, and the shards' buffers, in the per-job row layout,
-    are fetched card by card and joined in shard order without the pad
-    rows.
+    ``launcher`` launches and fetches the program (``_CardLauncher`` on
+    one card, ``_MeshLauncher`` over a mesh's data axis):
 
-    ``host_work`` runs once, after the first program is launched and before
-    its buffer is fetched. ``dispatch``: ``(job_rows, capacity, dense,
-    pool) -> device outputs``, one a shard, of the program to run (default
-    ``fused:...`` on the given latents; the one-program request of a
-    bundle without a mesh passes ``transfer_fused:...``); in the pool
-    layout the output is the buffer and its records
-    (``_fused_transfer_apply``). ``stage``: as
-    ``transfer_styles``' (5a-5d). Returns ``(buf, capacity, pool)``,
-    ``buf`` as uint32; ``unpack_job_records(buf, B, Cb, capacity, pool)``
-    splits it."""
-    B = len(infos)
-    n_shards = bundle.data_axis_size()
-    B_pad = -(-B // n_shards) * n_shards
+    - ``pooled``: whether its runs go through the record pool;
+    - ``launch(capacity, dense, pool)`` queues a run and returns ``(out,
+      kept)``: its device output and, in the pool layout, the records it
+      leaves on the device for ``repack(kept, capacity, pool)``, which
+      queues the re-pack and returns its output (else None);
+    - ``fetch(out)`` waits for an output and returns the B jobs' buffer
+      on the host, as uint32.
 
-    def rows(values, dtype):
-        values = list(values)
-        return torch.tensor(values + values[-1:] * (B_pad - B), dtype=dtype)
-
-    job_rows = (rows(style_idx, torch.int64), rows(comp_idx, torch.int64),
-                rows(n_instruments_list, torch.int64),
-                rows(n_bars_list, torch.int64),
-                rows([i.ticks_per_beat for i in infos], torch.float32))
-    if dispatch is None:
-        with stage(STAGE_LATENT_COPY):
-            latents = {dev: tuple(t.to(dev) for t in (style_mat, melody_mat,
-                                                       rhythm_mat))
-                       for dev in dict.fromkeys(bundle.shard_devices)}
-
-        def dispatch(job_rows, capacity, dense, pool):
-            key = _program_key("fused", capacity, Cb, dense, pool)
-            bufs = []
-            for shard, mine in enumerate(zip(*map(bundle.shard_rows,
-                                                   job_rows))):
-                with stage(STAGE_SHARD_APPLY.format(shard), sync=False):
-                    bufs.append(bundle.fn(key, shard)(
-                        *latents[bundle.shard_devices[shard]], *mine))
-            return bufs
-    use_pool = bundle.mesh is None and bundle.use_record_pool
-    if use_pool:
+    ``host_work`` runs once, after the first run is launched and before
+    its buffer is fetched. Returns ``(buf, capacity, pool)``;
+    ``unpack_job_records(buf, B, Cb, capacity, pool)`` splits ``buf``."""
+    if launcher.pooled:
         count("transfer.repack", 0)
 
-    def fetch(bufs):
-        """Every shard's buffer on the host, joined in shard order, without
-        the pad rows."""
-        host = []
-        for shard, buf in enumerate(bufs):
-            with stage(STAGE_SHARD_FETCH.format(shard), sync=False):
-                host.append(buf.cpu())
-        with stage(STAGE_FETCH_JOIN, sync=False):
-            buf = host[0] if len(host) == 1 else torch.cat(host)[:B]
-            return buf.numpy().astype(np.uint32)
-
-    def pools_for(sum_p, sum_u):
-        if max(sum_p, sum_u) > POOL_TIERS[-1]:
-            return None  # beyond the top tier: the per-job rows
-        return (_pick_pool_tier(max(sum_p, 1)),
-                _pick_pool_tier(max(sum_u, 1)))
-
     def launch(capacity, dense, pool, redo):
-        """The program's buffers, one a shard, and in the pool layout the
-        records it leaves on the device (else None); ``redo``: why it runs
-        again, or None."""
+        """A run of the program; ``redo``: why it runs again, or None."""
         if redo is not None:
             count(f"transfer.redispatch.{redo}")
-        bufs = dispatch(job_rows, capacity, dense, pool)
-        if pool is None:
-            return bufs, None
-        (buf, kept), = bufs
-        return [buf], kept
+        return launcher.launch(capacity, dense, pool)
 
     def counts(buf, pool):
         """The header's (count_p, count_u, live_p, live_u, sum_p, sum_u)."""
@@ -1030,6 +969,12 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
                 int(hdr[:, 6].max()), int(hdr[:, 7].max()),
                 int(hdr[:, 4].sum()), int(hdr[:, 5].sum()))
 
+    def pools_for(sum_p, sum_u):
+        if max(sum_p, sum_u) > POOL_TIERS[-1]:
+            return None  # beyond the top tier: the per-job rows
+        return (_pick_pool_tier(max(sum_p, 1)),
+                _pick_pool_tier(max(sum_u, 1)))
+
     def exact_pool(buf, capacity, dense, pool, kept, sum_p, sum_u):
         """``(buf, pool)`` at a pool tier that holds the sums: as fetched,
         re-packed, or beyond the top tier run again in the per-job rows."""
@@ -1037,24 +982,23 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
             return buf, pool
         pool = pools_for(sum_p, sum_u)
         if pool is None:
-            return fetch(launch(capacity, dense, None, "pool")[0]), None
+            return launcher.fetch(launch(capacity, dense, None, "pool")[0]), \
+                None
         count("transfer.repack")
-        with stage(STAGE_SHARD_APPLY.format(0), sync=False):
-            out = bundle.fn(_program_key("repack", capacity, Cb, False,
-                                         pool))(*kept)
-        return fetch([out]), pool
+        return launcher.fetch(launcher.repack(kept, capacity, pool)), pool
 
     pool = pools_for(bundle.pool_hint_p or B * 2048,
-                     bundle.pool_hint_u or B * 512) if use_pool else None
+                     bundle.pool_hint_u or B * 512) \
+        if launcher.pooled else None
     ladder = [c for c in COMPACT_CAPACITIES if c >= bundle.capacity_hint] \
         or [COMPACT_CAPACITIES[-1]]
     redo = None
     for capacity in ladder:
-        bufs, kept = launch(capacity, False, pool, redo)
+        out, kept = launch(capacity, False, pool, redo)
         if host_work is not None:
             host_work()      # overlaps the device work launched above
             host_work = None
-        buf = fetch(bufs)
+        buf = launcher.fetch(out)
         count_p, count_u, live_p, live_u, sum_p, sum_u = counts(buf, pool)
         if not _fits(capacity, count_p, count_u, live_p, live_u):
             redo = "capacity"
@@ -1064,15 +1008,15 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
         bundle.capacity_hint = next(
             c for c in COMPACT_CAPACITIES
             if _fits(c, count_p, count_u, live_p, live_u))
-        if use_pool:
+        if launcher.pooled:
             bundle.pool_hint_p, bundle.pool_hint_u = sum_p, sum_u
         return buf, capacity, pool
     capacity = COMPACT_CAPACITIES[-1]
     if count_p <= capacity and count_u <= capacity // 4:
         # the records fit but the live-block routing table overflowed: the
         # dense compaction, whose header carries the true counts
-        bufs, kept = launch(capacity, True, pool, "dense")
-        buf = fetch(bufs)
+        out, kept = launch(capacity, True, pool, "dense")
+        buf = launcher.fetch(out)
         count_p, count_u, _, _, sum_p, sum_u = counts(buf, pool)
     if count_p > capacity or count_u > capacity // 4:
         raise OverflowError(
@@ -1081,77 +1025,120 @@ def run_fused_jobs(bundle: ModelBundle, infos, style_mat, melody_mat,
             f"{COMPACT_CAPACITIES[-1]}; the device compaction already "
             f"dropped records, so decoding would silently lose notes")
     buf, pool = exact_pool(buf, capacity, True, pool, kept, sum_p, sum_u)
-    if use_pool and pool is not None:
+    if launcher.pooled and pool is not None:
         bundle.pool_hint_p, bundle.pool_hint_u = sum_p, sum_u
     return buf, capacity, pool
 
 
-def apply_jobs(bundle: ModelBundle, infos, style_mat, melody_mat, rhythm_mat,
-               style_idx, comp_idx, n_instruments_list, n_bars_list,
-               host_work=None, stage=stage_span):
-    """The device side of B (style row, composition row) jobs: the ``fused``
-    program through the capacity ladder (``run_fused_jobs``), at fp32
-    storage. ``host_work`` runs once the program is launched and before
-    its buffer is fetched. Returns per-job views ``(header (8,) uint32 —
-    [bpm, mode, n_picked, has_unpitched, count_p, count_u, live_blocks_p,
-    live_blocks_u], mst_tpu's header (transfer.py:108) — picked (Cb,)
-    int32, rec_p (count_p, 2) uint32, rec_u (count_u, 2) uint32)`` and the
-    apply channel bucket Cb. ``stage``: as ``transfer_styles``'."""
-    Cb = _bucket(max(max(n_instruments_list), 1), CHANNEL_BUCKETS)
-    buf, capacity, pool = run_fused_jobs(
-        bundle, infos, style_mat, melody_mat, rhythm_mat, style_idx,
-        comp_idx, n_instruments_list, n_bars_list, Cb, host_work=host_work,
-        stage=stage)
-    return unpack_job_records(buf, len(infos), Cb, capacity, pool), Cb
+class _CardLauncher:
+    """``run_fused_jobs``' launcher of a program on the bundle's one card:
+    ``kind`` ``fused`` (the apply on extracted latents) or
+    ``transfer_fused`` (the whole request), on ``inputs`` and then the
+    ``job_rows``, with ``statics``. Its runs go through the record pool
+    when the bundle uses it."""
+
+    def __init__(self, bundle: ModelBundle, kind: str, inputs, statics,
+                 Cb: int, job_rows):
+        self.bundle, self.kind, self.Cb = bundle, kind, Cb
+        self.inputs, self.statics = (*inputs, *job_rows), statics
+        self.pooled = bundle.use_record_pool
+
+    def launch(self, capacity, dense, pool):
+        with span(STAGE_SHARD_APPLY.format(0)):
+            out = self.bundle.fn(_program_key(
+                self.kind, capacity, self.Cb, dense, pool))(
+                    *self.inputs, **self.statics)
+        return (out, None) if pool is None else out
+
+    def repack(self, kept, capacity, pool):
+        with span(STAGE_SHARD_APPLY.format(0)):
+            return self.bundle.fn(_program_key("repack", capacity, self.Cb,
+                                               False, pool))(*kept)
+
+    def fetch(self, out):
+        with span(STAGE_SHARD_FETCH.format(0)):
+            out = out.cpu()
+        with span(STAGE_FETCH_JOIN):
+            return out.numpy().astype(np.uint32)
 
 
-def _write_jobs(infos, views, Cb: int, Rb: int, T: int, save_paths,
-                stage=stage_span) -> None:
-    """Decode each job's records and write its ``.mid``."""
+class _MeshLauncher:
+    """``run_fused_jobs``' launcher of the ``fused`` apply over the
+    bundle's mesh (mst_tpu's ``transfer.py:1000-1023``): the job rows are
+    padded to a multiple of the data axis by repeating the last job, the
+    latents are copied whole to each shard's card (once, here), every
+    shard's program is launched on its card before any fetch, and the
+    shards' buffers, in the per-job row layout (a mesh never fetches
+    through the record pool), are fetched card by card and joined in shard
+    order without the pad rows."""
+
+    pooled = False
+
+    def __init__(self, bundle: ModelBundle, latents, Cb: int, job_rows):
+        self.bundle, self.Cb, self.B = bundle, Cb, len(job_rows[0])
+        pad = -self.B % bundle.data_axis_size()
+        self.rows = list(zip(*(
+            bundle.shard_rows(torch.cat([r, r[-1:].repeat(pad)]))
+            for r in job_rows)))
+        with span(STAGE_LATENT_COPY):
+            self.latents = {dev: tuple(t.to(dev) for t in latents)
+                            for dev in dict.fromkeys(bundle.shard_devices)}
+
+    def launch(self, capacity, dense, pool):
+        key = _program_key("fused", capacity, self.Cb, dense, pool)
+        outs = []
+        for shard, rows in enumerate(self.rows):
+            with span(STAGE_SHARD_APPLY.format(shard)):
+                outs.append(self.bundle.fn(key, shard)(
+                    *self.latents[self.bundle.shard_devices[shard]], *rows))
+        return outs, None
+
+    def fetch(self, outs):
+        host = []
+        for shard, out in enumerate(outs):
+            with span(STAGE_SHARD_FETCH.format(shard)):
+                host.append(out.cpu())
+        with span(STAGE_FETCH_JOIN):
+            return torch.cat(host)[:self.B].numpy().astype(np.uint32)
+
+
+def _apply_batch(bundle: ModelBundle, infos, launcher_for, Rb: int, T: int,
+                 style_idx, comp_idx, n_instruments_list, save_paths,
+                 n_bars_list, host_work=None) -> None:
+    """B (style row, composition row) jobs through the capacity ladder
+    (``run_fused_jobs``, at fp32 storage) on the launcher that
+    ``launcher_for(Cb, job_rows)`` makes, each job's records decoded to
+    its ``.mid`` (mst_tpu/transfer.py:1098-1137). ``host_work`` runs once
+    the program is launched and before its buffer is fetched."""
+    with span(STAGE_APPLY), torch.inference_mode():
+        Cb = _bucket(max(max(n_instruments_list), 1), CHANNEL_BUCKETS)
+        job_rows = (*(torch.tensor(v, dtype=torch.int64) for v in (
+            style_idx, comp_idx, n_instruments_list, n_bars_list)),
+            torch.tensor([i.ticks_per_beat for i in infos],
+                         dtype=torch.float32))
+        launcher = launcher_for(Cb, job_rows)
+        buf, capacity, pool = run_fused_jobs(bundle, launcher, len(infos),
+                                             Cb, host_work)
+        views = unpack_job_records(buf, len(infos), Cb, capacity, pool)
     for info, view, path in zip(infos, views, save_paths):
-        with stage(STAGE_PACKED_DECODE):
+        with span(STAGE_PACKED_DECODE):
             mid = _packed_job_midi(info, *view, Cb, Rb, T)
-        with stage(STAGE_STYLED):
+        with span(STAGE_STYLED):
             _write_midi(mid, path)
 
 
-def _apply_batch(bundle: ModelBundle, infos, style_mat, melody_mat,
-                 rhythm_mat, style_idx, comp_idx, n_instruments_list,
-                 save_paths, n_bars_list, host_work=None,
-                 stage=stage_span) -> None:
-    """The ``fused`` program for B jobs on extracted latents, each job's
-    records decoded to its ``.mid`` (mst_tpu/transfer.py:1098-1110)."""
-    with stage(STAGE_APPLY), torch.inference_mode():
-        views, Cb = apply_jobs(bundle, infos, style_mat, melody_mat,
-                               rhythm_mat, style_idx, comp_idx,
-                               n_instruments_list, n_bars_list, host_work,
-                               stage)
-    _write_jobs(infos, views, Cb, rhythm_mat.shape[1], rhythm_mat.shape[2],
-                save_paths, stage)
+def _latent_launcher(bundle: ModelBundle, latents):
+    """``_apply_batch``'s ``launcher_for`` of the ``fused`` apply on
+    extracted latents ``(style, melody, rhythm)``: over the bundle's mesh,
+    or on its card."""
+    if bundle.mesh is not None:
+        return functools.partial(_MeshLauncher, bundle, latents)
 
-
-def _apply_batch_fused(bundle: ModelBundle, infos, ext_inputs, ext_statics,
-                       style_idx, comp_idx, n_instruments_list, save_paths,
-                       n_bars_list, host_work=None, stage=stage_span) -> None:
-    """``_apply_batch`` as one program that also rasterizes and extracts
-    the latents (``transfer_fused:...``, mst_tpu/transfer.py:1113-1137),
-    through the same ladder."""
-    Cb = _bucket(max(max(n_instruments_list), 1), CHANNEL_BUCKETS)
-
-    def dispatch(job_rows, capacity, dense, pool):
-        with stage(STAGE_SHARD_APPLY.format(0), sync=False):
-            return [bundle.fn(_program_key("transfer_fused", capacity, Cb,
-                                           dense, pool))(
-                *ext_inputs, *job_rows, **ext_statics)]
-
-    with stage(STAGE_APPLY), torch.inference_mode():
-        buf, capacity, pool = run_fused_jobs(
-            bundle, infos, None, None, None, style_idx, comp_idx,
-            n_instruments_list, n_bars_list, Cb, host_work=host_work,
-            dispatch=dispatch, stage=stage)
-        views = unpack_job_records(buf, len(infos), Cb, capacity, pool)
-    _write_jobs(infos, views, Cb, ext_statics["Rb"], ext_statics["T"],
-                save_paths, stage)
+    def on_card(Cb, job_rows):
+        with span(STAGE_LATENT_COPY):
+            on = tuple(t.to(bundle.device) for t in latents)
+        return _CardLauncher(bundle, "fused", on, {}, Cb, job_rows)
+    return on_card
 
 
 def _free_channels(n: int) -> List[int]:
@@ -1304,8 +1291,8 @@ def apply_styles(bundle: ModelBundle, infos: Sequence[SongInfo], styles,
                  ) -> None:
     """Batched apply_style (mst_tpu/transfer.py:909-925): B jobs whose
     latents (each with a batch axis of 1, tensors or arrays) share one
-    (Rb, T) bucket run as one ``fused`` program (``apply_jobs``, through
-    the capacity ladder); job b is written to
+    (Rb, T) bucket run as one ``fused`` program (through the capacity
+    ladder, ``run_fused_jobs``); job b is written to
     ``save_paths[b]``. Like mst_tpu's, the decode sets each info's tempo
     and scale to the predicted ones."""
     strict_fp32()
@@ -1317,9 +1304,10 @@ def apply_styles(bundle: ModelBundle, infos: Sequence[SongInfo], styles,
 
     style, melody, rhythm = batch(styles), batch(melodies), batch(rhythms)
     idx = list(range(len(infos)))
-    _apply_batch(bundle, list(infos), style, melody, rhythm, idx, idx,
-                 list(n_instruments_list), list(save_paths),
-                 list(n_bars_list))
+    _apply_batch(bundle, list(infos),
+                 _latent_launcher(bundle, (style, melody, rhythm)),
+                 *rhythm.shape[1:3], idx, idx, list(n_instruments_list),
+                 list(save_paths), list(n_bars_list))
 
 
 def combine_info(style_info: SongInfo, melody_info: SongInfo) -> SongInfo:
@@ -1356,73 +1344,81 @@ def transfer_styles(bundle: ModelBundle, composition_paths, style_paths,
     The request is one unit of spans, ``REQUEST_SPAN`` with its stages
     (``REQUEST_STAGES`` and the shards' stages) inside
     (mst_torch.runtime.profile). ``stage``: a ``runtime.profile.StageTimer``
-    that also times the request by its stages, synchronizing the card at
-    each one's exit (tools/profile_transfer_torch.py, which runs with
-    ``fuse_requests=False`` to time extraction and apply apart). The
+    that reads those stages, each synchronizing the cards as it closes
+    (but ``UNSYNCED_STAGES``; tools/profile_transfer_torch.py, which runs
+    with ``fuse_requests=False`` to time extraction and apply apart). The
     originals are then decoded alone, between the extraction and the
     apply, so that no stage hides another; the files are the same."""
     strict_fp32()
-    timed = stage is not None
-    stage = stage_hook(stage)
     all_paths = list(composition_paths) + list(style_paths)
     if not all_paths:
         return []
-    with stage(STAGE_INGEST):
-        loaded = list(ingest_map(get_model_input, all_paths))
-    bad = [p for p, s in zip(all_paths, loaded) if s is None]
-    if bad:
-        raise MidiFormatError(
-            f"could not load {len(bad)} input file(s): {bad}")
-    songs = [s for _, s in loaded]
-    comps = songs[:len(composition_paths)]
-    style_songs = songs[len(composition_paths):]
-    group_keys = {(s.info.n_beats, s.unpitched_shape is not None)
-                  for s in songs}
-    fuse = (bundle.fuse_requests and bundle.mesh is None
-            and len(group_keys) == 1)
+    timing = contextlib.nullcontext() if stage is None else stage.reading(
+        {name.format(shard) for name in UNSYNCED_STAGES
+         for shard in range(bundle.data_axis_size())})
+    with timing:
+        with span(STAGE_INGEST):
+            loaded = list(ingest_map(get_model_input, all_paths))
+        bad = [p for p, s in zip(all_paths, loaded) if s is None]
+        if bad:
+            raise MidiFormatError(
+                f"could not load {len(bad)} input file(s): {bad}")
+        songs = [s for _, s in loaded]
+        comps = songs[:len(composition_paths)]
+        style_songs = songs[len(composition_paths):]
+        group_keys = {(s.info.n_beats, s.unpitched_shape is not None)
+                      for s in songs}
+        fuse = (bundle.fuse_requests and bundle.mesh is None
+                and len(group_keys) == 1)
 
-    with stage(STAGE_EXTRACT_DISPATCH, sync=False), torch.inference_mode():
-        if fuse:
-            T, has_unpitched = next(iter(group_keys))
-            ext_inputs, ext_statics, Rs = _extract_inputs(
-                bundle, songs, T, has_unpitched, stage)
-            locators = [(0, i) for i in range(len(songs))]
-            style_rows = list(range(len(songs)))
-            n_bars = [Rs]
-        else:
-            batches, locators = extract_styles(bundle, songs, stage)
-            offset = np.cumsum([0] + [b.style.shape[0] for b in batches])
-            style_rows = [int(offset[g]) + row for g, row in locators]
-            n_bars = [b.n_bars for b in batches]
-            style_mat = torch.cat([b.style for b in batches], dim=0)
-    names, style_names = song_names(composition_paths), song_names(style_paths)
+        with span(STAGE_EXTRACT_DISPATCH), torch.inference_mode():
+            if fuse:
+                T, has_unpitched = next(iter(group_keys))
+                (ext_inputs,), ext_statics, Rs = _extract_shards(
+                    bundle, songs, T, has_unpitched)
+                locators = [(0, i) for i in range(len(songs))]
+                style_rows = list(range(len(songs)))
+                n_bars = [Rs]
+            else:
+                batches, locators = extract_styles(bundle, songs)
+                offset = np.cumsum([0] + [b.style.shape[0] for b in batches])
+                style_rows = [int(offset[g]) + row for g, row in locators]
+                n_bars = [b.n_bars for b in batches]
+                style_mat = torch.cat([b.style for b in batches], dim=0)
+        names = song_names(composition_paths)
+        style_names = song_names(style_paths)
 
-    def host_work():
-        with stage(STAGE_ORIGINALS):
-            write_originals(comps, style_songs, names, style_names,
-                            output_path)
+        def host_work():
+            with span(STAGE_ORIGINALS):
+                write_originals(comps, style_songs, names, style_names,
+                                output_path)
 
-    if timed:
-        with stage(STAGE_EXTRACT_BLOCK):
-            pass                      # the extraction's device work
-        host_work()
-        host_work = None
-    with stage(STAGE_APPLY):
-        jobs_per_group, written = plan_jobs(
-            comps, style_songs, locators, style_rows, n_bars, names,
-            style_names, output_path)
-    for g, jobs in jobs_per_group.items():
-        s_idx, c_idx, infos, n_inst, bars, paths = map(list, zip(*jobs))
-        if fuse:
-            _apply_batch_fused(bundle, infos, ext_inputs, ext_statics, s_idx,
-                               c_idx, n_inst, paths, bars, host_work, stage)
-        else:
-            _apply_batch(bundle, infos, style_mat, batches[g].melody,
-                         batches[g].rhythm, s_idx, c_idx, n_inst, paths,
-                         bars, host_work, stage)
-        host_work = None
-    if host_work is not None:  # no apply jobs at all
-        host_work()
+        if stage is not None:
+            with span(STAGE_EXTRACT_BLOCK):
+                pass                      # the extraction's device work
+            host_work()
+            host_work = None
+        with span(STAGE_APPLY):
+            jobs_per_group, written = plan_jobs(
+                comps, style_songs, locators, style_rows, n_bars, names,
+                style_names, output_path)
+        for g, jobs in jobs_per_group.items():
+            s_idx, c_idx, infos, n_inst, bars, paths = map(list, zip(*jobs))
+            if fuse:
+                launcher_for = functools.partial(
+                    _CardLauncher, bundle, "transfer_fused", ext_inputs,
+                    ext_statics)
+                Rb, T = ext_statics["Rb"], ext_statics["T"]
+            else:
+                batch = batches[g]
+                launcher_for = _latent_launcher(
+                    bundle, (style_mat, batch.melody, batch.rhythm))
+                Rb, T = batch.rhythm.shape[1:3]
+            _apply_batch(bundle, infos, launcher_for, Rb, T, s_idx, c_idx,
+                         n_inst, paths, bars, host_work)
+            host_work = None
+        if host_work is not None:  # no apply jobs at all
+            host_work()
     return written
 
 

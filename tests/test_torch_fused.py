@@ -424,7 +424,7 @@ def test_programs_make_no_host_round_trip(request_paths, monkeypatch):
                             device="cpu")
     comps, styles = request_paths
     songs = [tt.get_model_input(p)[1] for p in comps + styles]
-    inputs, statics, Rs = tt._extract_inputs(bundle, songs, T, True)
+    (inputs,), statics, Rs = tt._extract_shards(bundle, songs, T, True)
     rows = (torch.tensor([0, 1]), torch.tensor([0, 0]), torch.tensor([2, 2]),
             torch.tensor(Rs[:1] * 2), torch.tensor([480.0, 480.0]))
     with mode:

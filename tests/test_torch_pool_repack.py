@@ -162,7 +162,7 @@ def _jobs(bundle, song_paths):
     """The extraction inputs of both songs and the rows of two jobs: the
     composition reconstructed and in the style's style."""
     songs = [tt.get_model_input(p)[1] for p in song_paths]
-    inputs, statics, Rs = tt._extract_inputs(
+    (inputs,), statics, Rs = tt._extract_shards(
         bundle, songs, songs[0].info.n_beats, True)
     rows = (torch.tensor([0, 1]), torch.tensor([0, 0]),
             torch.tensor([len(songs[0].instruments),

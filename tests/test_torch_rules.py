@@ -214,7 +214,7 @@ def test_failed_capture_raises_and_never_runs_eagerly(monkeypatch):
     assert bundle.capture
     song = transfer.get_model_input(os.path.join(
         ROOT, "mst_torch", "assets", "smoke", "comp_0.mid"))[1]
-    inputs, statics, _ = transfer._extract_inputs(
+    (inputs,), statics, _ = transfer._extract_shards(
         bundle, [song], song.info.n_beats, song.unpitched_shape is not None)
     before = [getattr(fn, attr) for fn, attr in programs.COUNTERS]
     for attempt in (1, 2):

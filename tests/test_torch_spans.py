@@ -9,8 +9,9 @@
   only while a profiler records, and its unit says so, on any thread;
 - a CPU ``transfer_styles`` records one ``transfer.request`` unit with
   its stages, one ``transfer.repack`` for the records packed again at the
-  exact pool tier, and no ``transfer.redispatch``; the ``stage`` hook
-  feeds a ``StageTimer`` and the spans alike;
+  exact pool tier, and no ``transfer.redispatch``; a ``StageTimer``
+  timing a request reads the unit's stages and self times, and waits for
+  the card as each stage closes but ``UNSYNCED_STAGES``;
 - the benchmark's span readers read the window's units and leave out
   the ones a profiler saw.
 """
@@ -186,17 +187,55 @@ def test_a_worker_threads_unit_under_a_profiler_is_flagged():
     assert not after.profiled
 
 
-def test_stage_hook_feeds_the_timer_and_the_spans():
-    timer = tp.StageTimer()
-    stage = tp.stage_hook(timer)
-    with tp.span("t.staged"):
-        with stage("outer"):
-            with stage("inner", sync=False):
-                time.sleep(0.001)
-    unit = _last("t.staged")
-    assert set(timer.times) == {"outer", "inner"}
-    assert unit.spans["inner"] >= timer.times["inner"] > 0
-    assert tp.stage_hook(None) is tp.stage_span
+def _request_songs(tmp_path):
+    """One composition and one style of 12 bars (a 16-bar bucket once
+    ``BAR_BUCKETS`` is patched), written to ``tmp_path``."""
+    from benchmark.gen import songs
+
+    size = dict(numer=4, n_bars=12, n_pitched=2, drums=True)
+    blobs, _ = songs.make_pool(5, 2, sizes=[size, size])
+    paths = [str(tmp_path / f"{name}.mid") for name in ("c", "s")]
+    for path, blob in zip(paths, blobs):
+        with open(path, "wb") as fh:
+            fh.write(blob)
+    return paths
+
+
+@pytest.mark.parametrize("fuse", [True, False],
+                         ids=["one-program", "two-program"])
+def test_a_timed_request_reads_its_units_stages(tmp_path, monkeypatch,
+                                                 fuse):
+    """A ``StageTimer`` on a card (its synchronize stubbed) timing a CPU
+    request holds the stage names of the request's unit, each with the
+    unit's self time; every stage but ``UNSYNCED_STAGES`` waits for the
+    card as it closes, and a request that nothing times waits for
+    nothing."""
+    import mst_torch.transfer as tt
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: synced.append(
+                            tp._local.stack[-1].name))
+    monkeypatch.setattr(tt, "BAR_BUCKETS", (16,) + tt.BAR_BUCKETS)
+    comp, style = _request_songs(tmp_path)
+    bundle = tt.ModelBundle.from_npz(device="cpu", fuse_requests=fuse)
+    timer = tp.StageTimer("cuda")
+    tt.transfer_styles(bundle, [comp], [style], str(tmp_path / "timed"),
+                       stage=timer)
+    unit = _last(tt.REQUEST_SPAN)
+    stages = {k: v for k, v in unit.spans.items() if k != tt.REQUEST_SPAN}
+    assert timer.times == stages
+    assert {tt.STAGE_EXTRACT_BLOCK, tt.STAGE_ORIGINALS,
+            tt.STAGE_SHARD_APPLY.format(0)} <= set(stages)
+    unsynced = {name.format(0) for name in tt.UNSYNCED_STAGES}
+    assert set(synced) == set(stages) - unsynced
+    assert len(unsynced & set(stages)) == (5 if fuse else 6)
+    synced.clear()
+    tt.transfer_styles(bundle, [comp], [style], str(tmp_path / "plain"))
+    assert synced == []
+    assert set(_last(tt.REQUEST_SPAN).spans) == set(unit.spans) - {
+        tt.STAGE_EXTRACT_BLOCK}
 
 
 def test_a_cpu_request_is_one_unit(tmp_path, monkeypatch):
@@ -206,14 +245,7 @@ def test_a_cpu_request_is_one_unit(tmp_path, monkeypatch):
     request's stages, its program run, the re-pack and no re-dispatch."""
     import mst_torch.transfer as tt
 
-    from benchmark.gen import songs
-
-    size = dict(numer=4, n_bars=12, n_pitched=2, drums=True)
-    blobs, _ = songs.make_pool(5, 2, sizes=[size, size])
-    comp, style = (str(tmp_path / f"{name}.mid") for name in ("c", "s"))
-    for path, blob in zip((comp, style), blobs):
-        with open(path, "wb") as fh:
-            fh.write(blob)
+    comp, style = _request_songs(tmp_path)
     bundle = tt.ModelBundle.from_npz(device="cpu")
     bundle.pool_hint_p = bundle.pool_hint_u = 1
     monkeypatch.setattr(tt, "POOL_TIERS", (16,) + tt.POOL_TIERS)
