@@ -15,6 +15,7 @@ from __future__ import annotations
 from torch import nn
 
 from mst_torch.models.layers import Conv1d, Dense, leaky_relu, mean_size
+from mst_torch.ops import melody_kernel
 from mst_torch.ops.lstm import LSTM, BiLSTM
 from mst_torch.ops.shapes import cat_with_broadcast, combine, squash_dims
 
@@ -160,26 +161,29 @@ class MelodyEncoder(nn.Module):
         self.linear = Dense(m + chans, m)
 
     def forward(self, beats, bars, channels, instruments, channel_mask=None):
-        m = self.melody_size
+        """The note tail and the channel pooling run as K5 where
+        ``melody_kernel.takes_kernel`` says so (serving on the card), else
+        as ``melody_kernel.melody_tail_plain``, the composition."""
+        kernel = melody_kernel.takes_kernel(channels, beats, bars,
+                                            instruments, *self.parameters())
         x1 = leaky_relu(self.beats_linear(beats))[:, :, :, :, None, :]
         x2 = leaky_relu(self.bars_linear(bars))[:, None, :, None, None, :]
         x3 = leaky_relu(self.instruments_linear(instruments))[
             :, :, None, None, None, :]
-        y = cat_with_broadcast([
-            x1.expand(tuple(x1.shape[:4]) + (N_BEAT_FRACTIONS, x1.shape[-1])),
-            x2, x3], -1)                                # (B,C,R,T,F10,F)
-
-        x = self.octave_linear(y)
-        x = x.reshape(tuple(x.shape[:-1]) + (N_OCTAVES, m))
-        x1 = leaky_relu(x)[..., :, None, :]
-        x = self.scale_degree_linear(y)
-        x = x.reshape(tuple(x.shape[:-1]) + (N_SCALE_DEGREES, m))
-        x2 = leaky_relu(x)[..., None, :, :]
-        x1 = squash_dims(leaky_relu(x1 + x2), 5, 7)
-
-        x2 = leaky_relu(self.channels_linear(channels))
-        x = leaky_relu(self.linear(cat_with_broadcast([x1, x2], -1)))
-        return combine(x, axis=1, mask=channel_mask, over_bars=True)
+        if not kernel:      # K5 takes one row a (b, c, r, t), not ten
+            x1 = x1.expand(tuple(x1.shape[:4])
+                           + (N_BEAT_FRACTIONS, x1.shape[-1]))
+        y = cat_with_broadcast([x1, x2, x3], -1)        # (B,C,R,T,F,F)
+        o = leaky_relu(self.octave_linear(y))
+        s = leaky_relu(self.scale_degree_linear(y))
+        weights = (self.channels_linear.weight, self.channels_linear.bias,
+                   self.linear.weight, self.linear.bias)
+        if not kernel:
+            return melody_kernel.melody_tail_plain(o, s, channels, *weights,
+                                                   channel_mask)
+        return melody_kernel.melody_tail(o, s, channels, *weights,
+                                         channel_mask,
+                                         embed_width=y.shape[-1])
 
 
 class PitchedRhythmEncoder(nn.Module):

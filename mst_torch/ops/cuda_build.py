@@ -35,12 +35,16 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # plain torch versions (a separate multiply and add per term) and the two
 # agree bit for bit. So is the LSTM recurrence, whose cell update then
 # rounds as the plain loop's separate kernels do (its dot product uses
-# explicit fused multiply-adds).
+# explicit fused multiply-adds). The melody tail contracts its products and
+# biases into fused multiply-adds (--fmad=true, nvcc's default, said here):
+# the composition it stands for sums its products in cuBLAS's order, so no
+# choice gives its bits, and it is held to the fp32-reassociation rule.
 KERNEL_FLAGS = {
     "raster": (),
     "grid_tail": ("--fmad=false",),
     "grid_tail_bwd": ("--fmad=false",),
     "lstm_recur": ("--fmad=false",),
+    "melody_tail": ("--fmad=true",),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

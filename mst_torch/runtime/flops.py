@@ -21,6 +21,11 @@ versions run inside ``uncounted`` (mst_torch.ops.flop_scope), which takes
 back what they add to the counts open on their thread
 (``grid_tail_bwd_plain`` forms ct_w as one matrix product).
 
+K5 (mst_torch.ops.melody_kernel) counts the products of the composition
+it replaces, the embedding products' ten fraction repeats and the masked
+channels' note-grid products included, so the melody encoder counts the
+same on the card as on the CPU.
+
 Peaks are the card's published dense rates, keyed by the name
 ``torch.cuda.get_device_name`` reports. A card or dtype not in the table,
 and the CPU, raise: the JAX package falls back to its target chip's

@@ -80,10 +80,11 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 BACKWARD_PREFIX = "autograd::engine::evaluate_function"
 STEP_RANGE = "ProfilerStep#"     # the tracer's own range around a step
 # the port's CUDA kernels by symbol (mst_torch/csrc); bf16 forms are the
-# same templates
+# same templates, and K5's two passes share a prefix
 KERNEL_SYMBOLS = (("K3", "grid_tail_bwd_kernel"), ("K2", "grid_tail_kernel"),
                   ("K1", "raster_kernel"), ("K4", "lstm_recur_kernel"),
-                  ("K4 bwd", "lstm_recur_bwd_kernel"))
+                  ("K4 bwd", "lstm_recur_bwd_kernel"),
+                  ("K5", "melody_tail_"))
 MATMUL_OPS = frozenset((
     "aten::mm", "aten::bmm", "aten::addmm", "aten::addbmm", "aten::baddbmm",
     "aten::matmul", "aten::linear", "aten::mv", "aten::addmv", "aten::dot",
@@ -394,7 +395,7 @@ def _stack_category(stack) -> Optional[str]:
 
 
 def _kernel_category(name: str, cat: str, stack) -> str:
-    """One of K1, K2, K3, K4, K4 bwd, matmul, conv, copy, optimizer and
+    """One of K1, K2, K3, K4, K4 bwd, K5, matmul, conv, copy, optimizer and
     elementwise/reduce for a device event (``cat`` its trace category)
     launched under the host ``stack`` (outermost first)."""
     for label, symbol in KERNEL_SYMBOLS:

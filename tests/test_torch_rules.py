@@ -242,14 +242,15 @@ def test_library_name_follows_source_and_flags():
     paths = {name: cuda_build.library_path(name)
              for name in cuda_build.KERNEL_FLAGS}
     assert sorted(paths) == ["grid_tail", "grid_tail_bwd", "lstm_recur",
-                             "raster"]
-    assert len(set(paths.values())) == 4
+                             "melody_tail", "raster"]
+    assert len(set(paths.values())) == 5
     assert all(os.path.dirname(p) == cuda_build.BUILD_DIR
                for p in paths.values())
     assert cuda_build.BUILD_DIR.startswith(ROOT)
     assert "--fmad=false" in cuda_build._flags("grid_tail")
     assert "--fmad=false" in cuda_build._flags("grid_tail_bwd")
     assert "--fmad=false" in cuda_build._flags("lstm_recur")
+    assert "--fmad=true" in cuda_build._flags("melody_tail")
     assert "arch=compute_90a,code=sm_90a" in cuda_build._flags("raster")
 
 
