@@ -345,11 +345,11 @@ PROFILE_SUM_RTOL = 1e-3
 # phase 13: the most device time a request or a micro-step may spend
 # outside every model component, `other [fwd|bwd]`, in ms (a broken
 # host-device or forward-backward link puts most kernels there). The
-# request reads 5.8 ms on an H100 (the compactions, the packing, copies),
-# the same since K4 and K5 cut its busy time from 28.5 to 13.2 ms; a
-# micro-step reads 2.1 ms of 8.1 ms busy. In ms, not as a share of busy
-# time, the bound holds while other work gets faster.
-OTHER_MAX_MS = {"request": 7.0, "micro-step": 2.8}
+# request read 5.8 ms on an H100 (the compactions, the packing, copies)
+# until K6 took the packing and the compactions: 0.63 ms of 8.0 ms busy
+# since; a micro-step reads 2.1 ms of 8.1 ms busy. In ms, not as a share
+# of busy time, the bound holds while other work gets faster.
+OTHER_MAX_MS = {"request": 1.0, "micro-step": 2.8}
 STAGE_SUM_RTOL = 0.1      # phase 13: stages' sum vs the staged wall time
 TRACE_TAKES = 3           # traces of a run, until one has every device record
 RANK_TIMEOUT = 600        # seconds the phase-10 and 11 ranks may take
@@ -371,6 +371,9 @@ K4_PER_SEQ_STEP = 3
 # K5 launches a request of the smoke songs: one extraction, two passes (a
 # mesh: on each shard); a training step runs the composition (autograd)
 K5_PER_REQUEST = 2
+# K6 launches a request: two passes for each note family (a mesh: on each
+# shard); training packs nothing
+K6_PER_REQUEST = 4
 # phase 13: the most device time of the 12-job request's melody encoder
 # (its prologue and K5), in ms; the composition took 6.9 ms on an NVIDIA
 # H100 80GB HBM3
@@ -418,8 +421,8 @@ def cuda_ms(fn, iters, warmup=3):
 def _counters():
     """(name in the kernels line, wrapper, counter attribute) of every
     kernel form."""
-    from mst_torch.ops import (grid_kernel, lstm_kernel, melody_kernel,
-                               raster_kernel)
+    from mst_torch.ops import (compact_kernel, grid_kernel, lstm_kernel,
+                               melody_kernel, raster_kernel)
     wrappers = (("raster", raster_kernel.rasterize),
                 ("grid_tail", grid_kernel.grid_tail),
                 ("grid_tail_bwd", grid_kernel.grid_tail_bwd),
@@ -428,7 +431,8 @@ def _counters():
     return [(name + suffix, fn, attr) for name, fn in wrappers
             for suffix, attr in (("", "launches"),
                                  ("_bf16", "launches_bf16"))] + [
-        ("melody_tail", melody_kernel.melody_tail, "launches")]
+        ("melody_tail", melody_kernel.melody_tail, "launches"),
+        ("pack_compact", compact_kernel.pack_compact, "launches")]
 
 
 def reset_launches():
@@ -1470,6 +1474,148 @@ def phase_k5(torch):
                  bound_by=b_by, library_ms=None, detail=detail)]
 
 
+# K6 at the 12-job request's shape: 2-3 channels and 69-124 bars a job
+# (tools/compaction_torch.py's), notes at 0.15% of the cells (one job at
+# 1.2%); each family at its share of the 16,384 tier, and with a routing
+# table of 64 blocks and a capacity of 48 records, which overflow
+K6_CHANNELS = (3, 2, 2, 3, 2, 3, 2, 2, 3, 2, 3, 2)
+K6_BARS = (124, 69, 100, 124, 90, 110, 69, 100, 124, 90, 110, 69)
+K6_FAMILIES = {"pitched": (8, 56, 5, 16384), "unpitched": (1, 47, 2, 4096)}
+
+
+def k6_inputs(torch, family, seed):
+    """pack_compact's inputs at the request's shape: an applier output whose
+    velocities clear the 0.01 gate at the notes alone, durations up to 6
+    beats, ticks per beat 480."""
+    C, N, F, _ = K6_FAMILIES[family]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(12, C, 128, 4, 10, N, F, device="cuda", generator=g)
+    x[..., 0] *= 6.0
+    density = torch.full((12, 1, 1, 1, 1, 1), 0.0015, device="cuda")
+    density[3] = 0.012
+    on = torch.rand(x.shape[:-1], device="cuda", generator=g) < density
+    x[..., 1] = torch.where(on, x[..., 1], x[..., 1] * 0.0099)
+    n_ch = torch.tensor(K6_CHANNELS if C > 1 else (1,) * 12, device="cuda")
+    return (x, torch.full((12,), 480.0, device="cuda"), n_ch,
+            torch.tensor(K6_BARS, device="cuda"))
+
+
+def k6_bound_ms(family, capacity):
+    """K6's bound: the valid (b, c, r) rows' features read once, the
+    records written once."""
+    C, N, F, _ = K6_FAMILIES[family]
+    rows = sum((c if C > 1 else 1) * r for c, r in zip(K6_CHANNELS, K6_BARS))
+    n_bytes = 4 * F * rows * 4 * 10 * N + 16 * 12 * capacity
+    return bound_ms(n_bytes, 0)
+
+
+def phase_k6(torch):
+    """K6 (csrc/pack_compact.cu) against the composition it replaces,
+    ``_compact_song(_pack_word(...))``, bit for bit, for both note families
+    at the 12-job request's shape, at each family's 16,384-tier capacity
+    and with an overflow (a routing table of 64 blocks, a capacity of 48
+    records); three runs and a CUDA graph's replay give the same bits; two
+    launches a call; no host sync; the time of a replay, of each pass and
+    of the glue between them, the composition's and the bound. Returns the
+    entry, its times the sum of the two families."""
+    from mst_torch import transfer as tr
+    from mst_torch.ops import compact_kernel as ck
+
+    def composition(x, tpb, n_ch, n_bars, capacity, max_blocks):
+        word = tr._pack_word(x, tpb.reshape(-1, 1, 1, 1, 1, 1))
+        return tr._compact_song(word, n_ch, n_bars, capacity, max_blocks)
+
+    detail, total = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    max_err = 0.0
+    for f, family in enumerate(K6_FAMILIES):
+        capacity = K6_FAMILIES[family][3]
+        inputs = k6_inputs(torch, family, 60 + f)
+        routing = tr._block_capacities(16384)[f]
+        with torch.inference_mode():
+            for cap, blocks in ((capacity, routing), (48, 64)):
+                args = inputs + (cap, blocks)
+                before = ck.pack_compact.launches
+                runs = [ck.pack_compact(*args) for _ in range(3)]
+                want = composition(*args)
+                torch.cuda.synchronize()
+                n = ck.pack_compact.launches - before
+                if n != 6:
+                    raise AssertionError(f"K6 {family}: {n} launches in 3 "
+                                         f"calls")
+                for r in runs:
+                    for got, ref, name in zip(r, want, ("count", "live",
+                                                        "records")):
+                        max_err = max(max_err,
+                                      float((got - ref).abs().max()))
+                        if got.dtype != ref.dtype or not torch.equal(got,
+                                                                     ref):
+                            raise AssertionError(
+                                f"K6 {family} at capacity {cap}, routing "
+                                f"{blocks}: {name} differs from the "
+                                f"composition's")
+            count, live, _ = want
+            if not ((live > 64).any() and (count > 48).any()):
+                raise AssertionError(f"K6 {family}: the overflow case did "
+                                     f"not overflow")
+            args = inputs + (capacity, routing)
+            count, live, _ = composition(*args)
+            if f == 0:
+                assert_no_sync(torch, "K6 pack_compact",
+                               lambda: ck.pack_compact(*args))
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                ck.pack_compact(*args)
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = ck.pack_compact(*args)
+            graph.replay()
+            torch.cuda.synchronize()
+            eager = ck.pack_compact(*args)
+            if not all(torch.equal(a, b) for a, b in zip(captured, eager)):
+                raise AssertionError(f"K6 {family}: a graph's replay differs "
+                                     f"from the eager call")
+            ms = cuda_ms(graph.replay, 50)
+            x, tpb, n_ch, n_bars = ck._check(*args)
+            counts = ck.count_blocks(x, tpb, n_ch, n_bars)
+            routed, incl, _, _ = ck.route_blocks(counts, routing)
+            parts = {
+                "pass1_ms": cuda_ms(
+                    lambda: ck.count_blocks(x, tpb, n_ch, n_bars), 50),
+                "glue_ms": cuda_ms(lambda: ck.route_blocks(counts, routing),
+                                   50),
+                "pass2_ms": cuda_ms(
+                    lambda: ck.write_records(x, tpb, n_ch, n_bars, routed,
+                                             incl, capacity), 50)}
+            plain = cuda_ms(lambda: composition(*args), 5, warmup=1)
+            del graph, captured
+        b_ms, b_by = k6_bound_ms(family, capacity)
+        detail[family] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                              bound_by=b_by, notes=count.tolist(),
+                              live_blocks=live.tolist(), **parts)
+        for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b_ms)):
+            total[k] += v
+        log(f"K6 {family}: bit-equal to the composition at capacity "
+            f"{capacity} (routing {routing}) and in the overflow case; 3 "
+            f"runs and a replay bit-equal; notes {count.tolist()}, live "
+            f"blocks {live.tolist()}; {ms:.4f} ms a replay (pass 1 "
+            f"{parts['pass1_ms']:.4f}, glue {parts['glue_ms']:.4f}, pass 2 "
+            f"with its zero fill {parts['pass2_ms']:.4f} ms, each in an "
+            f"eager loop), the composition {plain:.4f} ms "
+            f"({plain / ms:.1f}x), bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / ms:.1%})")
+        del inputs, args, runs, want, eager, x, counts, routed, incl
+    return [dict(name="pack_compact", route="cuda",
+                 source="mst_torch/csrc/pack_compact.cu",
+                 replaces="none: XLA's fusion of mst_tpu/transfer.py "
+                          "_pack_word and _compact_song",
+                 max_abs_err=max_err, ms=total["ms"],
+                 plain_ms=total["plain_ms"],
+                 bound_ms=total["bound_ms"], bound_by="bytes",
+                 library_ms=None, detail=detail)]
+
+
 def differing_share(paths_a, paths_b):
     """(note-on events of a pair of file sets that have no exact match in
     the other set, all of their note-on events)."""
@@ -1506,7 +1652,8 @@ def phase_main(torch, bundle, comps, styles, tmp):
         f"({n_jobs} jobs) in {wall:.3f} s per request, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {launches}")
-    for name in ("raster", "grid_tail", "lstm_recur", "melody_tail"):
+    for name in ("raster", "grid_tail", "lstm_recur", "melody_tail",
+                 "pack_compact"):
         if launches[name] == 0:
             raise AssertionError(f"main path launched no {name} kernel")
     check_outputs(written, "main path")
@@ -1588,9 +1735,11 @@ def phase_main(torch, bundle, comps, styles, tmp):
     launches_bf16 = read_launches()
     log(f"bf16 extraction: {n_jobs} jobs in {wall_bf16:.3f} s per request "
         f"(fp32 extraction {wall:.3f} s), launches {launches_bf16}")
-    # bf16 storage takes the melody encoder's composition, not K5
+    # bf16 storage takes the melody encoder's composition, not K5; the
+    # apply stores fp32, so K6 packs and compacts
     want = {"raster_bf16": 2, "raster": 0, "grid_tail": 1,
-            "grid_tail_bf16": 0, "melody_tail": 0}
+            "grid_tail_bf16": 0, "melody_tail": 0,
+            "pack_compact": K6_PER_REQUEST}
     for name, count in want.items():
         if launches_bf16[name] != count:
             raise AssertionError(f"bf16 extraction launched {name} "
@@ -1686,7 +1835,8 @@ def phase_serve_eval(torch, bundle, comps, styles, tmp):
                  [path], [n_bars])
     apply_launches = read_launches()
     log(f"extract_style + apply_styles ({job}): launches {apply_launches}")
-    for kernel in ("raster", "grid_tail", "lstm_recur", "melody_tail"):
+    for kernel in ("raster", "grid_tail", "lstm_recur", "melody_tail",
+                   "pack_compact"):
         if apply_launches[kernel] == 0:
             raise AssertionError(f"extract_style + apply_styles launched no "
                                  f"{kernel} kernel")
@@ -1732,7 +1882,8 @@ def phase_serve_eval(torch, bundle, comps, styles, tmp):
         f"scoring (render on the host + log-mel on the card) "
         f"{audio_s[0]:.3f} s ({audio_s[0] / wall:.1%}), launches "
         f"{eval_launches}")
-    for kernel in ("raster", "grid_tail", "lstm_recur", "melody_tail"):
+    for kernel in ("raster", "grid_tail", "lstm_recur", "melody_tail",
+                   "pack_compact"):
         if eval_launches[kernel] == 0:
             raise AssertionError(f"transfer_and_evaluate launched no "
                                  f"{kernel} kernel")
@@ -1901,11 +2052,12 @@ def phase_train(torch, paths, tmp, bf16=False):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # each training kernel of the run's form launches, K4's forward and
     # backward among them; the other form's never do, nor K5 (autograd
-    # takes the melody encoder's composition)
-    if launches["melody_tail"]:
-        raise AssertionError(f"{label} launched K5")
+    # takes the melody encoder's composition) nor K6 (serving's alone)
+    for name in ("melody_tail", "pack_compact"):
+        if launches[name]:
+            raise AssertionError(f"{label} launched {name}")
     for name, count in launches.items():
-        if name == "melody_tail":
+        if name in ("melody_tail", "pack_compact"):
             continue
         if name.endswith("_bf16") == bf16 and count == 0:
             raise AssertionError(f"{label} launched no {name} kernel")
@@ -2621,12 +2773,12 @@ def phase_profile(torch, serve, fp32, bf16, comps, styles, tmp, smi):
     cases = (("12-job request", serve["summary"], serve["children"],
               ("[fwd]",), OTHER_MAX_MS["request"],
               {"K1": 2, "K2": 1, "K3": 0, "K4": K4_PER_REQUEST,
-               "K5": K5_PER_REQUEST}),
+               "K5": K5_PER_REQUEST, "K6": K6_PER_REQUEST}),
              ("batch-1 fp32 micro-step (pair)", fp32["pair"],
               fp32["children"], ("[fwd]", "[bwd]"),
               OTHER_MAX_MS["micro-step"],
               {"K1": 2, "K2": 1, "K3": 1, "K4": K4_PER_STEP,
-               "K4 bwd": K4_PER_STEP, "K5": 0}))
+               "K4 bwd": K4_PER_STEP, "K5": 0, "K6": 0}))
     for label, s, children, phases, other_max, want in cases:
         busy = s["busy_ms_per_step"]
         comps_ms, cats_ms = s["by_component_ms"], s["by_category_ms"]
@@ -2824,7 +2976,8 @@ def phase_captured(torch, comps, styles, tmp, smi, request_flops):
     launches = counted(bundle, "replay_counted",
                        {"raster": 2, "grid_tail": 1,
                         "lstm_recur": K4_PER_REQUEST,
-                        "melody_tail": K5_PER_REQUEST})
+                        "melody_tail": K5_PER_REQUEST,
+                        "pack_compact": K6_PER_REQUEST})
     log(f"phase 14: one replayed request: launches {launches}")
 
     held = len(programs.graphs)
@@ -2889,15 +3042,15 @@ def phase_captured(torch, comps, styles, tmp, smi, request_flops):
 
     summary, wall = complete_trace("phase 14 traced replay", take)
     got = {k: summary["by_category_launches"].get(k, 0)
-           for k in ("K1", "K2", "K3", "K4", "K5")}
+           for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
     n = traced["launches"]
     counters = {"K1": n["raster"] + n["raster_bf16"],
                 "K2": n["grid_tail"] + n["grid_tail_bf16"],
                 "K3": n["grid_tail_bwd"] + n["grid_tail_bwd_bf16"],
                 "K4": n["lstm_recur"] + n["lstm_recur_bf16"],
-                "K5": n["melody_tail"]}
+                "K5": n["melody_tail"], "K6": n["pack_compact"]}
     want = {"K1": 2, "K2": 1, "K3": 0, "K4": K4_PER_REQUEST,
-            "K5": K5_PER_REQUEST}
+            "K5": K5_PER_REQUEST, "K6": K6_PER_REQUEST}
     if got != counters or got != want:
         raise AssertionError(f"phase 14: the traced replay's device records "
                              f"{got}, the counters {counters}, want {want}")
@@ -2974,7 +3127,8 @@ def phase_captured(torch, comps, styles, tmp, smi, request_flops):
                                    extract_storage_dtype="bfloat16")
     capture(bf16, "bf16 extraction")
     counted(bf16, "bf16_replay", {"raster_bf16": 2, "grid_tail": 1,
-                                  "lstm_recur": K4_PER_REQUEST})
+                                  "lstm_recur": K4_PER_REQUEST,
+                                  "pack_compact": K6_PER_REQUEST})
     equal, n_files, boundary = files_against(
         os.path.join(tmp, "bf16_replay"), os.path.join(tmp, "bf16"),
         "phase 14 bf16 extraction")
@@ -3194,7 +3348,8 @@ def phase_mesh(torch, comps, styles, songs, tmp, smi, request_flops):
     capture(single, "single fp32")
     launches, shards = by_shard(mesh_b, "mesh_counted")
     want_shard = {"raster": 2, "grid_tail": 1, "lstm_recur": K4_PER_REQUEST,
-                  "melody_tail": K5_PER_REQUEST}
+                  "melody_tail": K5_PER_REQUEST,
+                  "pack_compact": K6_PER_REQUEST}
     for s, got in enumerate(shards):
         if any(got[k] != want_shard.get(k, 0) for k in names):
             raise AssertionError(f"phase 16: shard {s} launched {got}, want "
@@ -3263,9 +3418,9 @@ def phase_mesh(torch, comps, styles, songs, tmp, smi, request_flops):
 
     summary, wall = complete_trace("phase 16 traced mesh replay", take)
     got = {k: summary["by_category_launches"].get(k, 0)
-           for k in ("K1", "K2", "K3", "K4", "K5")}
+           for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
     if got != {"K1": 2 * n, "K2": n, "K3": 0, "K4": K4_PER_REQUEST * n,
-               "K5": K5_PER_REQUEST * n} or \
+               "K5": K5_PER_REQUEST * n, "K6": K6_PER_REQUEST * n} or \
             traced["launches"] != launches:
         raise AssertionError(f"phase 16: the traced mesh replay's device "
                              f"records {got}, counters {traced['launches']}")
@@ -3653,7 +3808,8 @@ def main():
     # phase 14; phase 14 captures them
     bundle = ModelBundle.from_npz(device="cuda", capture=False)
     kernels = (phase_k1(torch, bundle, songs) + phase_k2(torch)
-               + phase_k4(torch) + phase_k4_bwd(torch) + phase_k5(torch))
+               + phase_k4(torch) + phase_k4_bwd(torch) + phase_k5(torch)
+               + phase_k6(torch))
     with tempfile.TemporaryDirectory() as tmp:
         serve, serve_bf16, serve_flops = phase_main(torch, bundle, comps,
                                                     styles, tmp)

@@ -39,12 +39,15 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # biases into fused multiply-adds (--fmad=true, nvcc's default, said here):
 # the composition it stands for sums its products in cuBLAS's order, so no
 # choice gives its bits, and it is held to the fp32-reassociation rule.
+# The packing and compaction kernel is built without contraction too: its
+# words are the composition's bits, each multiply rounded alone.
 KERNEL_FLAGS = {
     "raster": (),
     "grid_tail": ("--fmad=false",),
     "grid_tail_bwd": ("--fmad=false",),
     "lstm_recur": ("--fmad=false",),
     "melody_tail": ("--fmad=true",),
+    "pack_compact": ("--fmad=false",),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -24,7 +24,9 @@ back what they add to the counts open on their thread
 K5 (mst_torch.ops.melody_kernel) counts the products of the composition
 it replaces, the embedding products' ten fraction repeats and the masked
 channels' note-grid products included, so the melody encoder counts the
-same on the card as on the CPU.
+same on the card as on the CPU. K6 (mst_torch.ops.compact_kernel) counts
+the block prefix product of the compaction it replaces, one (B G, 128) @
+(128, 128) product a note family.
 
 Peaks are the card's published dense rates, keyed by the name
 ``torch.cuda.get_device_name`` reports. A card or dtype not in the table,

@@ -46,10 +46,10 @@ a torch trace has none of them. Here:
   node, run by the engine) carries the ``Sequence number`` of the forward
   op that made it: it goes to that forward op's component;
 - its category (``_kernel_category``) comes from the kernel's name (K1,
-  K2, K3, K4, ``K4 bwd``; memcpy and memset are ``copy``), or else from
-  the innermost op of its stack that names one (a matmul, a convolution,
-  a copy, the optimizer's step), or else from matmul and convolution
-  kernel names;
+  K2, K3, K4, ``K4 bwd``, K5, K6; memcpy and memset are ``copy``), or
+  else from the innermost op of its stack that names one (a matmul, a
+  convolution, a copy, the optimizer's step), or else from matmul and
+  convolution kernel names;
   everything else is ``elementwise/reduce``;
 - no bytes: torch.profiler records none per kernel.
 
@@ -80,11 +80,11 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 BACKWARD_PREFIX = "autograd::engine::evaluate_function"
 STEP_RANGE = "ProfilerStep#"     # the tracer's own range around a step
 # the port's CUDA kernels by symbol (mst_torch/csrc); bf16 forms are the
-# same templates, and K5's two passes share a prefix
+# same templates, and the two passes of K5 and of K6 share a prefix
 KERNEL_SYMBOLS = (("K3", "grid_tail_bwd_kernel"), ("K2", "grid_tail_kernel"),
                   ("K1", "raster_kernel"), ("K4", "lstm_recur_kernel"),
                   ("K4 bwd", "lstm_recur_bwd_kernel"),
-                  ("K5", "melody_tail_"))
+                  ("K5", "melody_tail_"), ("K6", "pack_compact_"))
 MATMUL_OPS = frozenset((
     "aten::mm", "aten::bmm", "aten::addmm", "aten::addbmm", "aten::baddbmm",
     "aten::matmul", "aten::linear", "aten::mv", "aten::addmv", "aten::dot",
@@ -395,8 +395,8 @@ def _stack_category(stack) -> Optional[str]:
 
 
 def _kernel_category(name: str, cat: str, stack) -> str:
-    """One of K1, K2, K3, K4, K4 bwd, K5, matmul, conv, copy, optimizer and
-    elementwise/reduce for a device event (``cat`` its trace category)
+    """One of K1, K2, K3, K4, K4 bwd, K5, K6, matmul, conv, copy, optimizer
+    and elementwise/reduce for a device event (``cat`` its trace category)
     launched under the host ``stack`` (outermost first)."""
     for label, symbol in KERNEL_SYMBOLS:
         if symbol in name:

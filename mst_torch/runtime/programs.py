@@ -89,19 +89,20 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from mst_torch.ops import (grid_kernel, lstm_kernel, melody_kernel,
-                           precision, raster_kernel)
+from mst_torch.ops import (compact_kernel, grid_kernel, lstm_kernel,
+                           melody_kernel, precision, raster_kernel)
 from mst_torch.runtime.profile import count
 
-# (wrapper, counter attribute) of every kernel form; K5 has an fp32 form
-# alone
+# (wrapper, counter attribute) of every kernel form; K5 and K6 have an
+# fp32 form alone
 COUNTERS = tuple((fn, attr)
                  for fn in (raster_kernel.rasterize, grid_kernel.grid_tail,
                             grid_kernel.grid_tail_bwd,
                             lstm_kernel.lstm_recur,
                             lstm_kernel.lstm_recur_bwd)
                  for attr in ("launches", "launches_bf16")) + (
-    (melody_kernel.melody_tail, "launches"),)
+    (melody_kernel.melody_tail, "launches"),
+    (compact_kernel.pack_compact, "launches"))
 
 
 def _launch_counts() -> Tuple[int, ...]:

@@ -22,8 +22,10 @@ predicted and instruments picked, both appliers run (the pitched one's
 note-grid tail is K2, ``csrc/grid_tail.cu``), every cell is packed into one
 word, and the nonzero words are compacted at a fixed record capacity into
 the ascending (cell, word) records of mst_tpu's ``_compact_song``
-(``fused:{capacity}:{Cb}``). When every song of a request shares one
-extraction bucket, both run as one program (``transfer_fused:...``).
+(``fused:{capacity}:{Cb}``; on the card at fp32 both steps are K6,
+``csrc/pack_compact.cu``, whose records are the composition's bit for
+bit). When every song of a request shares one extraction bucket, both
+run as one program (``transfer_fused:...``).
 Each program returns one buffer in mst_tpu's layout, fetched once; its
 header holds the record counts and the live-block counts that the
 capacity ladder (``run_fused_jobs``) reads to escalate through
@@ -103,7 +105,7 @@ from mst_torch.exceptions import MidiFormatError
 from mst_torch.io import create_midi, load_midi_from_file, native
 from mst_torch.io.midi import bpm2tempo
 from mst_torch.models import StyleTransferModel
-from mst_torch.ops import precision
+from mst_torch.ops import compact_kernel, precision
 from mst_torch.ops.device_raster import (
     concat_and_pad, encode_notes, segment_rasterize)
 from mst_torch.ops.events import SongInfo, read_midi
@@ -582,8 +584,10 @@ def _fused_transfer_apply(model: StyleTransferModel, feature_table, style,
     job b pairs ``style[style_idx[b]]`` with the composition latents
     ``melody[comp_idx[b]]``, ``rhythm[comp_idx[b]]``; then song-info
     prediction, the instrument pick and feature gather, both appliers (K2),
-    packing, and the compaction at ``capacity`` (block-routed, or
-    ``dense_compaction``). ``n_instruments`` and ``bar_lengths`` (B,)
+    packing, and the compaction at ``capacity`` (block-routed: K6 where
+    ``compact_kernel.takes_kernel`` says so, else ``_compact_song`` of
+    ``_pack_word``; or ``dense_compaction``, which packs with
+    ``_pack_word``). ``n_instruments`` and ``bar_lengths`` (B,)
     int64, ``tpb`` (B,) float32 ticks per beat.
 
     Returns an int64 tensor holding uint32 values in mst_tpu's layout:
@@ -608,21 +612,26 @@ def _fused_transfer_apply(model: StyleTransferModel, feature_table, style,
                         feature_table[picked.clamp(min=0)], 0.0)
     x_p, x_u = model.apply_style(style, melody, rhythm, instf, True)
     tpb_b = tpb.reshape((B,) + (1,) * 5)
-    word_p = _pack_word(x_p, tpb_b)
-    word_u = _pack_word(x_u, tpb_b)
     cap_u = capacity // 4
     u_channels = has_unpitched.to(torch.int64)
     if dense_compaction:
         count_p, live_p, rec_p = _compact_song_dense(
-            word_p, n_picked, bar_lengths, capacity)
+            _pack_word(x_p, tpb_b), n_picked, bar_lengths, capacity)
         count_u, live_u, rec_u = _compact_song_dense(
-            word_u, u_channels, bar_lengths, cap_u)
+            _pack_word(x_u, tpb_b), u_channels, bar_lengths, cap_u)
     else:
         blocks_p, blocks_u = _block_capacities(capacity)
-        count_p, live_p, rec_p = _compact_song(
-            word_p, n_picked, bar_lengths, capacity, blocks_p)
-        count_u, live_u, rec_u = _compact_song(
-            word_u, u_channels, bar_lengths, cap_u, blocks_u)
+
+        def compact(x, n_channels, cap, max_blocks):
+            """K6 where it takes the call, else the composition."""
+            if compact_kernel.takes_kernel(x):
+                return compact_kernel.pack_compact(
+                    x, tpb, n_channels, bar_lengths, cap, max_blocks)
+            return _compact_song(_pack_word(x, tpb_b), n_channels,
+                                 bar_lengths, cap, max_blocks)
+
+        count_p, live_p, rec_p = compact(x_p, n_picked, capacity, blocks_p)
+        count_u, live_u, rec_u = compact(x_u, u_channels, cap_u, blocks_u)
     header = torch.stack([
         torch.round(bpm_pred).to(torch.int64),
         torch.argmax(mode_pred, dim=-1), n_picked, u_channels,

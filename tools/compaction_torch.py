@@ -16,8 +16,12 @@ applier output; beside them two yardsticks that the port does not run:
 ``cumsum`` along the 128-cell blocks (what the block prefix product
 replaces) and ``torch.nonzero`` of the masked words (the port's earlier
 compaction, which waits for the device). The block-routed records must
-equal the dense compaction's. It prints the card's name and power limit.
-Without a card it raises.
+equal the dense compaction's. Then K6 (``compact_kernel.pack_compact``)
+beside the composition it replaces, ``_compact_song`` of ``_pack_word``,
+on applier outputs whose velocities clear the 0.01 gate at the notes
+alone (the same densities; (12, 1, 128, 4, 10, 47, 2) for the unpitched
+family), at the 16,384 and 65,536 tiers: the outputs must be bit-equal.
+It prints the card's name and power limit. Without a card it raises.
 """
 
 import argparse
@@ -59,6 +63,26 @@ def words(shape, density, seed):
                        0).cuda()
 
 
+def applier_output(shape, density, seed):
+    """An fp32 applier output on the card whose velocities clear the 0.01
+    gate at the per-job ``density`` ((B,)) of the cells alone."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(shape, generator=g)
+    x[..., 0] *= 6.0
+    on = torch.rand(shape[:-1], generator=g) < density.view(
+        (-1,) + (1,) * (len(shape) - 2))
+    x[..., 1] = torch.where(on, x[..., 1], x[..., 1] * 0.0099)
+    return x.cuda()
+
+
+def composition(x, tpb, n_channels, n_bars, capacity, max_blocks):
+    """What K6 replaces: ``_compact_song`` of ``_pack_word``."""
+    from mst_torch import transfer as tr
+    word = tr._pack_word(x, tpb.view(-1, 1, 1, 1, 1, 1))
+    return tr._compact_song(word, n_channels, n_bars, capacity, max_blocks)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=20)
@@ -67,6 +91,7 @@ def main(argv=None):
     import torch
 
     from mst_torch import transfer as tr
+    from mst_torch.ops import compact_kernel
 
     if not torch.cuda.is_available():
         raise RuntimeError("compaction_torch: no CUDA device")
@@ -104,16 +129,33 @@ def main(argv=None):
         args.iters)
     ms["_pack_pool, 32768 of the 65536-tier records"] = cuda_ms(
         lambda: tr._pack_pool(rec, count, 32768), args.iters)
-    x = torch.rand(B, C, R, T, 10, 56, 5, generator=torch.Generator()
-                   .manual_seed(2)).cuda()
-    tpb = torch.full((B, 1, 1, 1, 1, 1), 480.0, device="cuda")
-    ms["_pack_word"] = cuda_ms(lambda: tr._pack_word(x, tpb), args.iters)
+    x = applier_output((B, C, R, T, 10, 56, 5), density, 2)
+    tpb = torch.full((B,), 480.0, device="cuda")
+    ms["_pack_word"] = cuda_ms(
+        lambda: tr._pack_word(x, tpb.view(B, 1, 1, 1, 1, 1)), args.iters)
     mask = (word_p != 0).to(torch.uint8).view(B, -1, 128)
     ms["yardstick: cumsum along the blocks"] = cuda_ms(
         lambda: mask.cumsum(-1, dtype=torch.uint8), args.iters)
     flat = tr._masked_flat(word_p, n_ch, n_bars)
     ms["yardstick: torch.nonzero (waits for the device)"] = cuda_ms(
         lambda: torch.nonzero(flat), args.iters)
+    x_u = applier_output((B, 1, R, T, 10, 47, 2), torch.full((B,), 0.003), 3)
+    for cap in (16384, 65536):
+        blocks_p, blocks_u = tr._block_capacities(cap)
+        for family, xf, ch, c, blocks in (
+                ("pitched", x, n_ch, cap, blocks_p),
+                ("unpitched", x_u, u_ch, cap // 4, blocks_u)):
+            inputs = (xf, tpb, ch, n_bars, c, blocks)
+            with torch.inference_mode():
+                got = compact_kernel.pack_compact(*inputs)
+                want = composition(*inputs)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K6 and the composition differ: "
+                                     f"{family}, {c}")
+            ms[f"K6 pack_compact {family}, {c}"] = cuda_ms(
+                lambda: compact_kernel.pack_compact(*inputs), args.iters)
+            ms[f"_compact_song(_pack_word) {family}, {c}"] = cuda_ms(
+                lambda: composition(*inputs), args.iters)
     print(f"{smi}; notes a job {count.tolist()}")
     for name, t in ms.items():
         print(f"  {name}: {t:.4f} ms")
